@@ -1,0 +1,197 @@
+"""Audio tower: wav2vec2-large (layer-norm conv extractor, stable-LN encoder).
+
+Port of ``mme_tpu/models/audio.py`` for the path the TAV model serves:
+``Wav2Vec2Spec``, ``ConvFeatureExtractor`` (layer-norm variant),
+``FeatureProjection``, ``PositionalConvEmbedding``, ``Wav2Vec2Encoder``
+(stable-LN) and ``Wav2Vec2Model``. The base variant (group-norm extractor,
+post-LN encoder), SpecAugment and ``Wav2Vec2Classifier`` are not ported yet.
+
+Public tensors keep the JAX layout: waveforms [B, T], features and hidden
+states [B, F, C]. The convolutions run through ``F.conv1d`` (JAX leaves
+them to XLA), channels-first inside.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.models.layers import (Dense, EncoderSpec,
+                                         TransformerEncoder, activation,
+                                         empty_param)
+from mme_tpu_torch.ops.attention import additive_mask
+from mme_tpu_torch.ops.audio import feature_vector_attention_mask
+from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2Spec:
+    conv_dims: Sequence[int] = (512,) * 7
+    conv_kernels: Sequence[int] = (10, 3, 3, 3, 3, 2, 2)
+    conv_strides: Sequence[int] = (5, 2, 2, 2, 2, 2, 2)
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    encoder: EncoderSpec = dataclasses.field(default_factory=lambda: EncoderSpec(
+        hidden=1024, heads=16, layers=24, intermediate=4096, ln_style="pre",
+        ln_eps=1e-5, final_ln=True))
+
+    @staticmethod
+    def large(**kw) -> "Wav2Vec2Spec":
+        """'ehcalabres/wav2vec2-lg-xlsr-en-speech-emotion-recognition'-shaped."""
+        return Wav2Vec2Spec(**kw)
+
+
+class Conv1d(nn.Module):
+    """Channels-last 1-D convolution with bias: [B, T, C_in] → [B, T', C_out]
+    in ``dtype``. ``weight`` is [out, in/groups, k] (flax's [k, in/groups,
+    out] kernel permuted)."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1,
+                 dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.dtype = dtype
+        self.weight = empty_param((out_dim, in_dim // groups, kernel), dev)
+        self.bias = empty_param(out_dim, dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).transpose(1, 2)
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if x.device.type == "cpu" and self.dtype != torch.float32:
+            # torch's CPU conv sums bf16 products in bf16 (the grouped k=128
+            # positional conv loses whole units); convolve the same bf16
+            # operands in fp32, as XLA and cuDNN do, and round once
+            x, w, b = x.float(), w.float(), b.float()
+        y = F.conv1d(x, w, b, self.stride, self.padding, 1, self.groups)
+        return y.to(self.dtype).transpose(1, 2)
+
+
+class ConvFeatureExtractor(nn.Module):
+    """The strided conv stack over raw waveforms, each conv (with bias)
+    followed by a LayerNorm over channels and exact gelu: [B, T] →
+    [B, F, C_last]."""
+
+    def __init__(self, spec: Wav2Vec2Spec, device: DeviceLike = "cuda"):
+        super().__init__()
+        e = spec.encoder
+        self.n_convs = len(spec.conv_dims)
+        in_dim = 1
+        for i, (dim, k, st) in enumerate(zip(spec.conv_dims, spec.conv_kernels,
+                                             spec.conv_strides)):
+            self.add_module(f"conv_{i}", Conv1d(
+                in_dim, dim, k, st, dtype=e.dtype, device=device))
+            self.add_module(f"ln_{i}", FusedLayerNorm(dim, 1e-5, e.dtype,
+                                                      device=device))
+            in_dim = dim
+        self.gelu = activation("gelu")
+
+    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+        x = waveform[..., None]
+        for i in range(self.n_convs):
+            x = getattr(self, f"conv_{i}")(x)
+            x = self.gelu(getattr(self, f"ln_{i}")(x))
+        return x
+
+
+class FeatureProjection(nn.Module):
+    def __init__(self, spec: Wav2Vec2Spec, device: DeviceLike = "cuda"):
+        super().__init__()
+        e = spec.encoder
+        self.ln = FusedLayerNorm(spec.conv_dims[-1], e.ln_eps, e.dtype,
+                                 device=device)
+        self.projection = Dense(spec.conv_dims[-1], e.hidden, dtype=e.dtype,
+                                device=device)
+
+    def forward(self, features: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        norm = self.ln(features)
+        return self.projection(norm), norm
+
+
+class PositionalConvEmbedding(nn.Module):
+    """Grouped conv positional embedding (k=128, 16 groups) padded k//2 on
+    each side; an even k trims the last frame. Weight-norm is folded into
+    the kernel."""
+
+    def __init__(self, spec: Wav2Vec2Spec, device: DeviceLike = "cuda"):
+        super().__init__()
+        e = spec.encoder
+        k = spec.num_conv_pos_embeddings
+        self.trim = k % 2 == 0
+        self.conv = Conv1d(e.hidden, e.hidden, k, 1, k // 2,
+                           spec.num_conv_pos_embedding_groups, dtype=e.dtype,
+                           device=device)
+        self.gelu = activation("gelu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        if self.trim:
+            y = y[:, :-1, :]
+        return self.gelu(y)
+
+
+class Wav2Vec2Encoder(nn.Module):
+    """Conv positional embedding then the stable-LN transformer stack (its
+    trailing LayerNorm is ``EncoderSpec.final_ln``)."""
+
+    def __init__(self, spec: Wav2Vec2Spec, device: DeviceLike = "cuda"):
+        super().__init__()
+        self.pos_conv = PositionalConvEmbedding(spec, device=device)
+        self.layers = TransformerEncoder(spec.encoder, device=device)
+
+    def forward(self, hidden: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        if attention_mask is not None:
+            hidden = hidden * attention_mask[..., None].to(hidden.dtype)
+        hidden = hidden + self.pos_conv(hidden)
+        bias = None if attention_mask is None else additive_mask(
+            attention_mask)
+        return self.layers(hidden, bias)
+
+
+class Wav2Vec2Model(nn.Module):
+    """Waveform [B, T] (+ keep-mask) → (hidden [B, F, H], normalised
+    features, feature mask [B, F] or None).
+
+    ``with_feature_extractor=False`` builds the model without its own conv
+    stack, for the TAV model's shared audio frontend: the features then come
+    in through ``features``. ``masked_spec_embed`` is SpecAugment's learned
+    vector; serving never reads it, but it is carried so the weights round
+    trip."""
+
+    def __init__(self, spec: Wav2Vec2Spec, with_feature_extractor: bool = True,
+                 device: DeviceLike = "cuda"):
+        super().__init__()
+        self.spec = spec
+        self.feature_extractor = (ConvFeatureExtractor(spec, device=device)
+                                  if with_feature_extractor else None)
+        self.feature_projection = FeatureProjection(spec, device=device)
+        self.masked_spec_embed = empty_param(spec.encoder.hidden,
+                                             resolve_device(device))
+        self.encoder = Wav2Vec2Encoder(spec, device=device)
+
+    def forward(self, waveform: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                features: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
+        s = self.spec
+        if features is None:
+            features = self.feature_extractor(waveform)
+        feat_mask = None
+        if attention_mask is not None:
+            feat_mask = feature_vector_attention_mask(
+                features.shape[1], attention_mask, s.conv_kernels,
+                s.conv_strides)
+        hidden, norm_features = self.feature_projection(features)
+        hidden = self.encoder(hidden, feat_mask)
+        return hidden, norm_features, feat_mask

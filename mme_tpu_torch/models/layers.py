@@ -1,0 +1,201 @@
+"""Shared transformer building blocks.
+
+Port of ``mme_tpu/models/layers.py``: ``EncoderSpec``, ``activation``,
+``MultiHeadAttention`` (one fused QKV projection), ``Mlp``, pre- and
+post-LN ``EncoderBlock`` and ``TransformerEncoder``; plus ``Dense`` and
+``Embed``, the port's counterparts of flax's ``nn.Dense`` and ``nn.Embed``.
+The sequence/pipeline-parallel, scan-over-layers, remat and fused-MLP
+branches of the JAX module are not ported yet.
+
+Mixed precision follows flax's policy: parameters stay fp32 (or whatever
+dtype the caller stored them in) and are cast to the compute dtype where
+they are used; LayerNorm and softmax run in fp32. Modules run the
+deterministic (serving) forward: dropout and its spec fields arrive with
+training.
+
+Parameters are allocated uninitialised: weights come from a flax tree
+through ``mme_tpu_torch/convert.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.ops.attention import dot_product_attention_shd
+from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderSpec:
+    """Architecture knobs shared by every encoder family."""
+
+    hidden: int = 768
+    heads: int = 12
+    layers: int = 12
+    intermediate: int = 3072
+    ln_style: str = "post"           # "post" (BERT) | "pre" (ViT/stable-LN)
+    qkv_bias: str = "full"           # "full" | "qv" (VideoMAE) | "none"
+    ln_eps: float = 1e-12
+    act: str = "gelu"                # exact gelu to match HF defaults
+    final_ln: bool = False            # pre-LN stacks end with a LayerNorm
+    dtype: torch.dtype = torch.float32
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="none")
+    if name == "gelu_new":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    if name == "tanh":
+        return torch.tanh
+    raise ValueError(f"unknown activation {name}")
+
+
+def empty_param(shape: Union[int, Sequence[int]],
+                device: torch.device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
+                                    device=device))
+
+
+class Dense(nn.Module):
+    """``y = x Wᵀ + b`` in ``dtype``; ``weight`` is [out, in] (flax's
+    ``kernel`` transposed)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dtype = dtype
+        self.weight = empty_param((out_features, in_features), dev)
+        self.bias = empty_param(out_features, dev) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class Embed(nn.Module):
+    """Embedding table [num, features]; rows come out in ``dtype``."""
+
+    def __init__(self, num: int, features: int,
+                 dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = "cuda"):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = empty_param((num, features), resolve_device(device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight).to(self.dtype)
+
+
+_QKV_BIAS_MODES = {"full": (1.0, 1.0, 1.0), "qv": (1.0, 0.0, 1.0),
+                   "none": (0.0, 0.0, 0.0)}
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with one fused QKV projection ``[hidden] → [3, H, D]``.
+
+    ``qkv_bias`` is a [3, H, D] parameter masked by the spec's mode:
+    ``"qv"`` is VideoMAE's learned q/v bias with a frozen zero k bias,
+    ``"none"`` has no parameter at all. q, k and v go to attention as
+    strided views of the projection's output, with no copy."""
+
+    def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        s = spec
+        self.heads = s.heads
+        self.head_dim = s.hidden // s.heads
+        # holds the [3·H·D, hidden] weight; forward applies it together
+        # with the masked qkv_bias in one F.linear
+        self.qkv = Dense(s.hidden, 3 * s.hidden, use_bias=False,
+                         dtype=s.dtype, device=dev)
+        mode = _QKV_BIAS_MODES[s.qkv_bias]
+        if any(mode):
+            self.qkv_bias = empty_param((3, s.heads, self.head_dim), dev)
+            self.register_buffer(
+                "qkv_bias_mask",
+                torch.tensor(mode, device=dev).reshape(3, 1, 1),
+                persistent=False)
+        else:
+            self.qkv_bias = None
+        self.out = Dense(s.hidden, s.hidden, dtype=s.dtype, device=dev)
+
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, S, _ = x.shape
+        dt = self.qkv.dtype
+        b = None
+        if self.qkv_bias is not None:
+            b = (self.qkv_bias.to(dt) * self.qkv_bias_mask.to(dt)).reshape(-1)
+        qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), b)
+        qkv = qkv.view(B, S, 3, self.heads, self.head_dim)
+        out = dot_product_attention_shd(qkv[:, :, 0], qkv[:, :, 1],
+                                        qkv[:, :, 2], bias)
+        return self.out(out.reshape(B, S, self.heads * self.head_dim))
+
+
+class Mlp(nn.Module):
+    def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
+        super().__init__()
+        s = spec
+        self.fc1 = Dense(s.hidden, s.intermediate, dtype=s.dtype,
+                         device=device)
+        self.fc2 = Dense(s.intermediate, s.hidden, dtype=s.dtype,
+                         device=device)
+        self.act = activation(s.act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class EncoderBlock(nn.Module):
+    """One transformer block, pre- or post-LN."""
+
+    def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
+        super().__init__()
+        s = spec
+        self.pre_ln = s.ln_style == "pre"
+        self.attention = MultiHeadAttention(s, device=device)
+        self.mlp = Mlp(s, device=device)
+        self.ln1 = FusedLayerNorm(s.hidden, s.ln_eps, s.dtype, device=device)
+        self.ln2 = FusedLayerNorm(s.hidden, s.ln_eps, s.dtype, device=device)
+
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.pre_ln:
+            x = x + self.attention(self.ln1(x), bias)
+            return x + self.mlp(self.ln2(x))
+        x = self.ln1(x + self.attention(x, bias))   # post-LN (BERT)
+        return self.ln2(x + self.mlp(x))
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of ``layer_<i>`` EncoderBlocks, then ``final_ln`` if the spec
+    asks for it."""
+
+    def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
+        super().__init__()
+        self.n_layers = spec.layers
+        for i in range(spec.layers):
+            self.add_module(f"layer_{i}", EncoderBlock(spec, device=device))
+        self.final_ln = (FusedLayerNorm(spec.hidden, spec.ln_eps, spec.dtype,
+                                        device=device)
+                         if spec.final_ln else None)
+
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"layer_{i}")(x, bias)
+        if self.final_ln is not None:
+            x = self.final_ln(x)
+        return x

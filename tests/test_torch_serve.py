@@ -1,0 +1,149 @@
+"""The port's serving path (mme_tpu_torch/serve.py) against mme_tpu/serve.py,
+the port's independence from JAX, and its device default.
+
+Tolerances: probabilities agree to 1e-5 in fp32 (the model logits agree to
+~1e-6 at this size, see test_torch_model.py) and predictions exactly.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mme_tpu import serve as j_serve
+from mme_tpu.models import fusion as j_fusion
+
+from mme_tpu_torch.convert import from_flax
+from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
+from mme_tpu_torch.serve import Predictor, _batched_call, _pad_rows
+from mme_tpu_torch.train.build_tav import example_tav_batch
+
+torch.set_num_threads(2)
+
+SPEC = TAVSpec().tiny()
+J_SPEC = j_fusion.TAVSpec().tiny()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _requests():
+    """11 ragged utterances with uint8 video (a chunk of 4 pads 1 row)."""
+    b = example_tav_batch(SPEC, 11, 12, 4000, seed=3)
+    b["video"] = np.clip(b["video"] * 64 + 128, 0, 255).astype(np.uint8)
+    b["video"][4, 1] = 0                  # an all-zero (padding) frame
+    b["text_mask"][1::3, 6:] = 0
+    b["audio_mask"][::2, 2200:] = 0
+    return b
+
+
+@pytest.fixture(scope="module")
+def params():
+    ex = {k: jnp.asarray(v) for k, v in example_tav_batch(
+        SPEC, 1, 12, 4000).items()}
+    p = jax.jit(lambda: j_fusion.TAVModel(J_SPEC).init(
+        jax.random.PRNGKey(0), ex))()["params"]
+    return jax.tree.map(np.asarray, p)
+
+
+def _jax_predictor(params, **kw):
+    model = j_fusion.TAVModel(J_SPEC)
+
+    def apply_fn(variables, batch, deterministic=True, rngs=None):
+        return model.apply(variables, batch, deterministic=deterministic,
+                           rngs=rngs)
+
+    return j_serve.Predictor(apply_fn, params, batch_size=4, **kw)
+
+
+def _port_model(params):
+    model = TAVModel(SPEC, device="cpu")
+    model.load_state_dict(from_flax(params), strict=True)
+    return model
+
+
+def test_predictor_matches_jax_on_ragged_uint8_requests(params):
+    reqs = _requests()
+    want_preds, want_probs = _jax_predictor(params)(reqs)
+    preds, probs = Predictor(_port_model(params), batch_size=4,
+                             device="cpu")(reqs)
+    assert preds.shape == (11,) and probs.shape == (11, 7)
+    assert probs.dtype == np.float32
+    np.testing.assert_allclose(probs, want_probs, atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(preds, want_preds)
+    np.testing.assert_allclose(probs.sum(-1), 1.0, atol=1e-6)
+
+
+def test_predictor_bf16_weights_match_jax(params):
+    """param_dtype=bf16 stores the weights rounded to bf16; the compute
+    stays fp32, so both sides round the same weights."""
+    reqs = {k: v[:5] for k, v in _requests().items()}
+    _, want = _jax_predictor(params, param_dtype=jnp.bfloat16)(reqs)
+    _, got = Predictor(_port_model(params), batch_size=4, device="cpu",
+                       param_dtype=torch.bfloat16)(reqs)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_batched_call_pads_chunks_and_drops_padding():
+    seen = []
+
+    def forward(chunk):
+        seen.append(chunk["x"].shape)
+        s = chunk["x"].sum(-1)
+        return (s > 0).astype(np.int64), np.stack([s, -s], -1)
+
+    x = np.arange(22, dtype=np.float32).reshape(11, 2)
+    preds, probs = _batched_call(forward, {"x": x}, 4)
+    assert seen == [(4, 2)] * 3
+    np.testing.assert_array_equal(probs[:, 0], x.sum(-1))
+    assert preds.shape == (11,)
+    np.testing.assert_array_equal(_pad_rows(x[:3], 4)[3], 0)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    """Entry points default to cuda and never fall back to the CPU: with no
+    card visible, the default raises and device='cpu' works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TAVModel(SPEC)
+    model = TAVModel(SPEC, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(model)
+    Predictor(model, device="cpu")
+
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "mme_tpu"):
+    sys.modules[name] = None          # any import of these now raises
+import mme_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(mme_tpu_torch.__path__,
+                                              "mme_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+import numpy as np, torch
+from mme_tpu_torch.convert import from_flax, init_params
+from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
+from mme_tpu_torch.serve import Predictor
+from mme_tpu_torch.train.build_tav import example_tav_batch
+spec = TAVSpec().tiny()
+model = TAVModel(spec, device="cpu")
+model.load_state_dict(from_flax(init_params(spec, 0)))
+preds, probs = Predictor(model, batch_size=2, device="cpu")(
+    example_tav_batch(spec, 3, 8, 4000))
+assert probs.shape == (3, 7) and np.isfinite(probs).all()
+print(len(mods), "modules")
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "modules" in out.stdout
