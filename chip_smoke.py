@@ -8,20 +8,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. Device: the card's name, the device count and ``nvidia-smi``'s name and
    power limit.
-2. Build: every kernel of the serving path from ``mme_tpu_torch/csrc/``,
-   one ``nvcc`` per source started together; prints the build time and
-   ``-Xptxas -v``.
-3. Kernels against their plain PyTorch versions on the card: the flash
-   forward at the four served shapes in bf16 and fp32, a ragged key length
-   with head_dim 128, and rows whose every key is masked. Times the kernel,
-   its plain version and ``scaled_dot_product_attention`` (a yardstick the
-   port never calls) at the served bf16 shapes with CUDA events.
-4. The main path at full width: ``init_params(TAVSpec(output_dim=7))`` →
+2. Build: every CUDA kernel from ``mme_tpu_torch/csrc/`` (flash forward
+   and backward), one ``nvcc`` per source started together; prints the
+   build time and ``-Xptxas -v``. The Triton kernel compiles at its first
+   launch.
+3. Kernels against their plain PyTorch versions on the card, q/k/v as
+   strided views of a fused QKV tensor:
+   - the flash forward (K1) and backward (K2) at the four model shapes in
+     bf16 and fp32, a ragged key length with head_dim 128, rows whose every
+     key is masked by bias and, for K2, a sentinel row (every score -inf).
+     Times each kernel, its plain version and
+     ``scaled_dot_product_attention`` forward / backward (a yardstick the
+     port never calls) at the bf16 shapes with CUDA events;
+   - the fused bf16-moment Adam update (K3) on the model's leaf shapes:
+     exact in ``zero_noise`` mode, and with noise every moment is one of
+     the two bf16 neighbours, the mean error is within 5 standard errors,
+     and other leaves and steps get other dither. Times it on every
+     distinct size of fusable leaf.
+4. Serving at full width: ``init_params(TAVSpec(output_dim=7))`` →
    ``from_flax`` → ``TAVModel`` → ``Predictor(batch_size=8)`` serving ragged
    requests (8, 5 and 11 utterances, uint8 video) in an fp32 and a bf16
    leg. Each leg is held against the same Predictor with ``MME_FLASH=0``;
    the flash launch count must be 54 per chunk. Prints ms per batch of 8,
    utterances per second and peak device memory for the bf16 leg.
+5. Training at full width and depth through ``build_tav`` (70 tokens,
+   96 000 samples, a 16x224x224 clip, shared audio frontend, no remat, no
+   accumulation buffer):
+   (1) fp32 compute, dropout and SpecAugment off, batch 4: loss and
+       gradients of one batch with the kernels against ``MME_FLASH=0``;
+       54 forward and 54 backward launches with, none without;
+   (2) a deterministic bf16 leg (dropout off) on one fixed batch of 8: the
+       loss after four steps must lie below the first;
+   (3) the benchmark configuration: bf16 compute, batch 8, dropout and
+       SpecAugment on, ``MME_OPT_STATE=bf16``, lr 5e-6, cosine warm
+       restarts; 2 warm-up and 5 timed steps, 54 + 54 launches per step;
+       prints ms per step, utterances per second, peak memory and a
+       forward / backward / optimizer split by CUDA events;
+   (4) the same state with ``MME_FUSED_ADAM=1``: one K3 launch per fusable
+       leaf per step.
 
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``.
@@ -32,24 +56,36 @@ the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import from_flax, init_params
 from mme_tpu_torch.device import card_line
 from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
 from mme_tpu_torch.ops import kernels
+from mme_tpu_torch.ops.adam_update import (MIN_FUSED_ELEMENTS,
+                                           adam_update_leaf,
+                                           adam_update_leaf_plain)
 from mme_tpu_torch.ops.attention import additive_mask
-from mme_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+from mme_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_fwd,
                                                flash_attention_fwd_plain)
 from mme_tpu_torch.serve import Predictor
-from mme_tpu_torch.train.build_tav import example_tav_batch
+from mme_tpu_torch.train.build_tav import build_tav, example_tav_batch
+from mme_tpu_torch.train.losses import cross_entropy
+from mme_tpu_torch.train.optim import global_norm_f32
+from mme_tpu_torch.train.schedules import cosine_warm_restarts
+from mme_tpu_torch.train.steps import make_optimizer, to_device
 
 SEED = 0
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
@@ -68,6 +104,22 @@ TOL = {torch.float32: {"atol": 1e-5, "rtol": 1e-5, "lse": 1e-5},
 # layers; bf16 carries the per-layer bf16 differences above through the
 # towers' depth (24 audio layers)
 SERVE_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# gradients of the flash backward against its plain version, as a share of
+# each gradient's largest element (a gradient that is zero but for
+# cancellation is held to a twentieth of the largest of the three): fp32 —
+# sums of up to 1464 fp32 products in another order; bf16 — P and dS are
+# rounded to bf16 on both sides at fp32 values that differ in the last
+# place, and the result is rounded to bf16 once more. The kernel has no
+# atomics: two runs give the same bits.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# fused Adam: the update `out` may differ from the plain version's by this
+# many fp32 units in the last place (division and square root round to
+# nearest on both sides; measured 0); the moments must be equal
+ADAM_OUT_ULPS = 2
+# training, kernels against MME_FLASH=0 from the same state, fp32 compute:
+# fp32 rounding carried through 54 layers, forward and backward
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_NORM_RTOL = 1e-3
 # (name, batch, seq, heads) of the attention calls of one served chunk:
 # 6 text, 24 audio, 12 video and 12 fusion layers, head_dim 64
 SERVED = (("text", 8, 70, 12, 6), ("audio", 8, 299, 16, 24),
@@ -173,6 +225,198 @@ def check_flash(card: str):
     return max_err, shapes
 
 
+def bwd_bound_ms(B, Sq, Sk, H, D, elem, has_bias):
+    """Five tile products; q, O, dO, dq and k, v, dk, dv in the working
+    type, LSE and delta in fp32, the key bias."""
+    flops = 10 * B * H * Sq * Sk * D
+    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * H * D) * elem \
+        + 2 * B * H * Sq * 4 + (B * Sk * 4 if has_bias else 0)
+    return flops, nbytes, max(flops / PEAK_BF16_FLOPS,
+                              nbytes / PEAK_BYTES) * 1e3
+
+
+def grads_close(got, want, dtype):
+    """(ok, largest error as a share of its tolerance, largest |error|)."""
+    floor = 0.05 * max(b.float().abs().max().item() for b in want)
+    worst, worst_abs, finite = 0.0, 0.0, True
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        finite = finite and bool(torch.isfinite(a).all())
+        err = (a - b).abs().max().item()
+        worst_abs = max(worst_abs, err)
+        worst = max(worst, err / (BWD_TOL[dtype]
+                                  * max(b.abs().max().item(), floor)))
+    return finite and worst <= 1.0, worst, worst_abs
+
+
+def check_flash_bwd(card: str):
+    """Phase 3, K2. Returns (max |error| over all cases, per-shape results
+    at the bf16 model shapes)."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, S, H, _ in SERVED:
+            masked = 0 if name == "video" else 1
+            cases.append((name, B, S, S, H, 64, dtype, masked,
+                          name != "video", False))
+        cases.append(("ragged_d128", 3, 100, 333, 4, 128, dtype, 1, True,
+                      False))
+        cases.append(("sentinel", 3, 130, 130, 4, 64, dtype, 1, True, True))
+    max_err = 0.0
+    for i, (name, B, Sq, Sk, H, D, dtype, masked, has_bias,
+            sentinel) in enumerate(cases):
+        q, k, v, bias = attention_inputs(B, Sq, Sk, H, D, dtype, masked, i)
+        bias = bias if has_bias else None
+        if sentinel:
+            bias = bias.clone()
+            bias[-1] = float("-inf")       # every score -inf in this row
+        g = torch.Generator(device="cuda").manual_seed(1000 + i)
+        do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+        out, lse = flash_attention_fwd(q, k, v, bias)
+        got = flash_attention_bwd(q, k, v, bias, out, lse, do)
+        again = flash_attention_bwd(q, k, v, bias, out, lse, do)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_plain(q, k, v, bias, out, lse, do)
+        ok, share, err = grads_close(got, want, dtype)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        # a row masked by bias keeps the uniform P (dV not zero); a
+        # sentinel row gets no gradient at all
+        masked_dv = got[2][0].float().abs().max().item() if masked else None
+        dead = (all(bool((x[-1] == 0).all()) for x in got) if sentinel
+                else None)
+        print(f"flash_bwd {name:12s} {str(dtype)[6:]:8s} B={B} Sq={Sq} "
+              f"Sk={Sk} H={H} D={D} bias={has_bias} masked_rows={masked}: "
+              f"max|dgrad|={err:.3e} = {share:.3f} of tolerance "
+              f"({BWD_TOL[dtype]} of max|grad|); two runs equal {same}; "
+              f"max|dV| of the masked row {masked_dv}; sentinel row zero "
+              f"{dead}", flush=True)
+        if not (ok and same and (masked_dv is None or sentinel
+                                 or masked_dv > 0)
+                and dead is not False):
+            raise SystemExit(f"flash_bwd disagrees with its plain version "
+                             f"on case {name} {dtype}")
+        max_err = max(max_err, err)
+
+    shapes = []
+    for i, (name, B, S, H, n) in enumerate(SERVED):
+        q, k, v, bias = attention_inputs(B, S, S, H, 64, torch.bfloat16,
+                                         0, 200 + i)
+        bias = None if name == "video" else bias
+        do = torch.randn(B, S, H, 64, device="cuda").to(torch.bfloat16)
+        out, lse = flash_attention_fwd(q, k, v, bias)
+        ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, bias, out, lse, do))
+        plain = cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, bias, out, lse, do), iters=3, warmup=1)
+        mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        do_t = do.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do_t,
+                                                  retain_graph=True))
+        flops, nbytes, bound = bwd_bound_ms(B, S, S, H, 64, 2,
+                                            bias is not None)
+        row = {"shape": name, "B": B, "S": S, "H": H, "D": 64,
+               "dtype": "bf16", "launches_per_step": n, "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
+                            >= nbytes / PEAK_BYTES else "bytes"),
+               "card": card}
+        print(json.dumps({"flash_bwd_shape": row}), flush=True)
+        shapes.append(row)
+        del o_lib, leaves
+    return max_err, shapes
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in fp32 units in the last place."""
+    ia = a.float().contiguous().view(torch.int32).long()
+    ib = b.float().contiguous().view(torch.int32).long()
+    return int((ia - ib).abs().max().item())
+
+
+def check_adam(spec: TAVSpec, card: str):
+    """Phase 3, K3. Returns (max |out - out_plain|, per-step totals over
+    every fusable leaf of the model, the number of fusable leaves)."""
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    bc1, bc2 = 1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3
+
+    def leaf(shape, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        grad = torch.randn(shape, generator=g, device="cuda") * 1e-3
+        mu = (torch.randn(shape, generator=g, device="cuda") * 1e-3
+              ).bfloat16()
+        nu = (torch.rand(shape, generator=g, device="cuda") * 1e-6
+              ).bfloat16()
+        return grad, mu, nu
+
+    max_err = 0.0
+    # embedding, an MLP weight (port layout), an audio MLP weight, a conv
+    for i, shape in enumerate(((50265, 768), (3072, 768), (1024, 4096),
+                               (512, 512, 3))):
+        grad, mu, nu = leaf(shape, 300 + i)
+        out, mu2, nu2 = adam_update_leaf(grad, mu, nu, bc1, bc2, 7,
+                                         zero_noise=True, **kw)
+        torch.cuda.synchronize()
+        o_ref, mu_ref, nu_ref = adam_update_leaf_plain(
+            grad, mu, nu, bc1, bc2, zero_noise=True, **kw)
+        exact = torch.equal(mu2, mu_ref) and torch.equal(nu2, nu_ref)
+        d_ulp = ulps(out, o_ref)
+        err = (out - o_ref).abs().max().item()
+        max_err = max(max_err, err)
+
+        # with noise: each moment is one of its fp32 value's two bf16
+        # neighbours, the mean error is within 5 standard errors (the
+        # truncated value's is far outside), and the dither differs
+        # between leaves (seed) and between steps (seed)
+        m32 = 0.9 * mu.float() + (1.0 - 0.9) * grad
+        bits = m32.view(torch.int32) & -65536
+        lo, hi = bits.view(torch.float32), (bits + 65536).view(torch.float32)
+        a = adam_update_leaf(grad, mu, nu, bc1, bc2, 11, **kw)[1].float()
+        b = adam_update_leaf(grad, mu, nu, bc1, bc2, 11, **kw)[1].float()
+        c = adam_update_leaf(grad, mu, nu, bc1, bc2, 12, **kw)[1].float()
+        bracket = bool(((a == lo) | (a == hi)).all())
+        e = (a - m32).double()
+        n = e.numel()
+        se = e.std().item() / n ** 0.5
+        mean_err, trunc = e.mean().item(), (lo.abs() - m32.abs()).double(
+            ).mean().item()
+        seeded = torch.equal(a, b) and not torch.equal(a, c)
+        print(f"adam_update {str(shape):14s}: zero_noise moments equal "
+              f"{exact}, out within {d_ulp} ulp (tol {ADAM_OUT_ULPS}); "
+              f"noise: neighbours {bracket}, mean error {mean_err:.3e} = "
+              f"{abs(mean_err) / se:.2f} standard errors (tol 5; "
+              f"truncation {trunc / se:.1f}), same seed same bits and "
+              f"other seed other bits {seeded}", flush=True)
+        if not (exact and d_ulp <= ADAM_OUT_ULPS and bracket and seeded
+                and abs(mean_err) <= 5 * se and trunc < -20 * se):
+            raise SystemExit(f"adam_update check failed on leaf {shape}")
+
+    # time per step: every distinct size of fusable leaf, times its count
+    sizes = Counter(p.numel() for p in TAVModel(spec, device="meta"
+                                                ).parameters()
+                    if p.numel() >= MIN_FUSED_ELEMENTS)
+    total = {"ms": 0.0, "plain_ms": 0.0, "elements": 0}
+    rows = []
+    for n, count in sorted(sizes.items()):
+        grad, mu, nu = leaf((n,), n % 1000)
+        ms = cuda_ms(lambda: adam_update_leaf(grad, mu, nu, bc1, bc2, 5,
+                                              **kw))
+        plain = cuda_ms(lambda: adam_update_leaf_plain(
+            grad, mu, nu, bc1, bc2, **kw), iters=5, warmup=1)
+        rows.append({"elements": n, "leaves": count, "ms": ms,
+                     "plain_ms": plain,
+                     "bound_ms": 16 * n / PEAK_BYTES * 1e3})
+        total["ms"] += ms * count
+        total["plain_ms"] += plain * count
+        total["elements"] += n * count
+    total["bound_ms"] = 16 * total["elements"] / PEAK_BYTES * 1e3
+    total["leaves"] = sum(sizes.values())
+    print(json.dumps({"adam_update_leaves": rows, "per_step": total,
+                      "card": card}), flush=True)
+    return max_err, total
+
+
 def requests(spec: TAVSpec):
     """Ragged requests of 8, 5 and 11 utterances with uint8 video; some
     rows carry shorter text and audio."""
@@ -237,7 +481,7 @@ def main_path(card: str):
             served_launches = launches
             one = reqs[0]
             times = []
-            for _ in range(10):
+            for _ in range(5):
                 t = time.perf_counter()
                 pred(one)
                 times.append(time.perf_counter() - t)
@@ -253,6 +497,245 @@ def main_path(card: str):
     return served_launches
 
 
+def train_inputs(spec: TAVSpec, batch_size: int, seed: int):
+    batch = example_tav_batch(spec, batch_size, 70, 96000, seed=seed)
+    batch["text_mask"][1::3, 40:] = 0
+    batch["audio_mask"][1::2, 60000:] = 0
+    labels = np.arange(batch_size) % 7
+    return (batch, labels, np.ones(batch_size, np.int32),
+            np.ones(7, np.float32))
+
+
+def without_noise(spec: TAVSpec) -> TAVSpec:
+    """Every dropout rate and SpecAugment probability 0."""
+    def quiet(e):
+        return dataclasses.replace(e, dropout=0.0, attention_dropout=0.0)
+    return dataclasses.replace(
+        spec, dropout=0.0,
+        text=dataclasses.replace(spec.text, encoder=quiet(spec.text.encoder)),
+        audio=dataclasses.replace(spec.audio, mask_time_prob=0.0,
+                                  mask_feature_prob=0.0,
+                                  encoder=quiet(spec.audio.encoder)),
+        video=dataclasses.replace(spec.video,
+                                  encoder=quiet(spec.video.encoder)),
+        fusion=quiet(spec.fusion))
+
+
+def tower_norms(model, grads):
+    """Global gradient norm per top-level tower."""
+    groups = {}
+    for (name, _), g in zip(model.named_parameters(), grads):
+        parts = name.split(".")
+        key = parts[0] if parts[0] != "model" else parts[1]
+        groups.setdefault(key, []).append(g)
+    return {k: global_norm_f32(v).item() for k, v in groups.items()}
+
+
+def train_check_fp32(params, card: str):
+    """Phase 5 (1): loss and gradients of one batch, kernels against
+    MME_FLASH=0, fp32 compute, no dropout, full depth, batch 4."""
+    spec = dataclasses.replace(without_noise(TAVSpec(output_dim=7)),
+                               share_audio_frontend=True)
+    cfg = ExperimentConfig(batch_size=4, learning_rate=5e-6, text_max_len=70,
+                           audio_max_samples=96000)
+    model, state, _, _ = build_tav(spec, cfg, 1000, params=params,
+                                   remat=False, use_accum=False,
+                                   device="cuda")
+    batch, labels, mask, cw = train_inputs(spec, 4, SEED + 20)
+    batch = to_device(batch, "cuda")
+    labels, mask, cw = (torch.as_tensor(x, device="cuda")
+                        for x in (labels, mask, cw))
+    model.train()
+
+    def loss_and_grads():
+        kernels.reset_launches()
+        loss = cross_entropy(model(batch), labels, cw, mask)
+        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, state.params)]
+        torch.cuda.synchronize()
+        return (loss.item(), global_norm_f32(grads).item(),
+                tower_norms(model, grads), dict(kernels.LAUNCHES))
+
+    loss, norm, towers, count = loss_and_grads()
+    os.environ["MME_FLASH"] = "0"
+    try:
+        loss0, norm0, towers0, count0 = loss_and_grads()
+    finally:
+        del os.environ["MME_FLASH"]
+    rel = {k: abs(towers[k] - towers0[k]) / max(towers0[k], 1e-12)
+           for k in towers0}
+    print(json.dumps({"train_check_fp32": {
+        "batch": 4, "loss": loss, "loss_plain": loss0, "grad_norm": norm,
+        "grad_norm_plain": norm0, "tower_norms": towers,
+        "tower_norm_rel_diff": rel, "launches": count,
+        "launches_plain": count0, "card": card}}), flush=True)
+    ok = (np.isfinite(loss) and abs(loss - loss0) <= TRAIN_LOSS_RTOL
+          * abs(loss0) and abs(norm - norm0) <= TRAIN_NORM_RTOL * norm0
+          and max(rel.values()) <= TRAIN_NORM_RTOL
+          and count["flash_fwd"] == count["flash_bwd"] == LAUNCHES_PER_CHUNK
+          and count0["flash_fwd"] == count0["flash_bwd"] == 0)
+    if not ok:
+        raise SystemExit("training check against MME_FLASH=0 failed")
+
+
+def train_descends_bf16(params, card: str):
+    """Phase 5 (2): a few steps on one fixed batch with dropout off. The
+    model is deterministic, so the eval loss after the last update is the
+    next point of the same series; it must lie below the first loss."""
+    spec = dataclasses.replace(
+        without_noise(TAVSpec(output_dim=7)).with_compute_dtype(
+            torch.bfloat16), share_audio_frontend=True)
+    lr = 5e-6
+    cfg = ExperimentConfig(batch_size=8, learning_rate=lr, text_max_len=70,
+                           audio_max_samples=96000)
+    model, state, train_step, eval_step = build_tav(
+        spec, cfg, 1000, params=params, remat=False, use_accum=False,
+        device="cuda")
+    batch, labels, mask, cw = train_inputs(spec, 8, SEED + 30)
+    losses = []
+    for _ in range(4):
+        state, loss, cm, _ = train_step(state, batch, labels, mask, cw, 1.0,
+                                        True, SEED)
+        losses.append(loss.item())
+    ev_loss, ev_cm, preds = eval_step(batch, labels, mask, cw)
+    losses.append(ev_loss.item())
+    print(json.dumps({"train_descends_bf16": {
+        "lr": lr, "losses": losses, "cm_sum": int(cm.sum()),
+        "card": card}}), flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and int(cm.sum()) == 8 and int(ev_cm.sum()) == 8
+            and preds.shape == (8,)):
+        raise SystemExit("the deterministic bf16 training leg did not "
+                         "lower its loss")
+
+
+def train_bench(params, card: str):
+    """Phase 5 (3) and (4): the benchmark configuration, then the same
+    state with MME_FUSED_ADAM=1. Returns the launches of one timed step of
+    each leg."""
+    spec = dataclasses.replace(
+        TAVSpec(output_dim=7).with_compute_dtype(torch.bfloat16),
+        share_audio_frontend=True)
+    cfg = ExperimentConfig(batch_size=8, learning_rate=5e-6, text_max_len=70,
+                           audio_max_samples=96000)
+    os.environ["MME_OPT_STATE"] = "bf16"
+    try:
+        model, state, train_step, _ = build_tav(
+            spec, cfg, 1000, params=params, remat=False, use_accum=False,
+            device="cuda")
+    finally:
+        del os.environ["MME_OPT_STATE"]
+    batch, labels, mask, cw = train_inputs(spec, 8, SEED + 40)
+    batch = to_device(batch, "cuda")
+    before = [p.detach().clone() for p in state.params[:8]]
+    n_fusable = sum(p.numel() >= MIN_FUSED_ELEMENTS for p in state.params)
+
+    def run(steps):
+        out, times, counts = [], [], []
+        for _ in range(steps):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, loss, cm, gnorm = train_step(state, batch, labels, mask, cw,
+                                            1.0, True, SEED)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            out.append((loss.item(), gnorm.item()))
+            counts.append(dict(kernels.LAUNCHES))
+        return out, times, counts
+
+    run(2)                                          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res, times, counts = run(5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = max((a - b.detach()).abs().max().item()
+                for a, b in zip(before, state.params[:8]))
+    moments_bf16 = all(m.dtype == torch.bfloat16
+                       for m in state.opt_state.mu + state.opt_state.nu)
+    ms = float(np.median(times))
+    ok = (all(np.isfinite(x) for r in res for x in r) and moved > 0
+          and moments_bf16 and all(
+              c["flash_fwd"] == c["flash_bwd"] == LAUNCHES_PER_CHUNK
+              and c["adam_update"] == 0 for c in counts))
+    print(json.dumps({"train_bf16": {
+        "ms_per_step": ms, "utt_per_s": 8e3 / ms, "times_ms": times,
+        "losses": [r[0] for r in res], "grad_norms": [r[1] for r in res],
+        "max_memory_allocated_gb": peak, "launches_per_step": counts[-1],
+        "params_moved": moved, "moments_bf16": moments_bf16,
+        "card": card}}), flush=True)
+    if not ok:
+        raise SystemExit("the bf16 training leg failed its checks")
+
+    # forward / backward / optimizer split of the same step, by hand with
+    # the step's own pieces and CUDA events
+    tx = make_optimizer(cosine_warm_restarts(5e-6, cfg.T_max, 1000),
+                        cfg.weight_decay, cfg.clip, None, "bf16")
+    labels_t, mask_t, cw_t = (torch.as_tensor(x, device="cuda")
+                              for x in (labels, mask, cw))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    split = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        model.train()
+        ev[0].record()
+        loss = cross_entropy(model(batch, rng=gen), labels_t, cw_t, mask_t)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, state.params)]
+        ev[2].record()
+        tx.update(state.params, grads, state.opt_state, gen)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd, bwd, opt = (float(x) for x in np.median(np.array(split), axis=0))
+    print(json.dumps({"train_bf16_split_ms": {
+        "forward": fwd, "backward": bwd, "optimizer_unfused": opt,
+        "card": card}}), flush=True)
+
+    os.environ["MME_FUSED_ADAM"] = "1"
+    try:
+        run(1)                                      # Triton compiles here
+        res_f, times_f, counts_f = run(3)
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        tx.update(state.params, grads, state.opt_state, gen)
+        ev1.record()
+        torch.cuda.synchronize()
+        opt_fused = ev0.elapsed_time(ev1)
+    finally:
+        del os.environ["MME_FUSED_ADAM"]
+    ms_f = float(np.median(times_f))
+    print(json.dumps({"train_bf16_fused_adam": {
+        "ms_per_step": ms_f, "ms_per_step_unfused": ms, "times_ms": times_f,
+        "losses": [r[0] for r in res_f], "fusable_leaves": n_fusable,
+        "launches_per_step": counts_f[-1], "optimizer_fused_ms": opt_fused,
+        "optimizer_unfused_ms": opt, "card": card}}), flush=True)
+    if not (all(np.isfinite(x) for r in res_f for x in r) and all(
+            c["adam_update"] == n_fusable
+            and c["flash_fwd"] == c["flash_bwd"] == LAUNCHES_PER_CHUNK
+            for c in counts_f)):
+        raise SystemExit("the MME_FUSED_ADAM=1 training leg failed")
+    return counts[-1], counts_f[-1]
+
+
+def train_path(card: str):
+    """Phase 5. Returns the launches of one step of the bf16 leg and of the
+    fused-Adam leg."""
+    t0 = time.perf_counter()
+    params = init_params(dataclasses.replace(TAVSpec(output_dim=7),
+                                             share_audio_frontend=True), SEED)
+    print(f"train weights drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for leg in (train_check_fp32, train_descends_bf16):
+        t0 = time.perf_counter()
+        leg(params, card)
+        torch.cuda.empty_cache()
+        print(f"{leg.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return train_bench(params, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -266,30 +749,51 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = kernels.build(["flash_fwd"])
-    print(f"build: {time.perf_counter() - t0:.1f} s\n{logs['flash_fwd']}",
-          flush=True)
+    logs = kernels.build(["flash_fwd", "flash_bwd"])
+    print(f"build: {time.perf_counter() - t0:.1f} s\n{logs['flash_fwd']}\n"
+          f"{logs['flash_bwd']}", flush=True)
 
-    max_err, shapes = check_flash(card)
-    launches = main_path(card)
+    spec = TAVSpec(output_dim=7)
+    fwd_err, fwd_shapes = check_flash(card)
+    bwd_err, bwd_shapes = check_flash_bwd(card)
+    # the trained model shares its audio frontend: one conv stack's leaves
+    adam_err, adam = check_adam(
+        dataclasses.replace(spec, share_audio_frontend=True), card)
+    served = main_path(card)
+    step, step_fused = train_path(card)
 
-    total = {k: sum(r[k] * r["launches_per_chunk"] for r in shapes)
-             for k in ("ms", "plain_ms", "library_ms")}
-    flops = sum(r["gflop"] * r["launches_per_chunk"] for r in shapes) * 1e9
-    nbytes = sum(r["mbytes"] * r["launches_per_chunk"] for r in shapes) * 1e6
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "mme_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "mme_tpu/ops/flash_attention.py:125",
-        "tpu_kernel": "mme_tpu/ops/flash_attention.py::_fwd_kernel",
-        "launches": launches, "max_abs_err": max_err, "max_err": max_err,
-        # times and bound: the 54 launches of one served chunk of 8
-        "ms": total["ms"], "kernel_ms": total["ms"],
-        "plain_ms": total["plain_ms"], "library_ms": total["library_ms"],
-        "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
-        "bound_us": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e6,
-        "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
-                     >= nbytes / PEAK_BYTES else "bytes")}]}), flush=True)
+    def flash_entry(name, source, replaces, shapes, per, err, launches):
+        total = {k: sum(r[k] * r[per] for r in shapes)
+                 for k in ("ms", "plain_ms", "library_ms")}
+        flops = sum(r["gflop"] * r[per] for r in shapes) * 1e9
+        nbytes = sum(r["mbytes"] * r[per] for r in shapes) * 1e6
+        # times and bound: the 54 launches of one chunk or step of 8
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "max_abs_err": err, **launches,
+                **total,
+                "bound_ms": max(flops / PEAK_BF16_FLOPS,
+                                nbytes / PEAK_BYTES) * 1e3,
+                "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
+                             >= nbytes / PEAK_BYTES else "bytes")}
+
+    print(json.dumps({"kernels": [
+        flash_entry("flash_fwd", "mme_tpu_torch/csrc/flash_fwd.cu",
+                    "mme_tpu/ops/flash_attention.py:125", fwd_shapes,
+                    "launches_per_chunk", fwd_err,
+                    {"launches": served,
+                     "launches_train_step": step["flash_fwd"]}),
+        flash_entry("flash_bwd", "mme_tpu_torch/csrc/flash_bwd.cu",
+                    "mme_tpu/ops/flash_attention.py:184", bwd_shapes,
+                    "launches_per_step", bwd_err,
+                    {"launches": step["flash_bwd"]}),
+        # times and bound: every fusable leaf of one step
+        {"name": "adam_update", "route": "triton",
+         "source": "mme_tpu_torch/ops/adam_update.py",
+         "replaces": "mme_tpu/ops/adam_update.py:67",
+         "launches": step_fused["adam_update"], "max_abs_err": adam_err,
+         "ms": adam["ms"], "plain_ms": adam["plain_ms"],
+         "library_ms": None, "bound_ms": adam["bound_ms"],
+         "bound_by": "bytes"}]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,7 +12,9 @@ The port's module tree mirrors the flax tree name for name, so a flax leaf
   keeps its name and shape.
 
 :func:`from_flax` reads the flax tree as nested dicts of numpy arrays;
-:func:`to_flax` goes back from a port model; :func:`init_params` draws a
+:func:`to_flax` goes back from a port model, with its parameters or with any
+tensors aligned with them (gradients: :func:`grads_to_flax`), so a test can
+hold them against JAX's leaf by leaf; :func:`init_params` draws a
 flax-layout tree with numpy at flax's default initializer scales, for runs
 without JAX and without pretrained weights.
 """
@@ -20,7 +22,7 @@ without JAX and without pretrained weights.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,11 +115,18 @@ def _set(tree: Dict, path: Tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
-def to_flax(model: nn.Module) -> Dict[str, Any]:
-    """The port model's weights as a flax-layout tree of numpy arrays."""
+def to_flax(model: nn.Module,
+            values: Optional[Sequence[torch.Tensor]] = None
+            ) -> Dict[str, Any]:
+    """The port model's weights as a flax-layout tree of numpy arrays; or,
+    in the same layout, ``values``: one tensor per parameter, in the order
+    of ``model.parameters()``."""
+    if values is not None:
+        by_param = {id(p): v for p, v in zip(model.parameters(), values)}
     tree: Dict[str, Any] = {}
     for path, p, kind, heads in _leaves(model):
-        a = p.detach().float().cpu().numpy()
+        a = p if values is None else by_param[id(p)]
+        a = a.detach().float().cpu().numpy()
         if kind == "dense":
             a = a.T
         elif kind == "conv":
@@ -126,6 +135,20 @@ def to_flax(model: nn.Module) -> Dict[str, Any]:
             a = a.T.reshape(_flax_shape(p.shape, kind, heads))
         _set(tree, path, np.ascontiguousarray(a))
     return tree
+
+
+def grads_to_flax(model: nn.Module,
+                  grads: Optional[Sequence[torch.Tensor]] = None
+                  ) -> Dict[str, Any]:
+    """Gradients in the flax layout: ``grads`` aligned with
+    ``model.parameters()``, or each parameter's ``.grad``. A missing
+    gradient (None: the forward did not reach the parameter) is zero, as
+    JAX reports it."""
+    params = list(model.parameters())
+    if grads is None:
+        grads = [p.grad for p in params]
+    return to_flax(model, [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(params, grads)])
 
 
 def init_params(spec: TAVSpec, seed: int = 0) -> Dict[str, Any]:

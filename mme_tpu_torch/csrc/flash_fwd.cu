@@ -37,29 +37,9 @@
 // aims at right, not fast: no TMA, no wgmma, no pipelining of the K/V
 // loads; each block reads K/V once per tile from L2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBlockQ = 64;       // query rows per block
-constexpr int kBlockK = 64;       // keys per shared-memory tile
-constexpr int kWarps = kBlockQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPStride = kBlockK + 4;  // fp32 path: row pitch of the P tile
-constexpr float kLseMasked = 1e30f;
-
-using bf16 = __nv_bfloat16;
-
-// Shared-memory row padding in elements: keeps every row 16-byte aligned
-// and moves consecutive rows to different banks.
-template <typename T> struct RowPad;
-template <> struct RowPad<bf16> { static constexpr int value = 8; };
-template <> struct RowPad<float> { static constexpr int value = 4; };
 
 struct Params {
   const void* q;
@@ -78,53 +58,11 @@ struct Params {
 };
 
 template <typename T, int D>
-struct Pitch { static constexpr int value = D + RowPad<T>::value; };
-
-template <typename T, int D>
 constexpr size_t smem_bytes() {
   return (size_t)(kBlockQ + 2 * kBlockK) * Pitch<T, D>::value * sizeof(T) +
          kBlockK * sizeof(float) +
          (std::is_same<T, float>::value ? kWarps * 16 * kPStride * sizeof(float)
                                         : 0);
-}
-
-// Copy `rows` (<= 64) rows of D elements, `row_stride` elements apart, into
-// a 64-row shared tile; rows past `rows` are zero-filled. 16-byte vectors.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int rows,
-                                          int tid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = D / kVec;
-  constexpr int P = Pitch<T, D>::value;
-  for (int i = tid; i < kBlockK * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * P + c) = val;
-  }
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two fp32 values rounded to bf16; `lo` lands in the low half, which mma
-// reads as the lower k (or column) index.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -137,10 +75,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Fragment ownership (the mma.sync m16n8k16 accumulator layout, kept for
-// fp32 too): lane = 4 g + t owns rows g and g + 8 of its warp's 16 rows
-// and, in every 8-wide column block j, columns 8 j + 2 t and 8 j + 2 t + 1.
-// Element e of a 4-vector is row g + 8 (e >> 1), column 8 j + 2 t + (e & 1).
+// Fragment ownership: see flash_common.cuh.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;

@@ -3,8 +3,10 @@
 Port of ``mme_tpu/models/audio.py`` for the path the TAV model serves:
 ``Wav2Vec2Spec``, ``ConvFeatureExtractor`` (layer-norm variant),
 ``FeatureProjection``, ``PositionalConvEmbedding``, ``Wav2Vec2Encoder``
-(stable-LN) and ``Wav2Vec2Model``. The base variant (group-norm extractor,
-post-LN encoder), SpecAugment and ``Wav2Vec2Classifier`` are not ported yet.
+(stable-LN) and ``Wav2Vec2Model``, with their training-mode sites (dropout
+after the feature projection and on the encoder input, SpecAugment). The
+base variant (group-norm extractor, post-LN encoder) and
+``Wav2Vec2Classifier`` are not ported yet.
 
 Public tensors keep the JAX layout: waveforms [B, T], features and hidden
 states [B, F, C]. The convolutions run through ``F.conv1d`` (JAX leaves
@@ -23,9 +25,10 @@ from torch import nn
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.layers import (Dense, EncoderSpec,
                                          TransformerEncoder, activation,
-                                         empty_param)
+                                         dropout, empty_param, remat_call)
 from mme_tpu_torch.ops.attention import additive_mask
-from mme_tpu_torch.ops.audio import feature_vector_attention_mask
+from mme_tpu_torch.ops.audio import (apply_spec_augment,
+                                     feature_vector_attention_mask)
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
 
 
@@ -36,9 +39,17 @@ class Wav2Vec2Spec:
     conv_strides: Sequence[int] = (5, 2, 2, 2, 2, 2, 2)
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
+    # SpecAugment (training only)
+    mask_time_prob: float = 0.05
+    mask_time_length: int = 10
+    mask_time_min_masks: int = 2
+    mask_feature_prob: float = 0.0
+    mask_feature_length: int = 10
+    mask_feature_min_masks: int = 0
+    remat_conv: bool = False  # remat the conv stack independently of encoders
     encoder: EncoderSpec = dataclasses.field(default_factory=lambda: EncoderSpec(
         hidden=1024, heads=16, layers=24, intermediate=4096, ln_style="pre",
-        ln_eps=1e-5, final_ln=True))
+        ln_eps=1e-5, final_ln=True, dropout=0.1))
 
     @staticmethod
     def large(**kw) -> "Wav2Vec2Spec":
@@ -83,6 +94,7 @@ class ConvFeatureExtractor(nn.Module):
         super().__init__()
         e = spec.encoder
         self.n_convs = len(spec.conv_dims)
+        self.remat = e.remat or spec.remat_conv
         in_dim = 1
         for i, (dim, k, st) in enumerate(zip(spec.conv_dims, spec.conv_kernels,
                                              spec.conv_strides)):
@@ -93,12 +105,19 @@ class ConvFeatureExtractor(nn.Module):
             in_dim = dim
         self.gelu = activation("gelu")
 
-    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+    def _stack(self, waveform: torch.Tensor, rng=None) -> torch.Tensor:
         x = waveform[..., None]
         for i in range(self.n_convs):
             x = getattr(self, f"conv_{i}")(x)
             x = self.gelu(getattr(self, f"ln_{i}")(x))
         return x
+
+    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+        # remat with the encoders: the [B, T/5, 512] activations over ~1e5
+        # samples are the largest of the model
+        if self.remat and torch.is_grad_enabled():
+            return remat_call(self._stack, None, waveform)
+        return self._stack(waveform)
 
 
 class FeatureProjection(nn.Module):
@@ -109,11 +128,15 @@ class FeatureProjection(nn.Module):
                                  device=device)
         self.projection = Dense(spec.conv_dims[-1], e.hidden, dtype=e.dtype,
                                 device=device)
+        self.dropout = e.dropout
 
-    def forward(self, features: torch.Tensor
+    def forward(self, features: torch.Tensor,
+                rng: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         norm = self.ln(features)
-        return self.projection(norm), norm
+        hidden = dropout(self.projection(norm), self.dropout, self.training,
+                         rng)
+        return hidden, norm
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -146,16 +169,32 @@ class Wav2Vec2Encoder(nn.Module):
         super().__init__()
         self.pos_conv = PositionalConvEmbedding(spec, device=device)
         self.layers = TransformerEncoder(spec.encoder, device=device)
+        self.dropout = spec.encoder.dropout
 
     def forward(self, hidden: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                attention_mask: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if attention_mask is not None:
             hidden = hidden * attention_mask[..., None].to(hidden.dtype)
         hidden = hidden + self.pos_conv(hidden)
+        hidden = dropout(hidden, self.dropout, self.training, rng)
         bias = None if attention_mask is None else additive_mask(
             attention_mask)
-        return self.layers(hidden, bias)
+        return self.layers(hidden, bias, rng)
+
+
+def spec_augment(spec: Wav2Vec2Spec, rng: Optional[torch.Generator],
+                 hidden: torch.Tensor, masked_embed: torch.Tensor,
+                 feat_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``apply_spec_augment`` with the spec's probabilities and lengths."""
+    if rng is None:
+        raise ValueError("SpecAugment in training mode needs the step's "
+                         "torch.Generator (rng=...)")
+    return apply_spec_augment(
+        rng, hidden, masked_embed, spec.mask_time_prob,
+        spec.mask_time_length, spec.mask_feature_prob,
+        spec.mask_feature_length, feat_mask, spec.mask_time_min_masks,
+        spec.mask_feature_min_masks)
 
 
 class Wav2Vec2Model(nn.Module):
@@ -164,9 +203,8 @@ class Wav2Vec2Model(nn.Module):
 
     ``with_feature_extractor=False`` builds the model without its own conv
     stack, for the TAV model's shared audio frontend: the features then come
-    in through ``features``. ``masked_spec_embed`` is SpecAugment's learned
-    vector; serving never reads it, but it is carried so the weights round
-    trip."""
+    in through ``features``. SpecAugment runs in training mode only, with
+    the learned ``masked_spec_embed`` vector."""
 
     def __init__(self, spec: Wav2Vec2Spec, with_feature_extractor: bool = True,
                  device: DeviceLike = "cuda"):
@@ -181,7 +219,8 @@ class Wav2Vec2Model(nn.Module):
 
     def forward(self, waveform: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                features: Optional[torch.Tensor] = None
+                features: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
         s = self.spec
@@ -192,6 +231,10 @@ class Wav2Vec2Model(nn.Module):
             feat_mask = feature_vector_attention_mask(
                 features.shape[1], attention_mask, s.conv_kernels,
                 s.conv_strides)
-        hidden, norm_features = self.feature_projection(features)
-        hidden = self.encoder(hidden, feat_mask)
+        hidden, norm_features = self.feature_projection(features, rng)
+        if self.training and (s.mask_time_prob > 0
+                              or s.mask_feature_prob > 0):
+            hidden = spec_augment(s, rng, hidden, self.masked_spec_embed,
+                                  feat_mask)
+        hidden = self.encoder(hidden, feat_mask, rng)
         return hidden, norm_features, feat_mask

@@ -1,7 +1,8 @@
 """TAV triple-modal fusion: embedding fuser + four-tower classifier.
 
 Port of ``mme_tpu/models/fusion.py`` (``TAVSpec``, ``PreFormer``,
-``TAVForMAE``, ``TAVModel`` with ``share_audio_frontend``). The other fusion
+``TAVForMAE``, ``TAVModel`` with ``share_audio_frontend``), training-mode
+sites included (SpecAugment in the PreFormer, head dropout). The other fusion
 variants (``TAVFormer``, the two-tower and wav2vec2-trunk models, the MoE
 trunk) are not ported yet.
 
@@ -21,9 +22,11 @@ from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.audio import (ConvFeatureExtractor,
                                         FeatureProjection,
                                         PositionalConvEmbedding,
-                                        Wav2Vec2Model, Wav2Vec2Spec)
+                                        Wav2Vec2Model, Wav2Vec2Spec,
+                                        spec_augment)
 from mme_tpu_torch.models.layers import (Dense, Embed, EncoderSpec,
-                                         TransformerEncoder, empty_param)
+                                         TransformerEncoder, dropout,
+                                         empty_param)
 from mme_tpu_torch.models.text import (TextEmbeddings, TextEncoder,
                                        TextEncoderSpec)
 from mme_tpu_torch.models.video import VideoMAEModel, VideoMAESpec
@@ -47,6 +50,8 @@ class TAVSpec:
         ln_style="pre", qkv_bias="qv", ln_eps=1e-12))
     hidden: int = 768
     output_dim: int = 7
+    dropout: float = 0.5      # on the concatenated heads, before the classifier
+    learn_pos_embeddings: bool = True   # False freezes modality_embedding
     video_keep_k: int = 104   # fused-tower visible patches (≈1568/15)
     # one conv feature extractor shared by the PreFormer and the full audio
     # tower (tied weights, half the conv work)
@@ -116,16 +121,20 @@ class PreFormer(nn.Module):
     def forward(self, input_ids: torch.Tensor, text_mask: torch.Tensor,
                 waveform: torch.Tensor, audio_mask: torch.Tensor,
                 video: torch.Tensor, video_keep: torch.Tensor,
-                audio_features: Optional[torch.Tensor] = None
+                audio_features: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         s = self.spec
-        t = self.text_embeddings(input_ids)
+        t = self.text_embeddings(input_ids, rng=rng)
         feats = (audio_features if audio_features is not None
                  else self.feature_extractor(waveform))
         feat_mask = feature_vector_attention_mask(
             feats.shape[1], audio_mask, s.audio.conv_kernels,
             s.audio.conv_strides)
-        a, _ = self.feature_projection(feats)
+        a, _ = self.feature_projection(feats, rng)
+        if self.training and s.audio.mask_time_prob > 0:
+            a = spec_augment(s.audio, rng, a, self.masked_spec_embed,
+                             feat_mask)
         # zero padded frames before the conv positional embedding so pad
         # length cannot bleed into real positions
         a = a * feat_mask[..., None].to(a.dtype)
@@ -180,26 +189,27 @@ class TAVForMAE(nn.Module):
                 video: torch.Tensor, video_keep: torch.Tensor,
                 fused: torch.Tensor, type_ids: torch.Tensor,
                 fused_keep: torch.Tensor,
-                audio_features: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                audio_features: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         s = self.spec
         av = fused + self.modality_embedding(type_ids)
 
         aud_hidden, _, aud_feat_mask = self.wav2vec2(
-            waveform, audio_mask, features=audio_features)
+            waveform, audio_mask, features=audio_features, rng=rng)
         aud = masked_mean_pool(self.wav_to_hidden(aud_hidden), aud_feat_mask)
 
         vid = self.videomae(video, torch.logical_not(video_keep),
-                            s.video.num_patches - s.video_keep_k).mean(dim=1)
+                            s.video.num_patches - s.video_keep_k,
+                            rng).mean(dim=1)
 
-        _, pooled_text = self.text_encoder(input_ids, text_mask)
+        _, pooled_text = self.text_encoder(input_ids, text_mask, rng=rng)
 
-        av = self.fusion_encoder(av, additive_mask(fused_keep))
+        av = self.fusion_encoder(av, additive_mask(fused_keep), rng)
         av = self.fusion_norm(masked_mean_pool(av, fused_keep))
 
         tav = torch.cat([av, self.text_norm(pooled_text),
                          self.audio_norm(aud), self.video_norm(vid)], dim=1)
-        return self.classifier(tav)
+        return self.classifier(dropout(tav, s.dropout, self.training, rng))
 
 
 class TAVModel(nn.Module):
@@ -207,7 +217,9 @@ class TAVModel(nn.Module):
     ``input_ids``, ``text_mask``, ``waveform``, ``audio_mask``, ``video``
     (normalised, [B, T, H, W, C]) and ``video_keep``; the logits
     [B, output_dim] come out in fp32 (their values are those of the compute
-    dtype, as in flax)."""
+    dtype, as in flax). In training mode (``.train()``) dropout and
+    SpecAugment draw from ``rng``; ``.eval()`` is the deterministic
+    forward."""
 
     def __init__(self, spec: TAVSpec, device: DeviceLike = "cuda"):
         super().__init__()
@@ -218,15 +230,16 @@ class TAVModel(nn.Module):
         self.audio_frontend = (ConvFeatureExtractor(spec.audio, device=dev)
                                if spec.share_audio_frontend else None)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         feats = (self.audio_frontend(batch["waveform"])
                  if self.audio_frontend is not None else None)
         fused, type_ids, fused_keep = self.preformer(
             batch["input_ids"], batch["text_mask"], batch["waveform"],
             batch["audio_mask"], batch["video"], batch["video_keep"],
-            audio_features=feats)
+            audio_features=feats, rng=rng)
         logits = self.model(
             batch["input_ids"], batch["text_mask"], batch["waveform"],
             batch["audio_mask"], batch["video"], batch["video_keep"],
-            fused, type_ids, fused_keep, audio_features=feats)
+            fused, type_ids, fused_keep, audio_features=feats, rng=rng)
         return logits.float()

@@ -4,14 +4,21 @@ Port of ``mme_tpu/models/layers.py``: ``EncoderSpec``, ``activation``,
 ``MultiHeadAttention`` (one fused QKV projection), ``Mlp``, pre- and
 post-LN ``EncoderBlock`` and ``TransformerEncoder``; plus ``Dense`` and
 ``Embed``, the port's counterparts of flax's ``nn.Dense`` and ``nn.Embed``.
-The sequence/pipeline-parallel, scan-over-layers, remat and fused-MLP
-branches of the JAX module are not ported yet.
+The sequence/pipeline-parallel, scan-over-layers and fused-MLP branches of
+the JAX module are not ported yet.
 
 Mixed precision follows flax's policy: parameters stay fp32 (or whatever
 dtype the caller stored them in) and are cast to the compute dtype where
-they are used; LayerNorm and softmax run in fp32. Modules run the
-deterministic (serving) forward: dropout and its spec fields arrive with
-training.
+they are used; LayerNorm and softmax run in fp32.
+
+Training mode: ``nn.Module.training`` plays flax's ``deterministic=False``.
+Dropout sits where the JAX modules have it (attention output before the
+out-projection, MLP output, attention branch before the residual add) and
+draws from the ``torch.Generator`` handed down from the train step, never
+from the global RNG; a module in training mode with a dropout rate and no
+generator raises. ``EncoderSpec.remat`` recomputes each block in the
+backward pass with the generator rewound, so the recomputed masks are the
+first pass's.
 
 Parameters are allocated uninitialised: weights come from a flax tree
 through ``mme_tpu_torch/convert.py``.
@@ -25,6 +32,7 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.ops.attention import dot_product_attention_shd
@@ -43,8 +51,11 @@ class EncoderSpec:
     qkv_bias: str = "full"           # "full" | "qv" (VideoMAE) | "none"
     ln_eps: float = 1e-12
     act: str = "gelu"                # exact gelu to match HF defaults
+    dropout: float = 0.0
+    attention_dropout: float = 0.0
     final_ln: bool = False            # pre-LN stacks end with a LayerNorm
     dtype: torch.dtype = torch.float32
+    remat: bool = False               # recompute each block in the backward
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -57,6 +68,22 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "tanh":
         return torch.tanh
     raise ValueError(f"unknown activation {name}")
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout from an explicit generator (flax ``nn.Dropout``):
+    keep with probability ``1 - rate``, scale the kept by ``1/(1 - rate)``.
+    Identity outside training mode or at rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout in training mode needs the step's "
+                         "torch.Generator (rng=...); call .eval() for the "
+                         "deterministic forward")
+    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    return torch.where(keep, x * (1.0 / (1.0 - rate)),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def empty_param(shape: Union[int, Sequence[int]],
@@ -115,6 +142,7 @@ class MultiHeadAttention(nn.Module):
         s = spec
         self.heads = s.heads
         self.head_dim = s.hidden // s.heads
+        self.attention_dropout = s.attention_dropout
         # holds the [3·H·D, hidden] weight; forward applies it together
         # with the masked qkv_bias in one F.linear
         self.qkv = Dense(s.hidden, 3 * s.hidden, use_bias=False,
@@ -131,7 +159,8 @@ class MultiHeadAttention(nn.Module):
         self.out = Dense(s.hidden, s.hidden, dtype=s.dtype, device=dev)
 
     def forward(self, x: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S, _ = x.shape
         dt = self.qkv.dtype
         b = None
@@ -141,6 +170,8 @@ class MultiHeadAttention(nn.Module):
         qkv = qkv.view(B, S, 3, self.heads, self.head_dim)
         out = dot_product_attention_shd(qkv[:, :, 0], qkv[:, :, 1],
                                         qkv[:, :, 2], bias)
+        # on the attention output, not on the probabilities (as in JAX)
+        out = dropout(out, self.attention_dropout, self.training, rng)
         return self.out(out.reshape(B, S, self.heads * self.head_dim))
 
 
@@ -153,9 +184,12 @@ class Mlp(nn.Module):
         self.fc2 = Dense(s.intermediate, s.hidden, dtype=s.dtype,
                          device=device)
         self.act = activation(s.act)
+        self.dropout = s.dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(self.fc2(self.act(self.fc1(x))), self.dropout,
+                       self.training, rng)
 
 
 class EncoderBlock(nn.Module):
@@ -165,27 +199,62 @@ class EncoderBlock(nn.Module):
         super().__init__()
         s = spec
         self.pre_ln = s.ln_style == "pre"
+        self.dropout = s.dropout
         self.attention = MultiHeadAttention(s, device=device)
         self.mlp = Mlp(s, device=device)
         self.ln1 = FusedLayerNorm(s.hidden, s.ln_eps, s.dtype, device=device)
         self.ln2 = FusedLayerNorm(s.hidden, s.ln_eps, s.dtype, device=device)
 
     def forward(self, x: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        def attn(y):
+            return dropout(self.attention(y, bias, rng), self.dropout,
+                           self.training, rng)
         if self.pre_ln:
-            x = x + self.attention(self.ln1(x), bias)
-            return x + self.mlp(self.ln2(x))
-        x = self.ln1(x + self.attention(x, bias))   # post-LN (BERT)
-        return self.ln2(x + self.mlp(x))
+            x = x + attn(self.ln1(x))
+            return x + self.mlp(self.ln2(x), rng)
+        x = self.ln1(x + attn(x))                   # post-LN (BERT)
+        return self.ln2(x + self.mlp(x, rng))
+
+
+def remat_call(fn: Callable[..., torch.Tensor],
+               rng: Optional[torch.Generator], *args) -> torch.Tensor:
+    """``fn(*args, rng)`` under activation checkpointing: its intermediates
+    are dropped and recomputed in the backward pass. The recomputation runs
+    with ``rng`` rewound to the state of the first pass, so every dropout
+    mask comes out the same, and leaves the generator where the backward
+    pass found it."""
+    if rng is None:
+        return checkpoint(lambda *a: fn(*a, None), *args,
+                          use_reentrant=False, preserve_rng_state=False)
+    start = rng.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a, rng)
+        now = rng.get_state()
+        rng.set_state(start)
+        try:
+            return fn(*a, rng)
+        finally:
+            rng.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class TransformerEncoder(nn.Module):
     """Stack of ``layer_<i>`` EncoderBlocks, then ``final_ln`` if the spec
-    asks for it."""
+    asks for it. ``spec.remat`` checkpoints every block while gradients are
+    being recorded."""
 
     def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
         super().__init__()
         self.n_layers = spec.layers
+        self.remat = spec.remat
         for i in range(spec.layers):
             self.add_module(f"layer_{i}", EncoderBlock(spec, device=device))
         self.final_ln = (FusedLayerNorm(spec.hidden, spec.ln_eps, spec.dtype,
@@ -193,9 +262,13 @@ class TransformerEncoder(nn.Module):
                          if spec.final_ln else None)
 
     def forward(self, x: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, bias)
+            block = getattr(self, f"layer_{i}")
+            x = (remat_call(block, rng, x, bias) if remat
+                 else block(x, bias, rng))
         if self.final_ln is not None:
             x = self.final_ln(x)
         return x

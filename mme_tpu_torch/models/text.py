@@ -16,7 +16,7 @@ from torch import nn
 
 from mme_tpu_torch.device import DeviceLike
 from mme_tpu_torch.models.layers import (Dense, Embed, EncoderSpec,
-                                         TransformerEncoder)
+                                         TransformerEncoder, dropout)
 from mme_tpu_torch.ops.attention import additive_mask
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
 
@@ -29,11 +29,12 @@ class TextEncoderSpec:
     pad_token_id: int = 1
     encoder: EncoderSpec = dataclasses.field(default_factory=lambda: EncoderSpec(
         hidden=768, heads=12, layers=6, intermediate=3072,
-        ln_style="post", ln_eps=1e-5))
+        ln_style="post", ln_eps=1e-5, dropout=0.1))
 
     @staticmethod
     def distilroberta(**kw) -> "TextEncoderSpec":
-        """'j-hartmann/emotion-english-distilroberta-base' architecture."""
+        """'j-hartmann/emotion-english-distilroberta-base' architecture
+        (hidden dropout 0.1 during training, the HF default)."""
         return TextEncoderSpec(**kw)
 
 
@@ -58,14 +59,15 @@ class TextEmbeddings(nn.Module):
         self.ln = FusedLayerNorm(e.hidden, e.ln_eps, e.dtype, device=device)
 
     def forward(self, input_ids: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         pos_ids = roberta_position_ids(input_ids, self.spec.pad_token_id)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = (self.word(input_ids) + self.position(pos_ids)
              + self.token_type(token_type_ids))
-        return self.ln(x)
+        return dropout(self.ln(x), self.spec.encoder.dropout, self.training,
+                       rng)
 
 
 class TextEncoder(nn.Module):
@@ -80,10 +82,11 @@ class TextEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                token_type_ids: Optional[torch.Tensor] = None
+                token_type_ids: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.embeddings(input_ids, token_type_ids)
+        x = self.embeddings(input_ids, token_type_ids, rng)
         bias = None if attention_mask is None else additive_mask(
             attention_mask)
-        x = self.encoder(x, bias)
+        x = self.encoder(x, bias, rng)
         return x, torch.tanh(self.pooler(x[:, 0]))

@@ -98,5 +98,7 @@ class VideoMAEModel(nn.Module):
 
     def forward(self, video: torch.Tensor,
                 visible_mask: Optional[torch.Tensor] = None,
-                keep_k: Optional[int] = None) -> torch.Tensor:
-        return self.encoder(self.embed(video, visible_mask, keep_k), None)
+                keep_k: Optional[int] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.encoder(self.embed(video, visible_mask, keep_k), None,
+                            rng)

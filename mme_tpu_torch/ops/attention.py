@@ -2,9 +2,10 @@
 
 Port of ``mme_tpu/ops/attention.py``. ``dot_product_attention_shd`` is the
 numerics contract: fp32 logits and softmax, probabilities cast to v's dtype,
-P·V accumulated in fp32. Calls that the flash kernel takes go to
-``ops/flash_attention.py``; the rest take the plain path below, as JAX
-sends them to XLA. That plain path is the counterpart of the XLA path, not a
+P·V accumulated in fp32. Calls that the flash kernels take go to
+``ops/flash_attention.py`` (forward and, under autograd, backward); the
+rest take the plain path below, differentiated by autograd, as JAX sends
+them to XLA. That plain path is the counterpart of the XLA path, not a
 fallback from a failed kernel.
 """
 
@@ -15,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from mme_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention_fwd
+from mme_tpu_torch.ops.flash_attention import HEAD_DIMS, FlashAttention
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -55,7 +56,7 @@ def dot_product_attention_shd(q: torch.Tensor, k: torch.Tensor,
         use_flash = _decide_flash(q, bias)
     if use_flash:
         bias_k = None if bias is None else bias[:, 0, 0, :].float()
-        return flash_attention_fwd(q, k, v, bias_k)[0]
+        return FlashAttention.apply(q, k, v, bias_k)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:

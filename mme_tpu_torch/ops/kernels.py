@@ -3,9 +3,10 @@
 Each source ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
 ctypes. The build happens at first use, into ``mme_tpu_torch/_build/``
-(listed in ``.gitignore``); the library name carries a hash of the source
-and the flags, so an edited source is never served by a stale library. A
-missing ``nvcc`` or a failed build raises.
+(listed in ``.gitignore``); the library name carries a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+never served by a stale library. A missing ``nvcc`` or a failed build
+raises.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made since the
 last :func:`reset_launches`; a wrapper adds one where it launches its kernel
@@ -46,8 +47,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

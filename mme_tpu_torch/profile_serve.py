@@ -36,6 +36,8 @@ from mme_tpu_torch.train.build_tav import (example_tav_batch,
 
 # kernel-name fragments → family (first match wins)
 FAMILIES = (("flash_fwd", "flash_fwd (K1)"),
+            ("flash_bwd", "flash_bwd (K2)"),
+            ("adam_update", "adam_update (K3)"),
             ("conv", "conv"), ("cudnn", "conv"), ("fprop", "conv"),
             ("gemm", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
             ("nvjet", "matmul"),
@@ -43,7 +45,7 @@ FAMILIES = (("flash_fwd", "flash_fwd (K1)"),
             ("reduce", "reduction"), ("softmax", "reduction"))
 
 
-def _family(name: str) -> str:
+def kernel_family(name: str) -> str:
     for frag, fam in FAMILIES:
         if frag.lower() in name.lower():
             return fam
@@ -103,7 +105,7 @@ def main() -> None:
                 continue
             us = float(getattr(ev, "self_device_time_total", 0.0)
                        or getattr(ev, "self_cuda_time_total", 0.0))
-            families[_family(ev.key)] += us / 3e3
+            families[kernel_family(ev.key)] += us / 3e3
             kernels.append((us / 3e3, ev.count // 3, ev.key[:90]))
         kernels.sort(reverse=True)
         device_ms = sum(families.values())

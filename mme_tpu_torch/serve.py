@@ -58,7 +58,7 @@ class Predictor:
                  param_dtype: Optional[torch.dtype] = None):
         self.batch_size = int(batch_size)
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = model.to(self.device).eval()
         if param_dtype is not None:
             for p in self.model.parameters():
                 p.data = p.data.to(param_dtype)

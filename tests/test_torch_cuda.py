@@ -7,8 +7,14 @@ a card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Tolerances (elementwise |O - O_plain| <= atol + rtol |O_plain|): fp32 sums
 fp32 products in another order, a few fp32 ulps; bf16 rounds the
 unnormalised probabilities (the plain version the normalised ones) and O
-itself to bf16, a bf16 ulp or two. LSE is fp32 on both sides.
+itself to bf16, a bf16 ulp or two. LSE is fp32 on both sides. The backward's
+gradients are sums of up to Sq or Sk such terms and are held relative to
+each tensor's largest element: 1e-5 in fp32, 2e-2 in bf16 (P and dS are
+rounded to bf16 on both sides, at slightly different fp32 values, and the
+result is rounded to bf16 once more).
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -16,12 +22,18 @@ import torch
 from mme_tpu_torch.models.layers import EncoderSpec, TransformerEncoder
 from mme_tpu_torch.ops import kernels
 from mme_tpu_torch.ops.attention import additive_mask, dot_product_attention_shd
-from mme_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+from mme_tpu_torch.ops.adam_update import (adam_update_leaf,
+                                           adam_update_leaf_plain)
+from mme_tpu_torch.ops.flash_attention import (FlashAttention,
+                                               flash_attention_bwd,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_fwd,
                                                flash_attention_fwd_plain)
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # of max |gradient|
 
 
 @pytest.fixture
@@ -118,3 +130,172 @@ def test_encoder_on_cuda_matches_cpu(cuda):
         got = gpu(x.to(cuda), bias.to(cuda)).cpu()
     assert kernels.LAUNCHES["flash_fwd"] == before + 2
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _assert_grads_close(got, want, dtype):
+    # a gradient that is zero but for cancellation (dq with a single key:
+    # dP = delta) is held to a twentieth of the largest gradient's scale
+    floor = 0.05 * max(b.float().abs().max().item() for b in want)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs().max().item()
+        assert err <= BWD_TOL[dtype] * max(b.abs().max().item(), floor), (
+            name, err, b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Sk,lengths", [
+    (64, 64, [64, 1]),            # one exact tile
+    (70, 70, [70, 0]),            # ragged tiles, a row masked by bias
+    (130, 333, [333, 200]),       # Sq != Sk, several tiles on both axes
+    (5, 1, [1, 1]),               # a single key
+])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, D, Sq, Sk, lengths,
+                                        with_bias):
+    q, k, v, bias = _inputs(2, Sq, Sk, 3, D, dtype, lengths)
+    bias = bias if with_bias else None
+    g = torch.Generator(device="cuda").manual_seed(7)
+    do = torch.randn(2, Sq, 3, D, generator=g, device="cuda").to(dtype)
+    out, lse = flash_attention_fwd_plain(q, k, v, bias)
+    before = kernels.LAUNCHES["flash_bwd"]
+    got = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd"] == before + 1
+    want = flash_attention_bwd_plain(q, k, v, bias, out, lse, do)
+    _assert_grads_close(got, want, dtype)
+    if with_bias and 0 in lengths:
+        # the row masked by bias keeps the uniform P: its dV is not zero
+        assert got[2][1].abs().max() > 0
+
+
+def test_flash_bwd_sentinel_row_gets_no_gradient(cuda):
+    q, k, v, _ = _inputs(2, 40, 40, 2, 64, torch.float32, [40, 40])
+    bias = torch.zeros(2, 40, device="cuda")
+    bias[1] = float("-inf")
+    do = torch.randn(2, 40, 2, 64, device="cuda")
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    assert torch.all(lse[1] == 1e30)
+    dq, dk, dv = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    for x in (dq, dk, dv):
+        assert torch.all(x[1] == 0) and torch.isfinite(x).all()
+    _assert_grads_close((dq, dk, dv), flash_attention_bwd_plain(
+        q, k, v, bias, out, lse, do), torch.float32)
+
+
+def test_flash_autograd_matches_non_flash_path(cuda, monkeypatch):
+    """FlashAttention under autograd (both kernels) against autograd
+    through the plain attention path, fp32, with a row masked by bias and a
+    non-contiguous output gradient."""
+    q, k, v, bias = _inputs(2, 77, 77, 2, 64, torch.float32, [77, 0])
+    w = torch.randn(2, 77, 64, 2, device="cuda")
+
+    def grads(use_flash):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = dot_product_attention_shd(*leaves, bias[:, None, None, :],
+                                        use_flash=use_flash)
+        # the permute hands backward a dO whose last stride is not 1
+        (out.permute(0, 1, 3, 2) * w).sum().backward()
+        return [x.grad for x in leaves]
+
+    fwd, bwd = kernels.LAUNCHES["flash_fwd"], kernels.LAUNCHES["flash_bwd"]
+    got = grads(True)
+    assert kernels.LAUNCHES["flash_fwd"] == fwd + 1
+    assert kernels.LAUNCHES["flash_bwd"] == bwd + 1
+    _assert_grads_close(got, grads(False), torch.float32)
+    assert kernels.LAUNCHES["flash_bwd"] == bwd + 1
+    leaf = q.detach().clone().requires_grad_()
+    FlashAttention.apply(leaf, k, v, None).sum().backward()   # expanded dO
+    assert torch.isfinite(leaf.grad).all()
+
+
+def _ulps(a, b):
+    """Distance in fp32 units in the last place."""
+    ia = a.float().view(torch.int32).long()
+    ib = b.float().view(torch.int32).long()
+    return (ia - ib).abs().max().item()
+
+
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16],
+                         ids=["g_fp32", "g_bf16"])
+@pytest.mark.parametrize("shape", [(3072, 768), (70001,), (512, 64, 10)])
+def test_adam_kernel_zero_noise_matches_plain_exactly(cuda, gdtype, shape):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    grad = (torch.randn(shape, generator=g, device="cuda") * 1e-3).to(gdtype)
+    mu = (torch.randn(shape, generator=g, device="cuda") * 1e-3).bfloat16()
+    nu = (torch.rand(shape, generator=g, device="cuda") * 1e-6).bfloat16()
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, zero_noise=True)
+    before = kernels.LAUNCHES["adam_update"]
+    out, mu2, nu2 = adam_update_leaf(grad, mu, nu, 0.271, 0.003, 5, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["adam_update"] == before + 1
+    o_ref, mu_ref, nu_ref = adam_update_leaf_plain(grad, mu, nu, 0.271,
+                                                   0.003, **kw)
+    assert out.dtype == gdtype and mu2.dtype == nu2.dtype == torch.bfloat16
+    assert torch.equal(mu2, mu_ref) and torch.equal(nu2, nu_ref)
+    if gdtype == torch.float32:
+        assert _ulps(out, o_ref) <= 1
+    else:
+        assert torch.equal(out, o_ref)
+
+
+def test_adam_kernel_noise_brackets_is_unbiased_and_seeded(cuda):
+    n = 1 << 22
+    g = torch.Generator(device="cuda").manual_seed(2)
+    grad = torch.randn(n, generator=g, device="cuda") * 1e-3
+    mu = (torch.randn(n, generator=g, device="cuda") * 1e-3).bfloat16()
+    nu = (torch.rand(n, generator=g, device="cuda") * 1e-6).bfloat16()
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    m32 = 0.9 * mu.float() + (1.0 - 0.9) * grad
+    lo = (m32.view(torch.int32) & -65536).view(torch.float32)   # truncated
+    hi = ((m32.view(torch.int32) & -65536) + 65536).view(torch.float32)
+    _, a, _ = adam_update_leaf(grad, mu, nu, 1.0, 1.0, 11, **kw)
+    _, b, _ = adam_update_leaf(grad, mu, nu, 1.0, 1.0, 11, **kw)
+    _, c, _ = adam_update_leaf(grad, mu, nu, 1.0, 1.0, 12, **kw)
+    af = a.float()
+    assert torch.all((af == lo) | (af == hi))        # one of the neighbours
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # unbiased: the mean error is within 5 standard errors; a bf16 step at
+    # |m| ~ 1e-3 is ~8e-6, so one draw's error is below that
+    err = (af - m32).double()
+    assert abs(err.mean().item()) < 5 * err.std().item() / n ** 0.5
+    # truncation, by contrast, shrinks every magnitude
+    trunc = (lo.abs() - m32.abs()).double().mean().item()
+    assert trunc < -20 * err.std().item() / n ** 0.5
+
+
+def test_encoder_remat_on_cuda_recomputes_through_the_kernels(cuda):
+    """Training mode on the card with dropout on: remat recomputes each
+    block through K1 in the backward pass, with the dropout masks of the
+    first pass, so the gradients equal the unremat'd encoder's."""
+    spec = EncoderSpec(hidden=128, heads=2, layers=2, intermediate=256,
+                       ln_style="pre", dropout=0.1, attention_dropout=0.1)
+    plain = TransformerEncoder(spec, device=cuda)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for p in plain.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * 0.1)
+    remat = TransformerEncoder(dataclasses.replace(spec, remat=True),
+                               device=cuda)
+    remat.load_state_dict(plain.state_dict())
+    x = torch.randn(3, 77, 128, generator=g, device="cuda")
+    bias = additive_mask(torch.arange(77, device="cuda")[None, :]
+                         < torch.tensor([77, 30, 5], device="cuda")[:, None])
+
+    def grads(model):
+        fwd, bwd = kernels.LAUNCHES["flash_fwd"], kernels.LAUNCHES["flash_bwd"]
+        rng = torch.Generator(device="cuda").manual_seed(3)
+        out = model(x, bias, rng)
+        got = torch.autograd.grad((out ** 2).sum(), list(model.parameters()))
+        return got, (kernels.LAUNCHES["flash_fwd"] - fwd,
+                     kernels.LAUNCHES["flash_bwd"] - bwd)
+
+    want, count = grads(plain)
+    got, count_remat = grads(remat)
+    assert count == (2, 2) and count_remat == (4, 2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)

@@ -4,7 +4,8 @@ converter round trip, fp32 parity per tower, the TAVModel logits in fp32
 and a bf16 agreement leg.
 
 The flax tree is initialised once per file (module fixture); each tower is
-applied as a sub-module of that one tree. The batch carries ragged rows
+applied as a sub-module of that one tree, in eval mode (the deterministic
+forward; tests/test_torch_train.py covers training mode). The batch carries ragged rows
 and a fully padded row (text and audio masks all 0), as serving does.
 
 Tolerances: fp32 hidden states agree to 1e-5 at unit scale and the logits
@@ -121,6 +122,7 @@ def test_text_tower_fp32(ref):
             sub, jb["input_ids"], jb["text_mask"])
     m = TextEncoder(SPEC.text, device="cpu")
     m.load_state_dict(from_flax(sub))
+    m.eval()
     with torch.inference_mode():
         o_seq, o_pooled = m(torch.from_numpy(batch["input_ids"]),
                             torch.from_numpy(batch["text_mask"]))
@@ -136,6 +138,7 @@ def test_audio_tower_fp32(ref):
             sub, jb["waveform"], jb["audio_mask"])
     m = Wav2Vec2Model(SPEC.audio, device="cpu")
     m.load_state_dict(from_flax(sub))
+    m.eval()
     with torch.inference_mode():
         o_hidden, o_norm, o_mask = m(torch.from_numpy(batch["waveform"]),
                                      torch.from_numpy(batch["audio_mask"]))
@@ -153,6 +156,7 @@ def test_video_tower_fp32(ref):
         {"params": p}, v, k, n_keep))(sub, jb["video"], jnp.asarray(visible))
     m = VideoMAEModel(SPEC.video, device="cpu")
     m.load_state_dict(from_flax(sub))
+    m.eval()
     with torch.inference_mode():
         o = m(torch.from_numpy(batch["video"]), torch.from_numpy(visible),
               n_keep)
@@ -168,6 +172,7 @@ def test_preformer_fp32(ref):
                       b["video_keep"]))(sub, jb)
     m = PreFormer(SPEC, device="cpu")
     m.load_state_dict(from_flax(sub), strict=True)
+    m.eval()
     tb = _torch(batch)
     with torch.inference_mode():
         o_fused, o_types, o_keep = m(
@@ -183,6 +188,7 @@ def _logits(spec, j_spec, params, batch, jb):
         {"params": p}, b))(params, jb).astype(jnp.float32))
     model = TAVModel(spec, device="cpu")
     model.load_state_dict(from_flax(params), strict=True)
+    model.eval()
     with torch.inference_mode():
         got = model(_torch(batch))
     assert got.dtype == torch.float32 and got.shape == (3, 7)

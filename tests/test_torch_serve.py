@@ -137,6 +137,17 @@ model.load_state_dict(from_flax(init_params(spec, 0)))
 preds, probs = Predictor(model, batch_size=2, device="cpu")(
     example_tav_batch(spec, 3, 8, 4000))
 assert probs.shape == (3, 7) and np.isfinite(probs).all()
+from mme_tpu_torch.config import ExperimentConfig
+from mme_tpu_torch.train.build_tav import build_tav
+cfg = ExperimentConfig(batch_size=2, text_max_len=8, audio_max_samples=4000)
+_, state, train_step, eval_step = build_tav(spec, cfg, 10, device="cpu")
+batch = example_tav_batch(spec, 2, 8, 4000)
+labels, mask, cw = np.array([0, 1]), np.ones(2, np.int32), np.ones(7, "f")
+state, loss, cm, norm = train_step(state, batch, labels, mask, cw, 1.0,
+                                   True, 0)
+assert np.isfinite(loss.item()) and int(cm.sum()) == 2 and state.step == 1
+assert np.isfinite(eval_step(batch, labels, mask, cw)[0].item())
+assert len(mods) >= 27, mods
 print(len(mods), "modules")
 """
 
