@@ -9,46 +9,63 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device: the card's name, the device count and ``nvidia-smi``'s name and
    power limit.
 2. Build: every CUDA kernel from ``mme_tpu_torch/csrc/`` (flash forward
-   and backward), one ``nvcc`` per source started together; prints the
-   build time and ``-Xptxas -v``. The Triton kernel compiles at its first
-   launch.
-3. Kernels against their plain PyTorch versions on the card, q/k/v as
-   strided views of a fused QKV tensor:
-   - the flash forward (K1) and backward (K2) at the four model shapes in
-     bf16 and fp32, a ragged key length with head_dim 128, rows whose every
-     key is masked by bias and, for K2, a sentinel row (every score -inf).
-     Times each kernel, its plain version and
-     ``scaled_dot_product_attention`` forward / backward (a yardstick the
-     port never calls) at the bf16 shapes with CUDA events;
+   and backward, the fused MLP), one ``nvcc`` per source started together;
+   prints the build time, ``-Xptxas -v`` of the flash kernels and a summary
+   (registers, spills) of the fused MLP's. The Triton kernels compile at
+   their first launch.
+3. Kernels against their plain PyTorch versions on the card:
+   - the flash forward (K1) and backward (K2), q/k/v as strided views of a
+     fused QKV tensor, at the four model shapes in bf16 and fp32, a ragged
+     key length with head_dim 128, rows whose every key is masked by bias
+     and, for K2, a sentinel row (every score -inf). Times each kernel, its
+     plain version and ``scaled_dot_product_attention`` forward / backward
+     (a yardstick the port never calls) at the bf16 shapes with CUDA events;
    - the fused bf16-moment Adam update (K3) on the model's leaf shapes:
      exact in ``zero_noise`` mode, and with noise every moment is one of
      the two bf16 neighbours, the mean error is within 5 standard errors,
      and other leaves and steps get other dither. Times it on every
-     distinct size of fusable leaf.
+     distinct size of fusable leaf;
+   - the fused LayerNorm forward (K4a) and backward (K4b) at [2 392, 1024],
+     [11 712, 768], [3 784, 768], [153 592, 512] and a ragged [3 001, 768]
+     in bf16 and fp32, and fp32 in / bf16 out: y, dx, dscale, dbias, two
+     runs bit-equal. Times them at every shape a training step launches,
+     beside ``F.layer_norm`` and its backward;
+   - the fused MLP forward (K5a) and backward (K5b) at the four full-width
+     tower shapes in bf16, a small shape in fp32 and bf16 with each of the
+     four activations, and a wide fp32 shape: out, dx, dW1, dW2, db1, db2,
+     two runs bit-equal. Times them at the tower shapes beside the unfused
+     ``F.linear → gelu → F.linear`` and its autograd backward.
 4. Serving at full width: ``init_params(TAVSpec(output_dim=7))`` →
    ``from_flax`` → ``TAVModel`` → ``Predictor(batch_size=8)`` serving ragged
    requests (8, 5 and 11 utterances, uint8 video) in an fp32 and a bf16
-   leg. Each leg is held against the same Predictor with ``MME_FLASH=0``;
-   the flash launch count must be 54 per chunk. Prints ms per batch of 8,
+   leg. Each leg is held against the same Predictor with ``MME_FLASH=0``
+   (54 flash launches per chunk), then served again with
+   ``MME_FUSED_LN=1 MME_FUSED_MLP=1`` and held against the knobs-off
+   probabilities: 54 K5a launches per chunk and the K4a count computed from
+   the spec. Prints ms per batch of 8 with the knobs off and on,
    utterances per second and peak device memory for the bf16 leg.
 5. Training at full width and depth through ``build_tav`` (70 tokens,
    96 000 samples, a 16x224x224 clip, shared audio frontend, no remat, no
    accumulation buffer):
    (1) fp32 compute, dropout and SpecAugment off, batch 4: loss and
-       gradients of one batch with the kernels against ``MME_FLASH=0``;
-       54 forward and 54 backward launches with, none without;
+       gradients of one batch with the kernels against ``MME_FLASH=0``
+       (54 forward and 54 backward launches with, none without), and with
+       both knobs on against both off: 54 + 54 launches of K5a/K5b and
+       K1/K2, the computed K4a/K4b counts;
    (2) a deterministic bf16 leg (dropout off) on one fixed batch of 8: the
        loss after four steps must lie below the first;
    (3) the benchmark configuration: bf16 compute, batch 8, dropout and
        SpecAugment on, ``MME_OPT_STATE=bf16``, lr 5e-6, cosine warm
-       restarts; 2 warm-up and 5 timed steps, 54 + 54 launches per step;
+       restarts; 2 warm-up and 4 timed steps, 54 + 54 launches per step;
        prints ms per step, utterances per second, peak memory and a
        forward / backward / optimizer split by CUDA events;
    (4) the same state with ``MME_FUSED_ADAM=1``: one K3 launch per fusable
-       leaf per step.
+       leaf per step;
+   (5) the same state with ``MME_FUSED_LN=1 MME_FUSED_MLP=1``: launches per
+       step, ms per step, the split and peak memory beside leg (3)'s.
 
-Then one JSON line of per-kernel results, the card's name and power limit,
-and last the line ``{"ok": true, "device": {...}}``.
+Then one JSON line of per-kernel results (seven kernels), the card's name
+and power limit, and last the line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -56,9 +73,11 @@ the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import re
 import sys
 import time
 from collections import Counter
@@ -76,6 +95,14 @@ from mme_tpu_torch.ops.adam_update import (MIN_FUSED_ELEMENTS,
                                            adam_update_leaf,
                                            adam_update_leaf_plain)
 from mme_tpu_torch.ops.attention import additive_mask
+from mme_tpu_torch.ops.fused_mlp import (ACTS, fused_mlp_bwd,
+                                         fused_mlp_bwd_plain, fused_mlp_fwd,
+                                         fused_mlp_fwd_plain, kernel_supports)
+from mme_tpu_torch.ops.layer_norm import (MIN_FUSED_ROWS, bwd_programs,
+                                          fused_layer_norm_bwd,
+                                          fused_layer_norm_bwd_plain,
+                                          fused_layer_norm_fwd,
+                                          fused_layer_norm_fwd_plain)
 from mme_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                flash_attention_bwd_plain,
                                                flash_attention_fwd,
@@ -120,11 +147,44 @@ ADAM_OUT_ULPS = 2
 # fp32 rounding carried through 54 layers, forward and backward
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_NORM_RTOL = 1e-3
+# fused LayerNorm against its plain version, elementwise |y - y_plain| <=
+# atol + rtol |y_plain| on y and dx: both sides compute in fp32 and differ by
+# an ulp or so (rsqrt, fused multiply-adds) before the cast, so a few fp32
+# ulps, or one bf16 step after a bf16 cast; dscale and dbias are fp32 sums
+# over up to 153 592 rows in another order, held to 1e-4 of their largest
+# element. No atomics: two runs give the same bits.
+LN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+LN_SUM_RTOL = 1e-4
+# fused MLP against its plain version, as a share of each tensor's largest
+# element: fp32 — sums of up to 4096 (dW: N) fp32 products in another order;
+# bf16 — `a` and `dh` are rounded to bf16 on both sides at fp32 values that
+# differ in the last place and each result is rounded to bf16 once more.
+# db1 and db2 are fp32 sums on both sides (1e-4 in bf16, where db1 sums the
+# unrounded dh). No atomics: two runs give the same bits.
+MLP_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+MLP_BIAS_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
+# both knobs on against both off, same weights and inputs: served
+# probabilities as SERVE_TOL; training in fp32 as TRAIN_*_RTOL (LayerNorm
+# and the MLP products summed in other orders through 54 layers)
+KNOBS = {"MME_FUSED_LN": "1", "MME_FUSED_MLP": "1"}
 # (name, batch, seq, heads) of the attention calls of one served chunk:
 # 6 text, 24 audio, 12 video and 12 fusion layers, head_dim 64
 SERVED = (("text", 8, 70, 12, 6), ("audio", 8, 299, 16, 24),
           ("video", 8, 1464, 12, 12), ("fusion", 8, 473, 12, 12))
 LAUNCHES_PER_CHUNK = sum(n for *_, n in SERVED)   # 54
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, static shared memory and spills of every kernel in one
+    source's ``-Xptxas -v`` output (the fused MLP's shared memory is
+    dynamic, sized per launch)."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    smem = [int(x) for x in re.findall(r"(\d+) bytes smem", log)]
+    return {"kernels": len(regs), "registers": sorted(regs),
+            "max_registers": max(regs), "spill_bytes": sum(spills),
+            "static_smem_bytes": sorted(set(smem))}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -417,6 +477,284 @@ def check_adam(spec: TAVSpec, card: str):
     return max_err, total
 
 
+@contextlib.contextmanager
+def knobs_on():
+    """MME_FUSED_LN=1 and MME_FUSED_MLP=1 for the enclosed calls."""
+    os.environ.update(KNOBS)
+    try:
+        yield
+    finally:
+        for k in KNOBS:
+            del os.environ[k]
+
+
+def ln_sites(spec: TAVSpec, batch: int, text_len: int = 70,
+             samples: int = 96000):
+    """(rows, features) of every FusedLayerNorm call of one forward of the
+    TAV model, from the spec alone."""
+    a = spec.audio
+    frames, conv = samples, []
+    for k, st, d in zip(a.conv_kernels, a.conv_strides, a.conv_dims):
+        frames = (frames - k) // st + 1
+        conv.append((batch * frames, d))
+
+    def encoder(e, rows):
+        return [(rows, e.hidden)] * (2 * e.layers + int(e.final_ln))
+
+    sites = conv * (1 if spec.share_audio_frontend else 2)
+    # the two feature projections (PreFormer, audio tower) and audio_ln
+    sites += [(batch * frames, a.conv_dims[-1])] * 2
+    sites += [(batch * frames, a.encoder.hidden)]
+    sites += encoder(a.encoder, batch * frames)
+    sites += encoder(spec.video.encoder,
+                     batch * (spec.video.num_patches - spec.video_keep_k))
+    sites += encoder(spec.fusion,
+                     batch * (text_len + frames + spec.video_keep_k))
+    sites += [(batch * text_len, spec.text.encoder.hidden)]      # embeddings
+    sites += encoder(spec.text.encoder, batch * text_len)
+    sites += [(batch, spec.hidden)] * 4                          # pooled
+    return sites
+
+
+def fused_ln_shapes(spec: TAVSpec, batch: int) -> Counter:
+    """The sites that MME_FUSED_LN=1 sends to the kernels, by shape."""
+    return Counter((n, h) for n, h in ln_sites(spec, batch)
+                   if n >= MIN_FUSED_ROWS and h % 8 == 0)
+
+
+def mlp_shapes(spec: TAVSpec, batch: int, text_len: int = 70,
+               samples: int = 96000):
+    """(name, rows, hidden, intermediate, layers) of the four towers' MLPs."""
+    frames = samples
+    for k, st in zip(spec.audio.conv_kernels, spec.audio.conv_strides):
+        frames = (frames - k) // st + 1
+    towers = (("text", spec.text.encoder, batch * text_len),
+              ("audio", spec.audio.encoder, batch * frames),
+              ("video", spec.video.encoder,
+               batch * (spec.video.num_patches - spec.video_keep_k)),
+              ("fusion", spec.fusion,
+               batch * (text_len + frames + spec.video_keep_k)))
+    return [(name, n, e.hidden, e.intermediate, e.layers)
+            for name, e, n in towers]
+
+
+def ln_case(n, h, xdtype, ydtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(n, h, generator=g, device="cuda") * 2 + 0.5).to(xdtype)
+    w = 1 + 0.3 * torch.randn(h, generator=g, device="cuda")
+    b = 0.2 * torch.randn(h, generator=g, device="cuda")
+    gy = torch.randn(n, h, generator=g, device="cuda").to(ydtype)
+    return x, w, b, gy
+
+
+def check_layer_norm(spec: TAVSpec, card: str):
+    """Phase 3, K4a and K4b. Returns the forward's and the backward's entry
+    for the kernels line, times and bounds summed over the launches of one
+    training step of the bf16 bench configuration."""
+    eps = 1e-5
+    shapes = [(2392, 1024), (11712, 768), (3784, 768), (153592, 512),
+              (3001, 768)]                                   # one ragged N
+    cases = [(n, h, dt, dt) for dt in (torch.bfloat16, torch.float32)
+             for n, h in shapes]
+    cases.append((2392, 1024, torch.float32, torch.bfloat16))  # fp32 → bf16
+    err_fwd = err_bwd = 0.0
+    for i, (n, h, xdt, ydt) in enumerate(cases):
+        x, w, b, gy = ln_case(n, h, xdt, ydt, 400 + i)
+        y = fused_layer_norm_fwd(x, w, b, eps, ydt)
+        got = fused_layer_norm_bwd(gy, x, w, eps)
+        again = fused_layer_norm_bwd(gy, x, w, eps)
+        torch.cuda.synchronize()
+        y0 = fused_layer_norm_fwd_plain(x, w, b, eps, ydt)
+        want = fused_layer_norm_bwd_plain(gy, x, w, eps)
+
+        def excess(a, ref, dt):
+            atol, rtol = LN_TOL[dt]
+            d = (a.float() - ref.float()).abs()
+            return d.max().item(), (d - rtol * ref.float().abs()
+                                    ).max().item() - atol
+
+        e_y, x_y = excess(y, y0, ydt)
+        e_dx, x_dx = excess(got[0], want[0], xdt)
+        sums = max(((a - r).abs().max() / r.abs().max().clamp(min=1e-12)
+                    ).item() for a, r in zip(got[1:], want[1:]))
+        same = all(torch.equal(a, r) for a, r in zip(got, again))
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (y,) + tuple(got))
+        print(f"layer_norm N={n} H={h} x {str(xdt)[6:]} y {str(ydt)[6:]}: "
+              f"max|dy|={e_y:.3e}, max|d(dx)|={e_dx:.3e} (atol, rtol "
+              f"{LN_TOL[ydt]}, {LN_TOL[xdt]}); dscale, dbias within "
+              f"{sums:.3e} of their largest element (tol {LN_SUM_RTOL}); "
+              f"two runs equal {same}", flush=True)
+        if not (finite and same and x_y <= 0 and x_dx <= 0
+                and sums <= LN_SUM_RTOL and y.dtype == ydt
+                and got[0].dtype == xdt):
+            raise SystemExit(f"fused layer norm disagrees with its plain "
+                             f"version at N={n} H={h} {xdt}")
+        err_fwd, err_bwd = max(err_fwd, e_y), max(err_bwd, e_dx)
+
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0}
+    bwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0}
+    rows = []
+    dt = torch.bfloat16
+    for (n, h), count in sorted(fused_ln_shapes(spec, 8).items()):
+        x, w, b, gy = ln_case(n, h, dt, dt, n % 1000)
+        lx, lw, lb = (t.detach().clone().requires_grad_()
+                      for t in (x, w, b))
+        ly = F.layer_norm(lx, (h,), lw.to(dt), lb.to(dt), eps)
+        programs = bwd_programs(n)
+        t = {"fwd": cuda_ms(lambda: fused_layer_norm_fwd(x, w, b, eps, dt)),
+             "fwd_plain": cuda_ms(lambda: fused_layer_norm_fwd_plain(
+                 x, w, b, eps, dt), iters=5, warmup=1),
+             "fwd_library": cuda_ms(lambda: F.layer_norm(
+                 x, (h,), w.to(dt), b.to(dt), eps)),
+             "bwd": cuda_ms(lambda: fused_layer_norm_bwd(gy, x, w, eps)),
+             "bwd_plain": cuda_ms(lambda: fused_layer_norm_bwd_plain(
+                 gy, x, w, eps), iters=5, warmup=1),
+             "bwd_library": cuda_ms(lambda: torch.autograd.grad(
+                 ly, (lx, lw, lb), gy, retain_graph=True))}
+        # x in, y out, scale and bias; g and x in, dx out, the partial rows
+        # written once and the two [H] sums
+        fwd_bytes = 2 * n * h * 2 + 2 * h * 4
+        bwd_bytes = 3 * n * h * 2 + h * 4 + 2 * programs * h * 4 + 2 * h * 4
+        rows.append({"N": n, "H": h, "dtype": "bf16",
+                     "launches_per_step": count, **t,
+                     "fwd_bound_ms": fwd_bytes / PEAK_BYTES * 1e3,
+                     "bwd_bound_ms": bwd_bytes / PEAK_BYTES * 1e3})
+        for tot, key, nb in ((fwd, "fwd", fwd_bytes), (bwd, "bwd", bwd_bytes)):
+            tot["ms"] += t[key] * count
+            tot["plain_ms"] += t[key + "_plain"] * count
+            tot["library_ms"] += t[key + "_library"] * count
+            tot["nbytes"] += nb * count
+        del ly, lx
+    print(json.dumps({"layer_norm_shapes": rows, "card": card}), flush=True)
+    out = []
+    for tot, err in ((fwd, err_fwd), (bwd, err_bwd)):
+        nbytes = tot.pop("nbytes")
+        out.append({**tot, "max_abs_err": err, "bound_by": "bytes",
+                    "bound_ms": nbytes / PEAK_BYTES * 1e3})
+    return out
+
+
+def mlp_case(n, h, f, dtype, seed):
+    """x is a row-offset view, so its base pointer is not the allocation's."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    x = r(n + 8, h).to(dtype)[8:]
+    w1 = (r(f, h) * h ** -0.5).to(dtype)
+    w2 = (r(h, f) * f ** -0.5).to(dtype)
+    return x, w1, r(f) * 0.1, w2, r(h) * 0.1, r(n, h).to(dtype)
+
+
+def mlp_bounds(n, h, f, elem):
+    """(forward, backward) as (flops, bytes, bound ms, bound by)."""
+    w = 2 * h * f * elem
+    fwd = (4 * n * h * f, 2 * n * h * elem + w + (f + h) * 4)
+    bwd = (10 * n * h * f, 3 * n * h * elem + 2 * w + f * 4 + (f + h) * 4)
+    out = []
+    for flops, nbytes in (fwd, bwd):
+        by_ops, by_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out.append((flops, nbytes, max(by_ops, by_bytes) * 1e3,
+                    "operations" if by_ops >= by_bytes else "bytes"))
+    return out
+
+
+def check_fused_mlp(spec: TAVSpec, card: str):
+    """Phase 3, K5a and K5b. Returns the forward's and the backward's entry
+    for the kernels line, summed over the 54 launches of one step."""
+    towers = mlp_shapes(spec, 8)
+    if not all(kernel_supports(h, f, torch.bfloat16)
+               for _, _, h, f, _ in towers):
+        raise SystemExit("a full-width MLP is outside the kernels' shape rule")
+    cases = [(name, n, h, f, torch.bfloat16, "gelu")
+             for name, n, h, f, _ in towers]
+    cases += [("small", 300, 256, 512, dt, act)
+              for dt in (torch.float32, torch.bfloat16) for act in ACTS]
+    cases.append(("fp32_wide", 300, 768, 3072, torch.float32, "gelu"))
+    err_fwd = err_bwd = 0.0
+    for i, (name, n, h, f, dt, act) in enumerate(cases):
+        x, w1, b1, w2, b2, do = mlp_case(n, h, f, dt, 500 + i)
+        out = fused_mlp_fwd(x, w1, b1, w2, b2, act)
+        got = fused_mlp_bwd(x, w1, b1, w2, do, act)
+        again = fused_mlp_bwd(x, w1, b1, w2, do, act)
+        torch.cuda.synchronize()
+        out0 = fused_mlp_fwd_plain(x, w1, b1, w2, b2, act)
+        want = fused_mlp_bwd_plain(x, w1, b1, w2, do, act)
+        shares, worst = {}, 0.0
+        names = ("out", "dx", "dw1", "db1", "dw2", "db2")
+        for key, a, ref in zip(names, (out,) + got, (out0,) + want):
+            tol = (MLP_BIAS_TOL if key.startswith("db") else MLP_TOL)[dt]
+            d = (a.float() - ref.float()).abs().max().item()
+            shares[key] = d / (tol * ref.float().abs().max().item())
+            if key == "out":
+                err_fwd = max(err_fwd, d)
+            else:
+                err_bwd = max(err_bwd, d)
+            worst = max(worst, shares[key])
+        same = all(torch.equal(a, r) for a, r in zip(got, again))
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (out,) + got)
+        print(f"fused_mlp {name:9s} {str(dt)[6:]:8s} {act:8s} N={n} H={h} "
+              f"F={f}: error as a share of tolerance "
+              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+              + f" (tol {MLP_TOL[dt]} of max, biases {MLP_BIAS_TOL[dt]}); "
+              f"two runs equal {same}", flush=True)
+        if not (finite and same and worst <= 1.0):
+            raise SystemExit(f"fused mlp disagrees with its plain version "
+                             f"on case {name} {dt} {act}")
+
+    totals = [dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, nbytes=0)
+              for _ in range(2)]
+    rows = []
+    for i, (name, n, h, f, layers) in enumerate(towers):
+        x, w1, b1, w2, b2, do = mlp_case(n, h, f, torch.bfloat16, 600 + i)
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, w1, b1.bfloat16(), w2, b2.bfloat16())]
+
+        def unfused():
+            lx, lw1, lb1, lw2, lb2 = leaves
+            return F.linear(F.gelu(F.linear(lx, lw1, lb1)), lw2, lb2)
+
+        lib_out = unfused()
+        t = {"fwd": cuda_ms(lambda: fused_mlp_fwd(x, w1, b1, w2, b2)),
+             "fwd_plain": cuda_ms(lambda: fused_mlp_fwd_plain(
+                 x, w1, b1, w2, b2), iters=3, warmup=1),
+             "fwd_library": cuda_ms(unfused),
+             "bwd": cuda_ms(lambda: fused_mlp_bwd(x, w1, b1, w2, do),
+                            iters=10),
+             "bwd_plain": cuda_ms(lambda: fused_mlp_bwd_plain(
+                 x, w1, b1, w2, do), iters=3, warmup=1),
+             "bwd_library": cuda_ms(lambda: torch.autograd.grad(
+                 lib_out, leaves, do, retain_graph=True))}
+        bounds = mlp_bounds(n, h, f, 2)
+        rows.append({"shape": name, "N": n, "H": h, "F": f, "dtype": "bf16",
+                     "launches_per_step": layers, **t,
+                     "fwd_bound_ms": bounds[0][2], "fwd_bound_by": bounds[0][3],
+                     "bwd_bound_ms": bounds[1][2], "bwd_bound_by": bounds[1][3],
+                     "fwd_tflops": bounds[0][0] / t["fwd"] / 1e9,
+                     "bwd_tflops": bounds[1][0] / t["bwd"] / 1e9})
+        for tot, key, (flops, nbytes, _, _) in zip(totals, ("fwd", "bwd"),
+                                                   bounds):
+            tot["ms"] += t[key] * layers
+            tot["plain_ms"] += t[key + "_plain"] * layers
+            tot["library_ms"] += t[key + "_library"] * layers
+            tot["flops"] += flops * layers
+            tot["nbytes"] += nbytes * layers
+        del lib_out, leaves
+    print(json.dumps({"fused_mlp_shapes": rows, "card": card}), flush=True)
+    out = []
+    for tot, err in zip(totals, (err_fwd, err_bwd)):
+        flops, nbytes = tot.pop("flops"), tot.pop("nbytes")
+        by_ops, by_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out.append({**tot, "max_abs_err": err,
+                    "bound_ms": max(by_ops, by_bytes) * 1e3,
+                    "bound_by": "operations" if by_ops >= by_bytes
+                    else "bytes"})
+    return out
+
+
+
 def requests(spec: TAVSpec):
     """Ragged requests of 8, 5 and 11 utterances with uint8 video; some
     rows carry shorter text and audio."""
@@ -437,8 +775,10 @@ def serve(pred: Predictor, reqs):
 
 
 def main_path(card: str):
-    """Phase 4. Returns the flash launches of the bf16 (served) run."""
+    """Phase 4. Returns the flash launches of the bf16 (served) run and the
+    launches of the bf16 run with both knobs on."""
     spec = TAVSpec(output_dim=7)
+    ln_per_chunk = sum(fused_ln_shapes(spec, 8).values())
     t0 = time.perf_counter()
     state = from_flax(init_params(spec, SEED))
     n_params = sum(v.numel() for v in state.values())
@@ -446,7 +786,7 @@ def main_path(card: str):
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     reqs = requests(spec)
     chunks = sum(-(-len(r["input_ids"]) // 8) for r in reqs)
-    served_launches = None
+    served_launches = served_fused = None
     for dtype in (torch.float32, torch.bfloat16):
         leg = "fp32" if dtype == torch.float32 else "bf16"
         model = TAVModel(spec.with_compute_dtype(dtype), device="cuda")
@@ -477,8 +817,31 @@ def main_path(card: str):
                 and launches == LAUNCHES_PER_CHUNK * chunks
                 and plain_launches == 0 and diff <= SERVE_TOL[dtype]):
             raise SystemExit(f"serving check failed in the {leg} leg")
+
+        # the same requests with MME_FUSED_LN=1 and MME_FUSED_MLP=1
+        with knobs_on():
+            serve(pred, reqs[:1])                   # Triton compiles here
+            kernels.reset_launches()
+            fused = serve(pred, reqs)
+            count = dict(kernels.LAUNCHES)
+        diff_f = max(float(np.abs(a - b).max()) for a, b in zip(fused, got))
+        finite_f = all(np.isfinite(p).all() for p in fused)
+        print(f"serve {leg}, both knobs on: launches {count} (expected "
+              f"{LAUNCHES_PER_CHUNK * chunks} flash_fwd and fused_mlp_fwd, "
+              f"{ln_per_chunk * chunks} layer_norm_fwd, no backward); "
+              f"max|probs - probs(knobs off)| = {diff_f:.3e} (tol "
+              f"{SERVE_TOL[dtype]}); finite {finite_f}", flush=True)
+        if not (finite_f and diff_f <= SERVE_TOL[dtype]
+                and count["flash_fwd"] == count["fused_mlp_fwd"]
+                == LAUNCHES_PER_CHUNK * chunks
+                and count["layer_norm_fwd"] == ln_per_chunk * chunks
+                and count["flash_bwd"] == count["fused_mlp_bwd"]
+                == count["layer_norm_bwd"] == 0):
+            raise SystemExit(f"serving with both knobs on failed in the "
+                             f"{leg} leg")
         if dtype == torch.bfloat16:
             served_launches = launches
+            served_fused = {k: v // chunks for k, v in count.items()}
             one = reqs[0]
             times = []
             for _ in range(5):
@@ -486,15 +849,24 @@ def main_path(card: str):
                 pred(one)
                 times.append(time.perf_counter() - t)
             ms = float(np.median(times)) * 1e3
+            with knobs_on():
+                times_f = []
+                for _ in range(5):
+                    t = time.perf_counter()
+                    pred(one)
+                    times_f.append(time.perf_counter() - t)
             print(json.dumps({"serve_bf16": {
                 "ms_per_batch_of_8": ms, "utt_per_s": 8e3 / ms,
                 "times_ms": [x * 1e3 for x in times],
+                "ms_per_batch_of_8_knobs_on":
+                    float(np.median(times_f)) * 1e3,
+                "times_ms_knobs_on": [x * 1e3 for x in times_f],
                 "max_memory_allocated_gb":
                     torch.cuda.max_memory_allocated() / 1e9,
                 "card": card}}), flush=True)
         del pred, model
         torch.cuda.empty_cache()
-    return served_launches
+    return served_launches, served_fused
 
 
 def train_inputs(spec: TAVSpec, batch_size: int, seed: int):
@@ -563,13 +935,33 @@ def train_check_fp32(params, card: str):
         loss0, norm0, towers0, count0 = loss_and_grads()
     finally:
         del os.environ["MME_FLASH"]
+    with knobs_on():
+        loss_f, norm_f, towers_f, count_f = loss_and_grads()
     rel = {k: abs(towers[k] - towers0[k]) / max(towers0[k], 1e-12)
            for k in towers0}
+    rel_f = {k: abs(towers_f[k] - towers[k]) / max(towers[k], 1e-12)
+             for k in towers}
+    n_ln = sum(fused_ln_shapes(spec, 4).values())
     print(json.dumps({"train_check_fp32": {
         "batch": 4, "loss": loss, "loss_plain": loss0, "grad_norm": norm,
         "grad_norm_plain": norm0, "tower_norms": towers,
         "tower_norm_rel_diff": rel, "launches": count,
-        "launches_plain": count0, "card": card}}), flush=True)
+        "launches_plain": count0, "loss_knobs_on": loss_f,
+        "grad_norm_knobs_on": norm_f,
+        "tower_norm_rel_diff_knobs_on_vs_off": rel_f,
+        "launches_knobs_on": count_f, "expected_layer_norm_launches": n_ln,
+        "card": card}}), flush=True)
+    ok_f = (np.isfinite(loss_f) and abs(loss_f - loss) <= TRAIN_LOSS_RTOL
+            * abs(loss) and abs(norm_f - norm) <= TRAIN_NORM_RTOL * norm
+            and max(rel_f.values()) <= TRAIN_NORM_RTOL
+            and count_f["flash_fwd"] == count_f["flash_bwd"]
+            == count_f["fused_mlp_fwd"] == count_f["fused_mlp_bwd"]
+            == LAUNCHES_PER_CHUNK
+            and count_f["layer_norm_fwd"] == count_f["layer_norm_bwd"] == n_ln
+            and count["fused_mlp_fwd"] == count["layer_norm_fwd"] == 0)
+    if not ok_f:
+        raise SystemExit("training check with both knobs on against both "
+                         "off failed")
     ok = (np.isfinite(loss) and abs(loss - loss0) <= TRAIN_LOSS_RTOL
           * abs(loss0) and abs(norm - norm0) <= TRAIN_NORM_RTOL * norm0
           and max(rel.values()) <= TRAIN_NORM_RTOL
@@ -611,9 +1003,9 @@ def train_descends_bf16(params, card: str):
 
 
 def train_bench(params, card: str):
-    """Phase 5 (3) and (4): the benchmark configuration, then the same
-    state with MME_FUSED_ADAM=1. Returns the launches of one timed step of
-    each leg."""
+    """Phase 5 (3), (4) and (5): the benchmark configuration, the same
+    state with MME_FUSED_ADAM=1, and the same state with MME_FUSED_LN=1 and
+    MME_FUSED_MLP=1. Returns the launches of one timed step of each leg."""
     spec = dataclasses.replace(
         TAVSpec(output_dim=7).with_compute_dtype(torch.bfloat16),
         share_audio_frontend=True)
@@ -630,6 +1022,9 @@ def train_bench(params, card: str):
     batch = to_device(batch, "cuda")
     before = [p.detach().clone() for p in state.params[:8]]
     n_fusable = sum(p.numel() >= MIN_FUSED_ELEMENTS for p in state.params)
+    n_ln = sum(fused_ln_shapes(spec, 8).values())
+    fused_names = ("fused_mlp_fwd", "fused_mlp_bwd", "layer_norm_fwd",
+                   "layer_norm_bwd")
 
     def run(steps):
         out, times, counts = [], [], []
@@ -645,9 +1040,36 @@ def train_bench(params, card: str):
             counts.append(dict(kernels.LAUNCHES))
         return out, times, counts
 
+    # forward / backward / optimizer split of the same step, by hand with
+    # the step's own pieces and CUDA events
+    tx = make_optimizer(cosine_warm_restarts(5e-6, cfg.T_max, 1000),
+                        cfg.weight_decay, cfg.clip, None, "bf16")
+    labels_t, mask_t, cw_t = (torch.as_tensor(x, device="cuda")
+                              for x in (labels, mask, cw))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def split_ms():
+        split = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            model.train()
+            ev[0].record()
+            loss = cross_entropy(model(batch, rng=gen), labels_t, cw_t,
+                                 mask_t)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, state.params)]
+            ev[2].record()
+            tx.update(state.params, grads, state.opt_state, gen)
+            ev[3].record()
+            torch.cuda.synchronize()
+            split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        return [float(x) for x in np.median(np.array(split), axis=0)], grads
+
     run(2)                                          # warm-up
     torch.cuda.reset_peak_memory_stats()
-    res, times, counts = run(5)
+    res, times, counts = run(4)
     peak = torch.cuda.max_memory_allocated() / 1e9
     moved = max((a - b.detach()).abs().max().item()
                 for a, b in zip(before, state.params[:8]))
@@ -657,7 +1079,8 @@ def train_bench(params, card: str):
     ok = (all(np.isfinite(x) for r in res for x in r) and moved > 0
           and moments_bf16 and all(
               c["flash_fwd"] == c["flash_bwd"] == LAUNCHES_PER_CHUNK
-              and c["adam_update"] == 0 for c in counts))
+              and c["adam_update"] == 0
+              and all(c[k] == 0 for k in fused_names) for c in counts))
     print(json.dumps({"train_bf16": {
         "ms_per_step": ms, "utt_per_s": 8e3 / ms, "times_ms": times,
         "losses": [r[0] for r in res], "grad_norms": [r[1] for r in res],
@@ -666,30 +1089,7 @@ def train_bench(params, card: str):
         "card": card}}), flush=True)
     if not ok:
         raise SystemExit("the bf16 training leg failed its checks")
-
-    # forward / backward / optimizer split of the same step, by hand with
-    # the step's own pieces and CUDA events
-    tx = make_optimizer(cosine_warm_restarts(5e-6, cfg.T_max, 1000),
-                        cfg.weight_decay, cfg.clip, None, "bf16")
-    labels_t, mask_t, cw_t = (torch.as_tensor(x, device="cuda")
-                              for x in (labels, mask, cw))
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    split = []
-    for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        model.train()
-        ev[0].record()
-        loss = cross_entropy(model(batch, rng=gen), labels_t, cw_t, mask_t)
-        ev[1].record()
-        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, state.params)]
-        ev[2].record()
-        tx.update(state.params, grads, state.opt_state, gen)
-        ev[3].record()
-        torch.cuda.synchronize()
-        split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-    fwd, bwd, opt = (float(x) for x in np.median(np.array(split), axis=0))
+    (fwd, bwd, opt), grads = split_ms()
     print(json.dumps({"train_bf16_split_ms": {
         "forward": fwd, "backward": bwd, "optimizer_unfused": opt,
         "card": card}}), flush=True)
@@ -706,6 +1106,7 @@ def train_bench(params, card: str):
         opt_fused = ev0.elapsed_time(ev1)
     finally:
         del os.environ["MME_FUSED_ADAM"]
+    del grads
     ms_f = float(np.median(times_f))
     print(json.dumps({"train_bf16_fused_adam": {
         "ms_per_step": ms_f, "ms_per_step_unfused": ms, "times_ms": times_f,
@@ -717,12 +1118,40 @@ def train_bench(params, card: str):
             and c["flash_fwd"] == c["flash_bwd"] == LAUNCHES_PER_CHUNK
             for c in counts_f)):
         raise SystemExit("the MME_FUSED_ADAM=1 training leg failed")
-    return counts[-1], counts_f[-1]
+
+    # (5) the same state and batch with both knobs on
+    torch.cuda.empty_cache()
+    with knobs_on():
+        run(2)                                      # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        res_k, times_k, counts_k = run(4)
+        peak_k = torch.cuda.max_memory_allocated() / 1e9
+        (fwd_k, bwd_k, opt_k), _ = split_ms()
+    ms_k = float(np.median(times_k))
+    print(json.dumps({"train_bf16_knobs_on": {
+        "knobs": KNOBS, "ms_per_step": ms_k, "ms_per_step_knobs_off": ms,
+        "utt_per_s": 8e3 / ms_k, "times_ms": times_k,
+        "losses": [r[0] for r in res_k], "grad_norms": [r[1] for r in res_k],
+        "max_memory_allocated_gb": peak_k,
+        "max_memory_allocated_gb_knobs_off": peak,
+        "split_ms": {"forward": fwd_k, "backward": bwd_k,
+                     "optimizer_unfused": opt_k},
+        "split_ms_knobs_off": {"forward": fwd, "backward": bwd,
+                               "optimizer_unfused": opt},
+        "launches_per_step": counts_k[-1],
+        "expected_layer_norm_launches": n_ln, "card": card}}), flush=True)
+    if not (all(np.isfinite(x) for r in res_k for x in r) and all(
+            c["flash_fwd"] == c["flash_bwd"] == c["fused_mlp_fwd"]
+            == c["fused_mlp_bwd"] == LAUNCHES_PER_CHUNK
+            and c["layer_norm_fwd"] == c["layer_norm_bwd"] == n_ln
+            and c["adam_update"] == 0 for c in counts_k)):
+        raise SystemExit("the training leg with both knobs on failed")
+    return counts[-1], counts_f[-1], counts_k[-1]
 
 
 def train_path(card: str):
-    """Phase 5. Returns the launches of one step of the bf16 leg and of the
-    fused-Adam leg."""
+    """Phase 5. Returns the launches of one step of the bf16 leg, of the
+    fused-Adam leg and of the leg with both knobs on."""
     t0 = time.perf_counter()
     params = init_params(dataclasses.replace(TAVSpec(output_dim=7),
                                              share_audio_frontend=True), SEED)
@@ -749,18 +1178,32 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = kernels.build(["flash_fwd", "flash_bwd"])
+    logs = kernels.build(["flash_fwd", "flash_bwd", "fused_mlp"])
     print(f"build: {time.perf_counter() - t0:.1f} s\n{logs['flash_fwd']}\n"
           f"{logs['flash_bwd']}", flush=True)
+    print(json.dumps({"fused_mlp_ptxas": ptxas_summary(logs["fused_mlp"])}),
+          flush=True)
 
     spec = TAVSpec(output_dim=7)
     fwd_err, fwd_shapes = check_flash(card)
     bwd_err, bwd_shapes = check_flash_bwd(card)
     # the trained model shares its audio frontend: one conv stack's leaves
-    adam_err, adam = check_adam(
-        dataclasses.replace(spec, share_audio_frontend=True), card)
-    served = main_path(card)
-    step, step_fused = train_path(card)
+    train_spec = dataclasses.replace(spec, share_audio_frontend=True)
+    adam_err, adam = check_adam(train_spec, card)
+    ln_fwd, ln_bwd = check_layer_norm(train_spec, card)
+    mlp_fwd, mlp_bwd = check_fused_mlp(train_spec, card)
+    served, served_knobs = main_path(card)
+    step, step_fused, step_knobs = train_path(card)
+
+    def entry(name, route, source, replaces, result):
+        """A kernel of this slice: launches of one training step with both
+        knobs on (and of one served chunk for a forward kernel); times and
+        bound summed over those launches."""
+        out = {"name": name, "route": route, "source": source,
+               "replaces": replaces, "launches": step_knobs[name], **result}
+        if name.endswith("_fwd"):
+            out["launches_serve_chunk"] = served_knobs[name]
+        return out
 
     def flash_entry(name, source, replaces, shapes, per, err, launches):
         total = {k: sum(r[k] * r[per] for r in shapes)
@@ -793,7 +1236,15 @@ def main() -> int:
          "launches": step_fused["adam_update"], "max_abs_err": adam_err,
          "ms": adam["ms"], "plain_ms": adam["plain_ms"],
          "library_ms": None, "bound_ms": adam["bound_ms"],
-         "bound_by": "bytes"}]}), flush=True)
+         "bound_by": "bytes"},
+        entry("layer_norm_fwd", "triton", "mme_tpu_torch/ops/layer_norm.py",
+              "mme_tpu/ops/layer_norm.py:63", ln_fwd),
+        entry("layer_norm_bwd", "triton", "mme_tpu_torch/ops/layer_norm.py",
+              "mme_tpu/ops/layer_norm.py:73", ln_bwd),
+        entry("fused_mlp_fwd", "cuda", "mme_tpu_torch/csrc/fused_mlp.cu",
+              "mme_tpu/ops/fused_mlp.py:105", mlp_fwd),
+        entry("fused_mlp_bwd", "cuda", "mme_tpu_torch/csrc/fused_mlp.cu",
+              "mme_tpu/ops/fused_mlp.py:116", mlp_bwd)]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,7 +14,9 @@ The port's module tree mirrors the flax tree name for name, so a flax leaf
 :func:`from_flax` reads the flax tree as nested dicts of numpy arrays;
 :func:`to_flax` goes back from a port model, with its parameters or with any
 tensors aligned with them (gradients: :func:`grads_to_flax`), so a test can
-hold them against JAX's leaf by leaf; :func:`init_params` draws a
+hold them against JAX's leaf by leaf; :func:`factored_views` gives the
+factored optimizer the flax layout's rows and columns of every leaf;
+:func:`init_params` draws a
 flax-layout tree with numpy at flax's default initializer scales, for runs
 without JAX and without pretrained weights.
 """
@@ -32,6 +34,7 @@ from mme_tpu_torch.models.audio import Conv1d
 from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
 from mme_tpu_torch.models.layers import Dense, Embed, MultiHeadAttention
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
+from mme_tpu_torch.train import optim
 
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to ±2
 
@@ -149,6 +152,40 @@ def grads_to_flax(model: nn.Module,
         grads = [p.grad for p in params]
     return to_flax(model, [torch.zeros_like(p) if g is None else g
                            for p, g in zip(params, grads)])
+
+
+def factored_views(model: nn.Module, min_size: Optional[int] = None):
+    """Per parameter of ``model``, the pair of functions between the port's
+    layout and the [rows, cols] view whose row and column sums the factored
+    optimizer keeps (``train/optim.py::adamw_factored``), or None for a leaf
+    that keeps its full second moment. The view is the JAX package's: the
+    leaf in its flax layout with the leading dims flattened and the last
+    kept, for leaves of rank 2 or more and at least ``min_size`` elements
+    (default: the optimizer's ``FACTOR_MIN_SIZE``)."""
+    if min_size is None:
+        min_size = optim.FACTOR_MIN_SIZE
+    views = []
+    for _, p, kind, heads in _leaves(model):
+        shape = tuple(p.shape)
+        flax = _flax_shape(shape, kind, heads)
+        if len(flax) < 2 or p.numel() < min_size:
+            views.append(None)
+        elif kind == "dense":
+            views.append((lambda t: t.t(), lambda v: v.t()))
+        elif kind == "conv":
+            views.append((
+                lambda t, s=shape: t.permute(2, 1, 0).reshape(-1, s[0]),
+                lambda v, s=shape: v.reshape(s[2], s[1], s[0]
+                                             ).permute(2, 1, 0)))
+        elif kind == "qkv":
+            d = heads[1]
+            views.append((
+                lambda t, d=d: t.t().reshape(-1, d),
+                lambda v, s=shape: v.reshape(s[1], s[0]).t()))
+        else:
+            views.append((lambda t, s=shape: t.reshape(-1, s[-1]),
+                          lambda v, s=shape: v.reshape(s)))
+    return views
 
 
 def init_params(spec: TAVSpec, seed: int = 0) -> Dict[str, Any]:

@@ -4,8 +4,9 @@ Port of ``mme_tpu/models/layers.py``: ``EncoderSpec``, ``activation``,
 ``MultiHeadAttention`` (one fused QKV projection), ``Mlp``, pre- and
 post-LN ``EncoderBlock`` and ``TransformerEncoder``; plus ``Dense`` and
 ``Embed``, the port's counterparts of flax's ``nn.Dense`` and ``nn.Embed``.
-The sequence/pipeline-parallel, scan-over-layers and fused-MLP branches of
-the JAX module are not ported yet.
+``Mlp`` takes the fused kernel of ``ops/fused_mlp.py`` where ``MME_FUSED_MLP``
+opts in. The sequence/pipeline-parallel and scan-over-layers branches of the
+JAX module are not ported yet.
 
 Mixed precision follows flax's policy: parameters stay fp32 (or whatever
 dtype the caller stored them in) and are cast to the compute dtype where
@@ -36,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.ops.attention import dot_product_attention_shd
+from mme_tpu_torch.ops.fused_mlp import fused_mlp, use_fused_mlp
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
 
 
@@ -176,9 +178,16 @@ class MultiHeadAttention(nn.Module):
 
 
 class Mlp(nn.Module):
+    """fc1 → activation → fc2 → output dropout. Where
+    ``ops/fused_mlp.py::use_fused_mlp`` says so (``MME_FUSED_MLP``, default
+    off) the three run as one kernel on the rows ``[B·S, H]``, weights cast
+    to the compute dtype and biases in fp32; the dropout stays outside it
+    and draws from the step's generator either way."""
+
     def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
         super().__init__()
         s = spec
+        self.act_name = s.act
         self.fc1 = Dense(s.hidden, s.intermediate, dtype=s.dtype,
                          device=device)
         self.fc2 = Dense(s.intermediate, s.hidden, dtype=s.dtype,
@@ -188,8 +197,16 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        return dropout(self.fc2(self.act(self.fc1(x))), self.dropout,
-                       self.training, rng)
+        dt = self.fc1.dtype
+        hidden, inter = self.fc1.weight.shape[1], self.fc1.weight.shape[0]
+        if use_fused_mlp(x, hidden, inter, dt):
+            out = fused_mlp(
+                x.reshape(-1, hidden).to(dt), self.fc1.weight.to(dt),
+                self.fc1.bias.float(), self.fc2.weight.to(dt),
+                self.fc2.bias.float(), self.act_name).reshape(x.shape)
+        else:
+            out = self.fc2(self.act(self.fc1(x)))
+        return dropout(out, self.dropout, self.training, rng)
 
 
 class EncoderBlock(nn.Module):

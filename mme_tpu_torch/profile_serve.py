@@ -38,6 +38,11 @@ from mme_tpu_torch.train.build_tav import (example_tav_batch,
 FAMILIES = (("flash_fwd", "flash_fwd (K1)"),
             ("flash_bwd", "flash_bwd (K2)"),
             ("adam_update", "adam_update (K3)"),
+            ("_ln_fwd", "layer_norm_fwd (K4a)"),
+            ("_ln_bwd", "layer_norm_bwd (K4b)"),
+            ("mlp_fwd", "fused_mlp_fwd (K5a)"),
+            ("mlp_bwd", "fused_mlp_bwd (K5b)"),
+            ("dgrad", "conv backward"), ("wgrad", "conv backward"),
             ("conv", "conv"), ("cudnn", "conv"), ("fprop", "conv"),
             ("gemm", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
             ("nvjet", "matmul"),

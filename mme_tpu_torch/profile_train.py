@@ -5,7 +5,8 @@ Builds the full-width ``TAVSpec(output_dim=7)`` training setup through
 compute over fp32 weights, batch 8, 70 tokens, 96 000 samples, a 16x224x224
 clip, shared audio frontend, no remat, no accumulation buffer, bf16 moments,
 lr 5e-6, random weights from ``convert.init_params``) and reports, with
-``MME_FUSED_ADAM`` off and on:
+``MME_FUSED_ADAM`` off and on and then with ``MME_FUSED_LN=1
+MME_FUSED_MLP=1``:
 
 - ``step_ms``: host clock around one ``train_step`` ending in a
   synchronise, median of 5 after 3 warm-up steps;
@@ -42,6 +43,10 @@ from mme_tpu_torch.train.build_tav import build_tav, example_tav_batch
 from mme_tpu_torch.train.steps import to_device
 
 WINDOW = 2      # steps per profiler window
+SETTINGS = (
+    {"MME_FUSED_ADAM": "0", "MME_FUSED_LN": "0", "MME_FUSED_MLP": "0"},
+    {"MME_FUSED_ADAM": "1", "MME_FUSED_LN": "0", "MME_FUSED_MLP": "0"},
+    {"MME_FUSED_ADAM": "0", "MME_FUSED_LN": "1", "MME_FUSED_MLP": "1"})
 
 
 def main() -> None:
@@ -69,8 +74,8 @@ def main() -> None:
         train_step(state, batch, labels, mask, cw, 1.0, True, 0)
         torch.cuda.synchronize()
 
-    for fused in ("0", "1"):
-        os.environ["MME_FUSED_ADAM"] = fused
+    for knobs in SETTINGS:
+        os.environ.update(knobs)
         for _ in range(3):
             step()
         torch.cuda.reset_peak_memory_stats()
@@ -101,7 +106,7 @@ def main() -> None:
         kernels.sort(reverse=True)
         device_ms = sum(families.values())
         print(json.dumps({
-            "fused_adam": fused == "1",
+            "knobs": knobs,
             "cudnn_benchmark": args.cudnn_benchmark, "compute": "bf16",
             "batch": 8,
             "card": card, "step_ms": step_ms, "times_ms": times,

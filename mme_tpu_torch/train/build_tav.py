@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from mme_tpu_torch.config import ExperimentConfig
-from mme_tpu_torch.convert import from_flax, init_params
+from mme_tpu_torch.convert import factored_views, from_flax, init_params
 from mme_tpu_torch.data.records import IMAGENET_MEAN, IMAGENET_STD
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
@@ -145,7 +145,8 @@ def build_tav(spec: TAVSpec, cfg: ExperimentConfig, steps_per_epoch: int,
     tx = make_optimizer(
         cosine_warm_restarts(cfg.learning_rate, cfg.T_max, steps_per_epoch),
         cfg.weight_decay, cfg.clip,
-        modality_embedding_trainable_mask(model, spec.learn_pos_embeddings))
+        modality_embedding_trainable_mask(model, spec.learn_pos_embeddings),
+        factored_views=factored_views(model))
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     state = TrainState.create(model.parameters(), tx, use_accum=use_accum,
                               generator=gen)

@@ -1,5 +1,6 @@
-"""AdamW over lists of tensors: fp32 moments, or bf16 moments with stochastic
-rounding, behind a global-norm clip with fp32 accumulation.
+"""AdamW over lists of tensors: fp32 moments, bf16 moments with stochastic
+rounding, or a bf16 first moment with a factored second moment, behind a
+global-norm clip with fp32 accumulation.
 
 Port of ``mme_tpu/train/optim.py`` and of the optax chain that
 ``mme_tpu/train/steps.py::make_optimizer`` builds. The order of operations
@@ -17,7 +18,15 @@ stall once an update falls below half a bf16 step. A leaf that
 its dither drawn in the kernel; every other leaf takes the unfused update
 below, its dither drawn from the step's generator.
 
-``adamw_factored`` (the factored second moment) is not ported yet.
+Factored second moment (``adamw_factored``, Adafactor's factorisation under
+Adam semantics): a matrix-shaped leaf of at least 16 384 elements keeps row
+and column moving averages of its squared gradient instead of a full ``nu``,
+and rebuilds ``V ≈ R·Cᵀ / ΣR``; the first moment is bf16 with stochastic
+rounding as above. Rows and columns are those of the leaf's 2-D view in the
+flax layout (leading dims flattened, last dim kept), which the port's
+layouts transpose: ``Optimizer.views`` carries, per leaf, the pair of
+functions between the port's layout and that view
+(``convert.factored_views``); without it a leaf is viewed as it is stored.
 """
 
 from __future__ import annotations
@@ -73,16 +82,37 @@ def clip_by_global_norm_f32(grads: Sequence[torch.Tensor], max_norm: float
     return [(g.float() * scale).to(g.dtype) for g in grads]
 
 
+FACTOR_MIN_SIZE = 16384    # below it the full fp32 nu is cheaper
+
+# (to_rc, from_rc): a leaf in the port's layout → its [rows, cols] view, and
+# a [rows, cols] tensor → the port's layout
+View = Tuple[Callable[[torch.Tensor], torch.Tensor],
+             Callable[[torch.Tensor], torch.Tensor]]
+
+
+def default_view(p: torch.Tensor) -> Optional[View]:
+    """The factorisation view of a leaf taken as it is stored: leading dims
+    flattened, last dim kept; None for a leaf that keeps its full nu."""
+    if p.dim() < 2 or p.numel() < FACTOR_MIN_SIZE:
+        return None
+    shape = p.shape
+    return (lambda t: t.reshape(-1, shape[-1]), lambda v: v.reshape(shape))
+
+
 @dataclasses.dataclass
 class AdamWState:
     """Moments aligned with the parameter list (``None`` for a frozen
     leaf), the update count, and for bf16 moments the base seed of the
-    fused kernel's dither streams."""
+    fused kernel's dither streams. Factored state: ``nu_row`` / ``nu_col``
+    hold the fp32 row and column averages of a factored leaf (whose ``nu``
+    is None); every other leaf keeps its full fp32 ``nu``."""
 
     count: int
     mu: List[Optional[torch.Tensor]]
     nu: List[Optional[torch.Tensor]]
     seed: int = 0
+    nu_row: Optional[List[Optional[torch.Tensor]]] = None
+    nu_col: Optional[List[Optional[torch.Tensor]]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,11 +124,17 @@ class Optimizer:
     lr_schedule: Callable[[int], float]
     weight_decay: float
     clip: float
-    state_dtype: str                          # "fp32" | "bf16"
+    state_dtype: str                          # "fp32" | "bf16" | "factored"
     trainable: Optional[Sequence[bool]] = None
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    # factored state only: one View or None per leaf; None for all: each
+    # leaf is viewed as it is stored (default_view)
+    views: Optional[Sequence[Optional[View]]] = None
+
+    def _view(self, i: int, p: torch.Tensor) -> Optional[View]:
+        return default_view(p) if self.views is None else self.views[i]
 
     def _live(self, n: int) -> List[int]:
         t = self.trainable
@@ -106,8 +142,10 @@ class Optimizer:
 
     def init(self, params: Sequence[torch.Tensor],
              generator: Optional[torch.Generator] = None) -> AdamWState:
-        dtype = torch.bfloat16 if self.state_dtype == "bf16" else torch.float32
         live = set(self._live(len(params)))
+        if self.state_dtype == "factored":
+            return self._init_factored(params, live)
+        dtype = torch.bfloat16 if self.state_dtype == "bf16" else torch.float32
         zeros = lambda: [torch.zeros_like(p, dtype=dtype) if i in live
                          else None for i, p in enumerate(params)]
         seed = 0
@@ -116,6 +154,26 @@ class Optimizer:
             seed = int(torch.randint(0, 1 << 40, (), generator=generator,
                                      device=dev))
         return AdamWState(count=0, mu=zeros(), nu=zeros(), seed=seed)
+
+    def _init_factored(self, params, live) -> AdamWState:
+        mu, nu, rows, cols = [], [], [], []
+        for i, p in enumerate(params):
+            view = self._view(i, p) if i in live else None
+            mu.append(torch.zeros_like(p, dtype=torch.bfloat16)
+                      if i in live else None)
+            if view is None:
+                nu.append(torch.zeros_like(p, dtype=torch.float32)
+                          if i in live else None)
+                rows.append(None)
+                cols.append(None)
+            else:
+                r, c = view[0](p.detach()).shape
+                nu.append(None)
+                rows.append(torch.zeros(r, dtype=torch.float32,
+                                        device=p.device))
+                cols.append(torch.zeros(c, dtype=torch.float32,
+                                        device=p.device))
+        return AdamWState(count=0, mu=mu, nu=nu, nu_row=rows, nu_col=cols)
 
     def update(self, params: Sequence[torch.Tensor],
                grads: Sequence[torch.Tensor], state: AdamWState,
@@ -138,6 +196,8 @@ class Optimizer:
                         g, state.mu[i], state.nu[i], bc1, bc2,
                         # one dither stream per (step, leaf)
                         state.seed + (count << 20) + i, generator)
+                elif self.state_dtype == "factored":
+                    u = self._factored_leaf(g, i, state, bc1, bc2, generator)
                 else:
                     u = self._fp32_leaf(g, state.mu[i], state.nu[i], bc1, bc2)
                 u = u.float().add_(p, alpha=self.weight_decay)
@@ -150,6 +210,31 @@ class Optimizer:
         mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
         nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
         return (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+
+    def _factored_leaf(self, g, i, state, bc1, bc2, generator):
+        """Update of one leaf with the factored second moment; replaces the
+        leaf's moments in ``state``."""
+        g32 = g.float()
+        m32 = self.b1 * state.mu[i].float() + (1.0 - self.b1) * g32
+        view = self._view(i, g)
+        if view is None:
+            n_new = self.b2 * state.nu[i] + (1.0 - self.b2) * g32 * g32
+            state.nu[i] = n_new
+            vcorr = n_new / bc2
+        else:
+            to_rc, from_rc = view
+            g2 = to_rc(g32).square()
+            r_new = self.b2 * state.nu_row[i] + (1.0 - self.b2) * g2.sum(dim=1)
+            c_new = self.b2 * state.nu_col[i] + (1.0 - self.b2) * g2.sum(dim=0)
+            state.nu_row[i], state.nu_col[i] = r_new, c_new
+            # V ≈ outer(R, C) / ΣR; the moving-average biases of R and C
+            # cancel one ΣR bias, leaving a single 1/bc2 correction
+            vhat = from_rc(r_new[:, None] * c_new[None, :]
+                           / torch.clamp(r_new.sum(), min=1e-30))
+            vcorr = vhat / bc2
+        out = ((m32 / bc1) / (torch.sqrt(vcorr) + self.eps)).to(g.dtype)
+        state.mu[i] = stochastic_round_bf16(m32, generator)
+        return out
 
     def _lowmem_leaf(self, g, mu, nu, bc1, bc2, seed, generator):
         if adam_update.fusable(g):
@@ -178,3 +263,17 @@ def adamw_lowmem(lr_schedule: Callable[[int], float], weight_decay: float,
                  ) -> Optimizer:
     """The same AdamW with bf16 moment storage and stochastic rounding."""
     return Optimizer(lr_schedule, weight_decay, clip, "bf16", trainable)
+
+
+def adamw_factored(lr_schedule: Callable[[int], float], weight_decay: float,
+                   clip: float, trainable: Optional[Sequence[bool]] = None,
+                   views: Optional[Sequence[Optional[View]]] = None
+                   ) -> Optimizer:
+    """AdamW with a stochastically rounded bf16 first moment and a factored
+    second moment (``MME_OPT_STATE=factored``). ``views``: per leaf, the
+    functions to and from the [rows, cols] view that is factorised
+    (``convert.factored_views`` gives the JAX package's), or None for a leaf
+    that keeps its full nu; without ``views`` every leaf is viewed as it is
+    stored."""
+    return Optimizer(lr_schedule, weight_decay, clip, "factored", trainable,
+                     views=views)

@@ -4,8 +4,9 @@ Port of ``mme_tpu/train/steps.py``: ``TrainState``, ``make_optimizer``,
 ``make_train_step`` and ``make_eval_step``. One step function serves every
 loop variant: the epoch-parity loss switch arrives as a weight vector and
 dialog-aligned accumulation as a per-step ``apply_update`` flag with a
-``loss_scale``. ``magnitude_histogram`` and the per-module norm dictionary
-are not ported yet; ``grad_norm`` is the global scalar.
+``loss_scale``. ``grad_norm`` is the global scalar, or with
+``log_module_norms`` / ``log_histograms`` the dictionary of per-module norms
+and :func:`magnitude_histogram` summaries.
 
 Where JAX's step is a pure function returning a new state, the port's
 mutates: the parameters are the model's own ``nn.Parameter``s, updated in
@@ -26,8 +27,9 @@ from torch import nn
 
 from mme_tpu_torch.evals.metrics import confusion_matrix
 from mme_tpu_torch.train.losses import cross_entropy
-from mme_tpu_torch.train.optim import (AdamWState, Optimizer, adamw,
-                                       adamw_lowmem, global_norm_f32)
+from mme_tpu_torch.train.optim import (AdamWState, Optimizer, View, adamw,
+                                       adamw_factored, adamw_lowmem,
+                                       global_norm_f32)
 
 Rng = Union[int, torch.Generator]
 
@@ -56,25 +58,66 @@ class TrainState:
                    opt_state=tx.init(params, generator), accum_grads=zeros)
 
 
+HIST_BUCKETS = 17  # bucket 0: exact zeros; 1..16: |x| exponent ranges
+
+
+def magnitude_histogram(tensors: Union[torch.Tensor,
+                                       Sequence[torch.Tensor]]
+                        ) -> torch.Tensor:
+    """17-bucket magnitude histogram (int32) over every element of a tensor
+    or a list of tensors.
+
+    Bucket 0 counts exact zeros; bucket ``i`` (1..16) counts elements with
+    ``floor(log2 |x|)`` in ``[-40 + 3(i-1), -40 + 3i)`` (clipped at the
+    ends), about 1e-12 to 3e2. Non-finite elements (NaN, ±Inf) count in the
+    top bucket: an exploding tensor must not read as an underflowing one."""
+    if isinstance(tensors, torch.Tensor):
+        tensors = [tensors]
+    x = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    finite = torch.isfinite(x)
+    nz = x != 0
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    e = torch.floor(torch.log2(torch.where(nz & finite, x.abs(), one)))
+    idx = torch.where(
+        nz, 1 + torch.clamp(torch.floor((e + 40) / 3), 0, 15).long(), 0)
+    idx = torch.where(finite, idx, HIST_BUCKETS - 1)
+    return torch.bincount(idx, minlength=HIST_BUCKETS).to(torch.int32)
+
+
+def _module_groups(model: nn.Module, params: Sequence[nn.Parameter]
+                   ) -> Dict[str, List[int]]:
+    """Indices into ``params`` by top-level module name (the top-level keys
+    of the flax parameter tree)."""
+    index = {id(p): i for i, p in enumerate(params)}
+    groups: Dict[str, List[int]] = {}
+    for name, p in model.named_parameters():
+        if id(p) in index:
+            groups.setdefault(name.split(".")[0], []).append(index[id(p)])
+    return groups
+
+
 def make_optimizer(lr_schedule: Callable[[int], float], weight_decay: float,
                    clip: float,
                    trainable_mask: Optional[Sequence[bool]] = None,
-                   state_dtype: Optional[str] = None) -> Optimizer:
+                   state_dtype: Optional[str] = None,
+                   factored_views: Optional[Sequence[Optional[View]]] = None
+                   ) -> Optimizer:
     """clip-by-global-norm → AdamW (torch defaults: b1 .9, b2 .999, eps
     1e-8).
 
     ``trainable_mask``: one bool per parameter; False freezes the leaf for
     good (no update, not even weight decay). ``state_dtype``: "fp32"
-    (default) or "bf16" (moments stored in bf16 with stochastic rounding);
+    (default), "bf16" (moments stored in bf16 with stochastic rounding) or
+    "factored" (bf16 first moment, row/column second moment; its
+    ``factored_views`` are ``train/optim.py::adamw_factored``'s ``views``);
     ``None`` reads ``MME_OPT_STATE``."""
     if state_dtype is None:
         state_dtype = os.environ.get("MME_OPT_STATE", "fp32")
     if state_dtype == "bf16":
         return adamw_lowmem(lr_schedule, weight_decay, clip, trainable_mask)
     if state_dtype == "factored":
-        raise NotImplementedError(
-            "state_dtype='factored' (adamw_factored) is not ported yet: see "
-            "ROADMAP.md, queue 1")
+        return adamw_factored(lr_schedule, weight_decay, clip,
+                              trainable_mask, factored_views)
     if state_dtype != "fp32":
         raise ValueError(f"unknown optimizer state dtype {state_dtype!r} "
                          "(fp32, bf16, factored)")
@@ -103,7 +146,9 @@ def to_device(batch: Dict[str, Any], device: torch.device
 
 def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
                     loss_fn: Optional[Callable] = None,
-                    grads_dtype: Optional[torch.dtype] = None) -> Callable:
+                    grads_dtype: Optional[torch.dtype] = None,
+                    log_module_norms: bool = False,
+                    log_histograms: bool = False) -> Callable:
     """Build the train step around ``model(batch, rng) -> logits``:
 
         state, loss, cm, grad_norm = step(
@@ -116,7 +161,13 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
     seed. ``loss_fn(logits, labels, class_weights, sample_mask)`` defaults
     to cross entropy. ``grads_dtype=torch.bfloat16`` (or ``MME_GRADS=bf16``)
     stores the gradients in bf16 between the backward pass and the
-    optimizer; clip norms still accumulate in fp32."""
+    optimizer; clip norms still accumulate in fp32.
+
+    ``log_module_norms`` turns ``grad_norm`` into a dictionary: ``total``,
+    and for every top-level module ``k`` the norms ``grad/k`` and
+    ``param/k`` (the parameters before this step's update);
+    ``log_histograms`` adds ``hist/grad/k`` and ``hist/param/k``
+    (:func:`magnitude_histogram`)."""
     if loss_fn is None:
         loss_fn = cross_entropy
     if grads_dtype is None:
@@ -146,6 +197,23 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
             grads = [g.to(grads_dtype) if g.dtype == torch.float32 else g
                      for g in grads]
         grad_norm = global_norm_f32(grads)
+        if log_module_norms or log_histograms:
+            grad_norm = {"total": grad_norm}
+            groups = _module_groups(model, params)
+            with torch.no_grad():
+                for k, idx in groups.items():
+                    grad_norm[f"grad/{k}"] = global_norm_f32(
+                        [grads[i] for i in idx])
+                for k, idx in groups.items():
+                    grad_norm[f"param/{k}"] = global_norm_f32(
+                        [params[i] for i in idx])
+                if log_histograms:
+                    for k, idx in groups.items():
+                        grad_norm[f"hist/grad/{k}"] = magnitude_histogram(
+                            [grads[i] for i in idx])
+                    for k, idx in groups.items():
+                        grad_norm[f"hist/param/{k}"] = magnitude_histogram(
+                            [params[i] for i in idx])
 
         if state.accum_grads is None:
             tx.update(params, grads, state.opt_state, gen)

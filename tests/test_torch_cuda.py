@@ -2,7 +2,7 @@
 
 Marked ``cuda``: without a CUDA device every test here skips (the fixture
 decides, so every pytest worker collects the same tests). On a machine with
-a card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
+a card: ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
 
 Tolerances (elementwise |O - O_plain| <= atol + rtol |O_plain|): fp32 sums
 fp32 products in another order, a few fp32 ulps; bf16 rounds the
@@ -299,3 +299,160 @@ def test_encoder_remat_on_cuda_recomputes_through_the_kernels(cuda):
     assert count == (2, 2) and count_remat == (4, 2)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+# --- fused LayerNorm (K4a, K4b) and fused MLP (K5a, K5b) -------------------
+# LayerNorm: both sides compute in fp32 and differ by an ulp or so before
+# the cast (atol, rtol as TOL); dscale and dbias are fp32 sums over the rows
+# in another order, 1e-4 of their largest element. MLP: each tensor within
+# 2e-5 (fp32: sums in another order) or 2e-2 (bf16: `a`, `dh` and the result
+# rounded to bf16) of its largest element.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,h", [(1, 128), (300, 96), (2392, 1024),
+                                 (11712, 768), (153592, 512)])
+def test_layer_norm_kernels_match_plain(cuda, dtype, n, h):
+    from mme_tpu_torch.ops import layer_norm as ln
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = (torch.randn(n, h, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    w = 1 + 0.3 * torch.randn(h, generator=g, device="cuda")
+    b = 0.2 * torch.randn(h, generator=g, device="cuda")
+    gy = torch.randn(n, h, generator=g, device="cuda").to(dtype)
+    before = dict(kernels.LAUNCHES)
+    y = ln.fused_layer_norm_fwd(x, w, b, 1e-5, dtype)
+    got = ln.fused_layer_norm_bwd(gy, x, w, 1e-5)
+    again = ln.fused_layer_norm_bwd(gy, x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["layer_norm_fwd"] == before["layer_norm_fwd"] + 1
+    assert kernels.LAUNCHES["layer_norm_bwd"] == before["layer_norm_bwd"] + 2
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(
+        y.float(), ln.fused_layer_norm_fwd_plain(x, w, b, 1e-5, dtype).float(),
+        atol=atol, rtol=rtol)
+    want = ln.fused_layer_norm_bwd_plain(gy, x, w, 1e-5)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol,
+                               rtol=rtol)
+    for a, r in zip(got[1:], want[1:]):
+        assert (a - r).abs().max() <= 1e-4 * r.abs().max().clamp(min=1e-6)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_layer_norm_module_dispatch_on_cuda(cuda, monkeypatch):
+    from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
+    mod = FusedLayerNorm(768, 1e-5, torch.bfloat16, device=cuda)
+    x = torch.randn(8, 473, 768, device="cuda", requires_grad=True)
+    monkeypatch.delenv("MME_FUSED_LN", raising=False)
+    before = kernels.LAUNCHES["layer_norm_fwd"]
+    ref = mod(x)
+    assert kernels.LAUNCHES["layer_norm_fwd"] == before      # default off
+    monkeypatch.setenv("MME_FUSED_LN", "1")
+    out = mod(x)                    # fp32 in, bf16 module: the module's dtype
+    assert kernels.LAUNCHES["layer_norm_fwd"] == before + 1
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=1e-2)
+    out.float().sum().backward()
+    assert x.grad.dtype == torch.float32 and torch.isfinite(x.grad).all()
+    mod(x[:1])                                   # 473 rows: the plain path
+    assert kernels.LAUNCHES["layer_norm_fwd"] == before + 1
+    with pytest.raises(TypeError):
+        from mme_tpu_torch.ops.layer_norm import fused_layer_norm_fwd
+        fused_layer_norm_fwd(x.reshape(-1, 768).half(), mod.weight, mod.bias,
+                             1e-5, torch.float32)
+
+
+def _mlp_inputs(n, h, f, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    return ((r(n + 8, h).to(dtype))[8:], (r(f, h) * h ** -0.5).to(dtype),
+            r(f) * 0.1, (r(h, f) * f ** -0.5).to(dtype), r(h) * 0.1,
+            r(n, h).to(dtype))
+
+
+@pytest.mark.parametrize("n,h,f,dtype,act", [
+    (1, 256, 64, torch.float32, "gelu"),
+    (100, 256, 128, torch.float32, "gelu_new"),
+    (100, 512, 128, torch.bfloat16, "relu"),
+    (100, 256, 128, torch.bfloat16, "tanh"),
+    (300, 768, 3072, torch.float32, "gelu"),
+    (560, 768, 3072, torch.bfloat16, "gelu"),
+    (2392, 1024, 4096, torch.bfloat16, "gelu"),
+    (3784, 768, 3072, torch.bfloat16, "gelu"),
+    (11712, 768, 3072, torch.bfloat16, "gelu"),
+])
+def test_fused_mlp_kernels_match_plain(cuda, n, h, f, dtype, act):
+    from mme_tpu_torch.ops import fused_mlp as fm
+    x, w1, b1, w2, b2, do = _mlp_inputs(n, h, f, dtype)
+    before = dict(kernels.LAUNCHES)
+    out = fm.fused_mlp_fwd(x, w1, b1, w2, b2, act)
+    got = fm.fused_mlp_bwd(x, w1, b1, w2, do, act)
+    again = fm.fused_mlp_bwd(x, w1, b1, w2, do, act)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"] + 1
+    assert kernels.LAUNCHES["fused_mlp_bwd"] == before["fused_mlp_bwd"] + 2
+    want = (fm.fused_mlp_fwd_plain(x, w1, b1, w2, b2, act),
+            *fm.fused_mlp_bwd_plain(x, w1, b1, w2, do, act))
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for name, a, r in zip(("out", "dx", "dw1", "db1", "dw2", "db2"),
+                          (out, *got), want):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item(), (name, err)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_mlp_module_dispatch_and_autograd_on_cuda(cuda, monkeypatch):
+    """Mlp with MME_FUSED_MLP=1 goes through both kernels; a width outside
+    the shape rule takes the unfused path, decided before any launch; a
+    direct call with such a width raises."""
+    from mme_tpu_torch.models.layers import Mlp
+    from mme_tpu_torch.ops.fused_mlp import fused_mlp
+    spec = EncoderSpec(hidden=256, heads=4, layers=1, intermediate=512,
+                       dtype=torch.bfloat16)
+    mlp = Mlp(spec, device=cuda)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * 0.05)
+    x = torch.randn(3, 77, 256, generator=g, device="cuda")
+
+    def run():
+        leaf = x.clone().requires_grad_()
+        out = mlp(leaf)
+        grads = torch.autograd.grad(out.float().square().sum(),
+                                    [leaf, *mlp.parameters()])
+        return out, grads
+
+    monkeypatch.setenv("MME_FUSED_MLP", "0")
+    ref, ref_grads = run()
+    monkeypatch.setenv("MME_FUSED_MLP", "1")
+    fwd, bwd = (kernels.LAUNCHES["fused_mlp_fwd"],
+                kernels.LAUNCHES["fused_mlp_bwd"])
+    out, grads = run()
+    assert kernels.LAUNCHES["fused_mlp_fwd"] == fwd + 1
+    assert kernels.LAUNCHES["fused_mlp_bwd"] == bwd + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    for a, r in zip(grads, ref_grads):
+        assert a.dtype == r.dtype
+        assert (a - r).abs().max() <= 3e-2 * r.abs().max()
+    narrow = Mlp(EncoderSpec(hidden=128, heads=4, layers=1, intermediate=256),
+                 device=cuda)
+    with torch.no_grad():
+        for p in narrow.parameters():
+            p.normal_(std=0.05)
+    narrow(torch.randn(2, 5, 128, device="cuda"))          # unfused
+    assert kernels.LAUNCHES["fused_mlp_fwd"] == fwd + 1
+    z = torch.zeros(4, 128, device="cuda")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_mlp(z, torch.zeros(256, 128, device="cuda"),
+                  torch.zeros(256, device="cuda"),
+                  torch.zeros(128, 256, device="cuda"),
+                  torch.zeros(128, device="cuda"))
+    with pytest.raises(ValueError, match="stride"):        # rows not aligned
+        wide = torch.zeros(4, 260, device="cuda")[:, 2:258]
+        fused_mlp(wide, torch.zeros(64, 256, device="cuda"),
+                  torch.zeros(64, device="cuda"),
+                  torch.zeros(256, 64, device="cuda"),
+                  torch.zeros(256, device="cuda"))

@@ -348,8 +348,11 @@ def test_make_optimizer_state_dtypes(monkeypatch):
     assert make_optimizer(lambda s: 1e-3, 0.0, 1.0).state_dtype == "bf16"
     monkeypatch.delenv("MME_OPT_STATE")
     assert make_optimizer(lambda s: 1e-3, 0.0, 1.0).state_dtype == "fp32"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_optimizer(lambda s: 1e-3, 0.0, 1.0, state_dtype="factored")
+    factored = make_optimizer(lambda s: 1e-3, 0.0, 1.0,
+                              state_dtype="factored")
+    assert factored.state_dtype == "factored" and factored.views is None
+    monkeypatch.setenv("MME_OPT_STATE", "factored")
+    assert make_optimizer(lambda s: 1e-3, 0.0, 1.0).state_dtype == "factored"
     with pytest.raises(ValueError):
         make_optimizer(lambda s: 1e-3, 0.0, 1.0, state_dtype="fp16")
 
@@ -363,3 +366,140 @@ def test_fusable_gate(monkeypatch):
     monkeypatch.setenv("MME_FUSED_ADAM", "1")
     assert not adam_update.fusable(big)
     assert adam_update.MIN_FUSED_ELEMENTS == 1 << 16
+
+
+def _factored_state(j_state):
+    """The ScaleByAdamFactoredState inside make_optimizer's optax chain."""
+    found = [s for s in jax.tree.leaves(
+        j_state, is_leaf=lambda x: isinstance(
+            x, j_optim.ScaleByAdamFactoredState))
+        if isinstance(s, j_optim.ScaleByAdamFactoredState)]
+    assert len(found) == 1
+    return found[0]
+
+
+def test_factored_adamw_tracks_jax_on_the_same_first_moment():
+    """Three steps of clip → factored AdamW in both packages. The stored
+    first moment is rounded stochastically from other random bits on each
+    side, so the port's is set to JAX's before every step; everything else
+    is deterministic: parameters to 1e-6 at lr 1e-2, the row, column and
+    full second moments to 1e-6 relative. Leaves: a factored matrix, a
+    factored rank-3 leaf (rows = leading dims flattened), a matrix and a
+    vector below the size floor."""
+    import optax
+    rng = np.random.default_rng(5)
+    shapes = ((128, 256), (64, 32, 8), (10, 10), (300,))
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) * 3 for s in shapes]
+             for _ in range(3)]
+    sched = schedules.cosine_warm_restarts(1e-2, 2, 7)
+    tx = make_optimizer(sched, 1e-2, 1.0, state_dtype="factored")
+    params = [torch.from_numpy(p.copy()) for p in p0]
+    state = tx.init(params)
+    assert [r is not None for r in state.nu_row] == [True, True, False, False]
+    assert state.nu_row[1].shape == (64 * 32,) and state.nu_col[1].shape == (8,)
+    assert all(m.dtype == torch.bfloat16 for m in state.mu)
+
+    j_tx = j_steps.make_optimizer(j_sched.cosine_warm_restarts(1e-2, 2, 7),
+                                  1e-2, 1.0, state_dtype="factored")
+    j_params = [jnp.asarray(p) for p in p0]
+    j_state = j_tx.init(j_params)
+    gen = torch.Generator().manual_seed(0)
+    for g in grads:
+        j_f = _factored_state(j_state)
+        state.mu = [torch.from_numpy(np.asarray(m.astype(jnp.float32))
+                                     ).bfloat16() for m in j_f.mu]
+        tx.update(params, [torch.from_numpy(x) for x in g], state, gen)
+        u, j_state = j_tx.update([jnp.asarray(x) for x in g], j_state,
+                                 j_params)
+        j_params = optax.apply_updates(j_params, u)
+        j_f = _factored_state(j_state)
+        for a, b in zip(params, j_params):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
+                                       rtol=1e-6)
+        for i, factored in enumerate((True, True, False, False)):
+            if factored:
+                assert state.nu[i] is None
+                np.testing.assert_allclose(state.nu_row[i].numpy(),
+                                           np.asarray(j_f.nu_row[i]),
+                                           rtol=1e-6)
+                np.testing.assert_allclose(state.nu_col[i].numpy(),
+                                           np.asarray(j_f.nu_col[i]),
+                                           rtol=1e-6)
+            else:
+                np.testing.assert_allclose(state.nu[i].numpy(),
+                                           np.asarray(j_f.nu_full[i]),
+                                           rtol=1e-6)
+        # the port's own stochastic rounding: a bf16 neighbour of the fp32
+        # first moment, not the same bits as JAX's
+        for m, jm in zip(state.mu, j_f.mu):
+            np.testing.assert_allclose(
+                m.float().numpy(), np.asarray(jm.astype(jnp.float32)),
+                rtol=2 ** -7, atol=1e-30)
+    assert state.count == 3
+
+
+def test_factored_state_freezes_masked_leaves():
+    params = [torch.ones(128, 128), torch.ones(128, 128)]
+    tx = make_optimizer(lambda step: 1e-2, 0.0, 1.0, [True, False],
+                        state_dtype="factored")
+    state = tx.init(params)
+    assert state.mu[1] is None and state.nu_row[1] is None
+    tx.update(params, [torch.ones(128, 128)] * 2, state,
+              torch.Generator().manual_seed(0))
+    assert torch.all(params[1] == 1) and not torch.all(params[0] == 1)
+
+
+def test_factored_views_are_the_flax_layout_rows_and_columns():
+    """``convert.factored_views`` on the tiny TAV model: each leaf's view
+    equals the flax leaf with its leading dims flattened, and maps back."""
+    from mme_tpu_torch.convert import factored_views, init_params, from_flax
+    spec = TAVSpec().tiny()
+    model = TAVModel(spec, device="cpu")
+    tree = init_params(spec, 0)
+    model.load_state_dict(from_flax(tree), strict=True)
+    flax = dict(_flat_tree(tree))
+    from mme_tpu_torch.convert import _leaves
+    views = factored_views(model, min_size=64)
+    kinds = set()
+    for (path, p, kind, _), view in zip(_leaves(model), views):
+        leaf = flax[path]
+        if leaf.ndim < 2 or leaf.size < 64:
+            assert view is None, path
+            continue
+        kinds.add(kind)
+        to_rc, from_rc = view
+        rc = to_rc(p.detach())
+        np.testing.assert_array_equal(
+            rc.numpy(), leaf.reshape(-1, leaf.shape[-1]), err_msg=str(path))
+        assert torch.equal(from_rc(rc), p.detach())
+    assert {"dense", "conv", "qkv", "embed"} <= kinds
+
+
+def _flat_tree(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_tree(v, prefix + (k,))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def test_magnitude_histogram_matches_jax():
+    from mme_tpu_torch.train.steps import HIST_BUCKETS, magnitude_histogram
+    rng = np.random.default_rng(6)
+    a = (rng.standard_normal(4000) * 10.0 ** rng.uniform(-14, 4, 4000)
+         ).astype(np.float32)
+    a[::50] = 0.0
+    a[7], a[8], a[9] = np.nan, np.inf, -np.inf
+    a[10], a[11], a[12] = 2.0 ** -40, 2.0 ** -37, 2.0 ** 8   # bucket edges
+    b = rng.standard_normal((3, 5)).astype(np.float32)
+    want = np.asarray(j_steps.magnitude_histogram(
+        {"a": jnp.asarray(a), "b": jnp.asarray(b)}))
+    got = magnitude_histogram([torch.from_numpy(a), torch.from_numpy(b)])
+    assert got.dtype == torch.int32 and got.shape == (HIST_BUCKETS,)
+    assert HIST_BUCKETS == j_steps.HIST_BUCKETS
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.sum().item() == a.size + b.size and got[16] >= 3
+    one = magnitude_histogram(torch.from_numpy(b).bfloat16())
+    np.testing.assert_array_equal(one.numpy(), np.asarray(
+        j_steps.magnitude_histogram(jnp.asarray(b).astype(jnp.bfloat16))))

@@ -327,8 +327,98 @@ def test_grads_bf16_run_and_clip_norm_accumulates_in_fp32(ref, monkeypatch):
 
 
 def test_factored_state_is_not_ported_yet(ref, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _port(ref[2], monkeypatch, state_dtype="factored")
+    """Kept under the name it had while ``MME_OPT_STATE=factored`` raised
+    NotImplementedError: the factored optimizer is ported, and this is its
+    step test. The first moment starts at zero, so the first update is
+    deterministic on both sides (only the stored moment is rounded
+    stochastically): loss, gradient norm and every parameter after one step
+    against JAX, with the rows and columns of each leaf taken in the flax
+    layout (``convert.factored_views``)."""
+    from mme_tpu.train import optim as j_optim
+    from mme_tpu_torch.train import optim as t_optim
+    batch, jb, params, labels, mask, cw = ref
+    monkeypatch.setenv("MME_OPT_STATE", "factored")
+    # the tiny model has no leaf of 16 384 elements: lower both floors
+    monkeypatch.setattr(j_optim, "_FACTOR_MIN_SIZE", 512)
+    monkeypatch.setattr(t_optim, "FACTOR_MIN_SIZE", 512)
+    _, j_state, j_step, _ = j_build.build_tav(
+        _quiet(J_SPEC), JConfig(**CFG), 10, example_batch=jb, remat=False,
+        use_accum=False)
+    j_state = j_state.replace(params=jax.tree.map(jnp.asarray, params))
+    j_state, j_loss, _, j_norm = j_step(
+        j_state, jb, jnp.asarray(labels), jnp.asarray(mask), jnp.asarray(cw),
+        jnp.asarray(1.0, jnp.float32), jnp.asarray(True),
+        jax.random.PRNGKey(0))
+    model, state, step, _ = _port(params, monkeypatch,
+                                  state_dtype="factored")
+    opt = state.opt_state
+    assert sum(r is not None for r in opt.nu_row) > 40
+    assert all((n is None) != (r is None)
+               for n, r in zip(opt.nu, opt.nu_row))
+    _, loss, _, norm = step(state, batch, labels, mask, cw, 1.0, True, 0)
+    np.testing.assert_allclose(loss.item(), float(j_loss), atol=1e-5)
+    np.testing.assert_allclose(norm.item(), float(j_norm), rtol=1e-4)
+    got = dict(_flat(to_flax(model)))
+    for path, b in _flat(jax.tree.map(np.asarray, j_state.params)):
+        a = got[path]
+        if path[-1] == "qkv_bias":
+            assert np.abs(a[1] - b[1]).max() <= 2.5e-3   # see the step test
+            a, b = a[[0, 2]], b[[0, 2]]
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0,
+                                   err_msg=str(path))
+    assert all(m.dtype == torch.bfloat16 for m in opt.mu)
+
+
+def test_module_norms_and_histograms_match_jax(ref, monkeypatch):
+    """``log_histograms=True`` turns grad_norm into the dictionary of the
+    JAX step: total, per-top-level-module gradient and parameter norms
+    (1e-4 relative) and magnitude histograms (parameters exactly; gradient
+    buckets may trade the few elements that sit within rounding of a bucket
+    edge)."""
+    from mme_tpu.train import optim as j_optim
+    from mme_tpu.train import steps as j_steps
+    from mme_tpu_torch.train.steps import make_train_step
+    batch, jb, params, labels, mask, cw = ref
+    j_model = j_fusion.TAVModel(_quiet(J_SPEC))
+
+    def objective(p):
+        logits = j_model.apply({"params": p}, jb, deterministic=False)
+        return j_cross_entropy(logits, jnp.asarray(labels), jnp.asarray(cw),
+                               jnp.asarray(mask))
+
+    j_grads = jax.jit(jax.grad(objective))(params)
+    model, state, _, _ = _port(params, monkeypatch)
+    # lr 0: the step leaves the weights alone
+    from mme_tpu_torch.train.steps import make_optimizer
+    tx = make_optimizer(lambda step: 0.0, 0.0, 1.0, None, "fp32")
+    state.opt_state = tx.init(state.params)
+    step = make_train_step(model, tx, 7, log_histograms=True)
+    _, _, _, norms = step(state, batch, labels, mask, cw, 1.0, True, 0)
+    keys = set(params)
+    assert set(norms) == {"total"} | {
+        f"{kind}/{k}" for k in keys
+        for kind in ("grad", "param", "hist/grad", "hist/param")}
+    np.testing.assert_allclose(
+        norms["total"].item(), float(j_optim.global_norm_f32(j_grads)),
+        rtol=1e-4)
+    for k in keys:
+        np.testing.assert_allclose(
+            norms[f"grad/{k}"].item(),
+            float(j_optim.global_norm_f32(j_grads[k])), rtol=1e-4)
+        np.testing.assert_allclose(
+            norms[f"param/{k}"].item(),
+            float(j_optim.global_norm_f32(params[k])), rtol=1e-6)
+        np.testing.assert_array_equal(
+            norms[f"hist/param/{k}"].numpy(),
+            np.asarray(j_steps.magnitude_histogram(params[k])))
+        want = np.asarray(j_steps.magnitude_histogram(j_grads[k]))
+        got = norms[f"hist/grad/{k}"].numpy()
+        assert got.sum() == want.sum()
+        assert np.abs(got - want).max() <= max(3, want.sum() // 1000)
+    only_norms = make_train_step(model, tx, 7, log_module_norms=True)
+    _, _, _, d = only_norms(state, batch, labels, mask, cw, 1.0, True, 0)
+    assert set(d) == {"total"} | {f"{kind}/{k}" for k in keys
+                                  for kind in ("grad", "param")}
 
 
 def test_video_keep_transform():
