@@ -30,10 +30,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      in bf16 and fp32, and fp32 in / bf16 out: y, dx, dscale, dbias, two
      runs bit-equal. Times them at every shape a training step launches,
      beside ``F.layer_norm`` and its backward;
+   - the wgmma/TMA product core of the bf16 MLP kernels alone
+     (``gemm_bf16``) against an fp32 product at the four operand orders,
+     ragged extents and the video tower's product shapes;
    - the fused MLP forward (K5a) and backward (K5b) at the four full-width
      tower shapes in bf16, a small shape in fp32 and bf16 with each of the
-     four activations, and a wide fp32 shape: out, dx, dW1, dW2, db1, db2,
-     two runs bit-equal. Times them at the tower shapes beside the unfused
+     four activations, N = 1, 17 and 129 at H = 256 to 1024 in bf16, and a
+     wide fp32 shape: out, dx, dW1, dW2, db1, db2, two runs bit-equal.
+     Times them at the tower shapes beside the unfused
      ``F.linear → gelu → F.linear`` and its autograd backward.
 4. Serving at full width: ``init_params(TAVSpec(output_dim=7))`` →
    ``from_flax`` → ``TAVModel`` → ``Predictor(batch_size=8)`` serving ragged
@@ -88,7 +92,7 @@ import torch.nn.functional as F
 
 from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import from_flax, init_params
-from mme_tpu_torch.device import card_line
+from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES, card_line
 from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
 from mme_tpu_torch.ops import kernels
 from mme_tpu_torch.ops.adam_update import (MIN_FUSED_ELEMENTS,
@@ -97,7 +101,9 @@ from mme_tpu_torch.ops.adam_update import (MIN_FUSED_ELEMENTS,
 from mme_tpu_torch.ops.attention import additive_mask
 from mme_tpu_torch.ops.fused_mlp import (ACTS, fused_mlp_bwd,
                                          fused_mlp_bwd_plain, fused_mlp_fwd,
-                                         fused_mlp_fwd_plain, kernel_supports)
+                                         fused_mlp_fwd_plain, gemm_bf16,
+                                         gemm_operand_major, kernel_supports)
+from mme_tpu_torch.ops.fused_mlp import bounds as mlp_bounds
 from mme_tpu_torch.ops.layer_norm import (MIN_FUSED_ROWS, bwd_programs,
                                           fused_layer_norm_bwd,
                                           fused_layer_norm_bwd_plain,
@@ -115,8 +121,6 @@ from mme_tpu_torch.train.schedules import cosine_warm_restarts
 from mme_tpu_torch.train.steps import make_optimizer, to_device
 
 SEED = 0
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 # tolerances of the flash kernel against its plain version, elementwise
 # |O - O_plain| <= atol + rtol |O_plain| and relative on LSE:
 # fp32 — both sum fp32 products, in other orders: a few fp32 ulps of |O|;
@@ -647,17 +651,50 @@ def mlp_case(n, h, f, dtype, seed):
     return x, w1, r(f) * 0.1, w2, r(h) * 0.1, r(n, h).to(dtype)
 
 
-def mlp_bounds(n, h, f, elem):
-    """(forward, backward) as (flops, bytes, bound ms, bound by)."""
-    w = 2 * h * f * elem
-    fwd = (4 * n * h * f, 2 * n * h * elem + w + (f + h) * 4)
-    bwd = (10 * n * h * f, 3 * n * h * elem + 2 * w + f * 4 + (f + h) * 4)
-    out = []
-    for flops, nbytes in (fwd, bwd):
-        by_ops, by_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        out.append((flops, nbytes, max(by_ops, by_bytes) * 1e3,
-                    "operations" if by_ops >= by_bytes else "bytes"))
-    return out
+def gemm_operand(rows, cols, mn, g):
+    """A [rows, cols] bf16 operand contracted along `cols`, stored with
+    `rows` contiguous when `mn`, else `cols`, in storage padded past the
+    extent (the row stride is not the extent)."""
+    inner, outer = (rows, cols) if mn else (cols, rows)
+    store = torch.randn(outer, (inner + 7) // 8 * 8 + 8, generator=g,
+                        device="cuda").to(torch.bfloat16)
+    return store[:, :inner].t() if mn else store[:, :inner]
+
+
+def check_gemm_core(card: str):
+    """Phase 3, the wgmma/TMA product core of K5a and K5b alone: C = A B
+    against an fp32 product of the same bf16 operands at the four operand
+    orders, every extent ragged against the 128 x 128 x 64 tiles (the last
+    extents on more tiles than the card has SMs), and at the orders and
+    extents of the video tower's five products."""
+    cases = [(m, n, k, a_mn, b_mn)
+             for m, n, k in ((5, 3, 7), (200, 136, 328), (300, 520, 1000),
+                             (4000, 1100, 136))
+             for a_mn in (0, 1) for b_mn in (0, 1)]
+    cases += [(11712, 3072, 768, 0, 0), (11712, 768, 3072, 0, 0),
+              (3072, 768, 11712, 1, 1), (11712, 768, 3072, 0, 1)]
+    worst = 0.0
+    for i, (m, n, k, a_mn, b_mn) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(700 + i)
+        a = gemm_operand(m, k, a_mn, g)
+        b = gemm_operand(n, k, b_mn, g).t()
+        assert (gemm_operand_major(a, 1), gemm_operand_major(b, 0)) \
+            == (a_mn, b_mn)
+        c = gemm_bf16(a, b)
+        torch.cuda.synchronize()
+        ref = torch.matmul(a.float(), b.float())
+        share = ((c.float() - ref).abs().max().item()
+                 / (MLP_TOL[torch.bfloat16] * ref.abs().max().item()))
+        worst = max(worst, share)
+        print(f"gemm core M={m} N={n} K={k} A {'MN' if a_mn else 'K'}-major"
+              f" B {'MN' if b_mn else 'K'}-major: error {share:.3f} of "
+              "tolerance", flush=True)
+        if not (share <= 1.0 and bool(torch.isfinite(c.float()).all())):
+            raise SystemExit(f"gemm core disagrees at M={m} N={n} K={k} "
+                             f"orders ({a_mn}, {b_mn})")
+    print(json.dumps({"gemm_core_cases": len(cases),
+                      "worst_share_of_tolerance": worst, "card": card}),
+          flush=True)
 
 
 def check_fused_mlp(spec: TAVSpec, card: str):
@@ -671,6 +708,11 @@ def check_fused_mlp(spec: TAVSpec, card: str):
              for name, n, h, f, _ in towers]
     cases += [("small", 300, 256, 512, dt, act)
               for dt in (torch.float32, torch.bfloat16) for act in ACTS]
+    cases += [("ragged", n, h, f, torch.bfloat16, act)
+              for n, h, f, act in ((1, 256, 64, "gelu"),
+                                   (17, 512, 192, "gelu_new"),
+                                   (129, 768, 320, "relu"),
+                                   (129, 1024, 256, "tanh"))]
     cases.append(("fp32_wide", 300, 768, 3072, torch.float32, "gelu"))
     err_fwd = err_bwd = 0.0
     for i, (name, n, h, f, dt, act) in enumerate(cases):
@@ -1191,6 +1233,7 @@ def main() -> int:
     train_spec = dataclasses.replace(spec, share_audio_frontend=True)
     adam_err, adam = check_adam(train_spec, card)
     ln_fwd, ln_bwd = check_layer_norm(train_spec, card)
+    check_gemm_core(card)
     mlp_fwd, mlp_bwd = check_fused_mlp(train_spec, card)
     served, served_knobs = main_path(card)
     step, step_fused, step_knobs = train_path(card)

@@ -14,6 +14,11 @@ import torch
 
 DeviceLike = Union[str, torch.device]
 
+# published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
+# dense): the rates a kernel's bound is taken against
+PEAK_BF16_FLOPS = 989e12     # bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12         # HBM3 bytes/s
+
 
 def resolve_device(device: DeviceLike) -> torch.device:
     dev = torch.device(device)

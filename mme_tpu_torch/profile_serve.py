@@ -42,6 +42,9 @@ FAMILIES = (("flash_fwd", "flash_fwd (K1)"),
             ("_ln_bwd", "layer_norm_bwd (K4b)"),
             ("mlp_fwd", "fused_mlp_fwd (K5a)"),
             ("mlp_bwd", "fused_mlp_bwd (K5b)"),
+            # bf16: K5a is two mlp_gemm launches, K5b mlp_dual and one
+            ("mlp_dual", "fused_mlp_bwd (K5b)"),
+            ("mlp_gemm", "mlp_gemm (K5a; K5b dx, dW)"),
             ("dgrad", "conv backward"), ("wgrad", "conv backward"),
             ("conv", "conv"), ("cudnn", "conv"), ("fprop", "conv"),
             ("gemm", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),

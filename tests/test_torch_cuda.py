@@ -361,6 +361,42 @@ def test_layer_norm_module_dispatch_on_cuda(cuda, monkeypatch):
                              1e-5, torch.float32)
 
 
+def _gemm_operand(rows, cols, mn, g):
+    """A [rows, cols] bf16 operand contracted along `cols`: stored with
+    `rows` contiguous when `mn`, else `cols`, in storage padded past the
+    extent, so the row stride is not the extent."""
+    inner, outer = (rows, cols) if mn else (cols, rows)
+    store = torch.randn(outer, (inner + 7) // 8 * 8 + 8, generator=g,
+                        device="cuda").to(torch.bfloat16)
+    t = store[:, :inner]
+    return t.t() if mn else t
+
+
+@pytest.mark.parametrize("a_mn,b_mn", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("m,n,k", [(5, 3, 7), (200, 136, 328),
+                                   (300, 520, 1000), (4000, 1100, 136)])
+def test_gemm_core_matches_fp32_matmul(cuda, a_mn, b_mn, m, n, k):
+    """The wgmma/TMA core of the bf16 MLP kernels against an fp32 product
+    of the same bf16 operands, both operand orders, every extent ragged
+    against the 128 x 128 x 64 tiles, the last case on more tiles than the
+    card has SMs; held like the MLP (2e-2 of the largest element: the
+    result is rounded to bf16)."""
+    from mme_tpu_torch.ops import fused_mlp as fm
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    a = _gemm_operand(m, k, a_mn, g)                  # [M, K]
+    b = _gemm_operand(n, k, b_mn, g).t()              # [K, Nc]
+    assert fm.gemm_operand_major(a, 1) == a_mn
+    assert fm.gemm_operand_major(b, 0) == b_mn
+    before = kernels.LAUNCHES["gemm_bf16"]
+    c = fm.gemm_bf16(a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gemm_bf16"] == before + 1
+    ref = torch.matmul(a.float(), b.float())
+    assert c.shape == (m, n) and c.dtype == torch.bfloat16
+    err = (c.float() - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err
+
+
 def _mlp_inputs(n, h, f, dtype, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -381,6 +417,11 @@ def _mlp_inputs(n, h, f, dtype, seed=0):
     (2392, 1024, 4096, torch.bfloat16, "gelu"),
     (3784, 768, 3072, torch.bfloat16, "gelu"),
     (11712, 768, 3072, torch.bfloat16, "gelu"),
+    (1, 256, 64, torch.bfloat16, "gelu"),
+    (17, 512, 192, torch.bfloat16, "gelu_new"),
+    (129, 768, 320, torch.bfloat16, "relu"),
+    (129, 1024, 256, torch.bfloat16, "tanh"),
+    (17, 1024, 4096, torch.bfloat16, "gelu"),
 ])
 def test_fused_mlp_kernels_match_plain(cuda, n, h, f, dtype, act):
     from mme_tpu_torch.ops import fused_mlp as fm

@@ -127,6 +127,48 @@ def test_shape_rule_and_dispatch(monkeypatch):
         t_mlp.act_pair("swish")
 
 
+def test_bf16_scratch_and_bounds():
+    """The bf16 kernels' transients: a and dh [N, F] and one db1 partial row
+    per 128 rows; the bound counts 4 and 10 N·H·F flops."""
+    s = t_mlp.scratch_shapes(11712, 3072)
+    assert s == {"a": (11712, 3072), "dh": (11712, 3072),
+                 "db1_rows": (92, 3072)}
+    assert t_mlp.scratch_shapes(1, 64)["db1_rows"] == (1, 64)
+    assert t_mlp.scratch_shapes(129, 64)["db1_rows"] == (2, 64)
+    (f_ops, f_bytes, f_ms, f_by), (b_ops, _, b_ms, b_by) = t_mlp.bounds(
+        11712, 768, 3072, 2)
+    assert (f_ops, b_ops) == (4 * 11712 * 768 * 3072, 10 * 11712 * 768 * 3072)
+    assert f_bytes == 2 * 11712 * 768 * 2 + 2 * 768 * 3072 * 2 + 3840 * 4
+    assert f_by == b_by == "operations" and 0.11 < f_ms < 0.12 < b_ms
+
+
+@pytest.mark.parametrize("a_mn,b_mn", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_gemm_operand_orders_on_cpu(a_mn, b_mn):
+    """gemm_bf16 reads each operand's order from its strides (a transposed
+    view is MN-major); on the CPU it is its plain version."""
+    g = torch.Generator().manual_seed(a_mn * 2 + b_mn)
+    a = torch.randn(24, 40, generator=g).bfloat16()
+    b = torch.randn(40, 16, generator=g).bfloat16()
+    a = a.t().contiguous().t() if a_mn else a
+    b = b if b_mn else b.t().contiguous().t()
+    assert t_mlp.gemm_operand_major(a, 1) == a_mn
+    assert t_mlp.gemm_operand_major(b, 0) == b_mn
+    before = dict(kernels.LAUNCHES)
+    torch.testing.assert_close(t_mlp.gemm_bf16(a, b),
+                               (a.float() @ b.float()).bfloat16())
+    assert kernels.LAUNCHES == before
+
+
+def test_gemm_operand_order_rejects_what_tma_cannot_read():
+    x = torch.zeros(20, 36, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unit stride"):
+        t_mlp.gemm_operand_major(x[:, ::2], 1)         # no unit stride
+    with pytest.raises(ValueError, match="unit stride"):
+        t_mlp.gemm_operand_major(x[:, :30], 1)         # 72-byte rows
+    with pytest.raises(ValueError, match="2-D"):
+        t_mlp.gemm_operand_major(torch.zeros(2, 3, 4), 1)
+
+
 def _block_pair(spec_kw, seed=3):
     """One EncoderBlock in both packages on the same weights."""
     j_spec = j_layers.EncoderSpec(**spec_kw)
