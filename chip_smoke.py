@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. Build: every CUDA kernel from ``mme_tpu_torch/csrc/`` (flash forward
    and backward, the fused MLP), one ``nvcc`` per source started together;
    prints the build time, ``-Xptxas -v`` of the flash kernels and a summary
-   (registers, spills) of the fused MLP's. The Triton kernels compile at
+   of the fused MLP's (registers, spills) and of every flash kernel's
+   (registers, spills, wgmma serialized by ptxas or not). The Triton kernels compile at
    their first launch.
 3. Kernels against their plain PyTorch versions on the card:
    - the flash forward (K1) and backward (K2), q/k/v as strided views of a
@@ -109,7 +110,8 @@ from mme_tpu_torch.ops.layer_norm import (MIN_FUSED_ROWS, bwd_programs,
                                           fused_layer_norm_bwd_plain,
                                           fused_layer_norm_fwd,
                                           fused_layer_norm_fwd_plain)
-from mme_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+from mme_tpu_torch.ops.flash_attention import (bounds as flash_bounds,
+                                               flash_attention_bwd,
                                                flash_attention_bwd_plain,
                                                flash_attention_fwd,
                                                flash_attention_fwd_plain)
@@ -191,6 +193,34 @@ def ptxas_summary(log: str) -> dict:
             "static_smem_bytes": sorted(set(smem))}
 
 
+def kernel_ptxas(log: str) -> list:
+    """Registers and spill bytes of every kernel in one source's ``-Xptxas
+    -v`` output, by kernel and template arguments (D, element type)."""
+    out = []
+    # ptxas names each kernel whose wgmma it serialised (C7512, C7515, ...)
+    serialized = set(re.findall(r"are serialized[^\n]*'([^'\n]+)'", log))
+    for block in log.split("Compiling entry function")[1:]:
+        name = re.search(r"'([^'\n]+)'", block).group(1)
+        # _ZN..._<source>_cu_<8 hex digits><length><kernel name>I...
+        at = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+        base = (name[at.end():at.end() + int(at.group(1))] if at
+                else name)
+        args = re.findall(r"Li(\d+)E", name)
+        if "bfloat16" in name:
+            args.append("bf16")
+        elif re.search(r"IfLi", name):
+            args.append("fp32")
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", block)
+        out.append({"kernel": base + "<" + ",".join(args) + ">",
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_bytes": (int(spills.group(1)) + int(spills.group(2))
+                                    if spills else None),
+                    "serialized_wgmma": name in serialized})
+    return out
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
     for _ in range(warmup):
@@ -219,14 +249,6 @@ def attention_inputs(B, Sq, Sk, H, D, dtype, masked_rows, seed):
     keep = torch.arange(Sk, device="cuda")[None, :] < lengths[:, None]
     bias = additive_mask(keep)[:, 0, 0, :]
     return q, qkv[:, :, 1], qkv[:, :, 2], bias
-
-
-def bound_ms(B, Sq, Sk, H, D, elem, has_bias):
-    flops = 4 * B * H * Sq * Sk * D
-    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * H * D) * elem \
-        + B * H * Sq * 4 + (B * Sk * 4 if has_bias else 0)
-    return flops, nbytes, max(flops / PEAK_BF16_FLOPS,
-                              nbytes / PEAK_BYTES) * 1e3
 
 
 def check_flash(card: str):
@@ -276,27 +298,17 @@ def check_flash(card: str):
                         iters=5)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
-        flops, nbytes, bound = bound_ms(B, S, S, H, 64, 2, bias is not None)
+        (flops, nbytes, bound, by), _ = flash_bounds(B, S, S, H, 64, 2,
+                                                     bias is not None)
         row = {"shape": name, "B": B, "S": S, "H": H, "D": 64,
                "dtype": "bf16", "launches_per_chunk": n, "ms": ms,
-               "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+               "tflops": flops / ms / 1e9, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": bound,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-               "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
-                            >= nbytes / PEAK_BYTES else "bytes"),
-               "card": card}
+               "bound_by": by, "card": card}
         print(json.dumps({"flash_fwd_shape": row}), flush=True)
         shapes.append(row)
     return max_err, shapes
-
-
-def bwd_bound_ms(B, Sq, Sk, H, D, elem, has_bias):
-    """Five tile products; q, O, dO, dq and k, v, dk, dv in the working
-    type, LSE and delta in fp32, the key bias."""
-    flops = 10 * B * H * Sq * Sk * D
-    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * H * D) * elem \
-        + 2 * B * H * Sq * 4 + (B * Sk * 4 if has_bias else 0)
-    return flops, nbytes, max(flops / PEAK_BF16_FLOPS,
-                              nbytes / PEAK_BYTES) * 1e3
 
 
 def grads_close(got, want, dtype):
@@ -377,15 +389,14 @@ def check_flash_bwd(card: str):
         do_t = do.transpose(1, 2)
         lib = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do_t,
                                                   retain_graph=True))
-        flops, nbytes, bound = bwd_bound_ms(B, S, S, H, 64, 2,
-                                            bias is not None)
+        _, (flops, nbytes, bound, by) = flash_bounds(B, S, S, H, 64, 2,
+                                                     bias is not None)
         row = {"shape": name, "B": B, "S": S, "H": H, "D": 64,
                "dtype": "bf16", "launches_per_step": n, "ms": ms,
-               "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+               "tflops": flops / ms / 1e9, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": bound,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-               "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
-                            >= nbytes / PEAK_BYTES else "bytes"),
-               "card": card}
+               "bound_by": by, "card": card}
         print(json.dumps({"flash_bwd_shape": row}), flush=True)
         shapes.append(row)
         del o_lib, leaves
@@ -1224,6 +1235,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s\n{logs['flash_fwd']}\n"
           f"{logs['flash_bwd']}", flush=True)
     print(json.dumps({"fused_mlp_ptxas": ptxas_summary(logs["fused_mlp"])}),
+          flush=True)
+    print(json.dumps({"flash_ptxas": {name: kernel_ptxas(logs[name])
+                                      for name in ("flash_fwd", "flash_bwd")}}),
           flush=True)
 
     spec = TAVSpec(output_dim=7)

@@ -15,6 +15,9 @@ block knobs) are not carried over.
   kernels' references.
 - :class:`FlashAttention` ties the two together under ``torch.autograd``
   (the counterpart of the ``custom_vjp`` around the TPU kernels).
+- :func:`flash_bwd_prepass` is the backward's first launch alone (delta and
+  the masked-row correction), :func:`bounds` the least time the card could
+  take for a call.
 
 Deviations from the JAX kernels, both about masked rows. The JAX forward
 pads the ragged last key block with a ``-1e30`` bias, which beats the
@@ -28,25 +31,71 @@ restores log n from the bias (:func:`_masked_row_correction`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES
 from mme_tpu_torch.ops import kernels
 
 KERNEL = "flash_fwd"
 KERNEL_BWD = "flash_bwd"
+PREPASS = "flash_bwd_prepass"
 LSE_MASKED = 1e30   # LSE of a row whose every score is -inf
 HEAD_DIMS = (64, 128)
-kernels.LAUNCHES.setdefault(KERNEL, 0)
-kernels.LAUNCHES.setdefault(KERNEL_BWD, 0)
+_DTYPES = (torch.bfloat16, torch.float32)
+for _name in (KERNEL, KERNEL_BWD, PREPASS):
+    kernels.LAUNCHES.setdefault(_name, 0)
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 13 + [ctypes.c_float, ctypes.c_void_p])
-_ARGTYPES_BWD = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
-                    ctypes.c_void_p])
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (library, C symbol, argument types): bound once, at first use
+_SIGNATURES = {
+    "mme_flash_fwd": (KERNEL, [_P] * 6 + [_I] * 6 + [_L] * 13
+                      + [ctypes.c_float, _P]),
+    "mme_flash_bwd": (KERNEL_BWD, [_P] * 12 + [_I] * 6
+                      + [_P, _L, ctypes.c_float, _P]),
+    "mme_flash_bwd_prepass": (KERNEL_BWD, [_P] * 6 + [_I] * 6
+                              + [_P, _L, _P]),
+}
+_FNS: Dict[str, Callable] = {}
+
+
+def _fn(symbol: str) -> Callable:
+    """The C entry point ``symbol``, its library built and its argument
+    types set on the first call only."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        lib_name, argtypes = _SIGNATURES[symbol]
+        fn = getattr(kernels.load(lib_name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[symbol] = fn
+    return fn
+
+
+def bounds(B: int, Sq: int, Sk: int, H: int, D: int, elem: int,
+           has_bias: bool) -> List[Tuple[int, int, float, str]]:
+    """(forward, backward) of one call as (flops, bytes, bound ms, bound
+    by). Forward: 4·B·H·Sq·Sk·D flops against q, O and k, v in
+    ``elem``-byte elements, the fp32 LSE and the key bias. Backward: five
+    tile products, 10·B·H·Sq·Sk·D flops, against q, O, dO, dq and k, v, dk,
+    dv, LSE and delta in fp32 and the key bias. Each byte is counted once,
+    whatever the kernels read again."""
+    bias = B * Sk * 4 if has_bias else 0
+    fwd = (4 * B * H * Sq * Sk * D,
+           (2 * B * Sq * H * D + 2 * B * Sk * H * D) * elem + B * H * Sq * 4
+           + bias)
+    bwd = (10 * B * H * Sq * Sk * D,
+           (4 * B * Sq * H * D + 4 * B * Sk * H * D) * elem
+           + 2 * B * H * Sq * 4 + bias)
+    out = []
+    for flops, nbytes in (fwd, bwd):
+        by_ops, by_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out.append((flops, nbytes, max(by_ops, by_bytes) * 1e3,
+                    "operations" if by_ops >= by_bytes else "bytes"))
+    return out
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -73,34 +122,36 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype), lse
 
 
-def _check(q, k, v, bias_k, fn: str = "flash_attention_fwd") -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"{fn}: q, k, v must be [B, S, H, D]")
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    if k.shape != (B, Sk, H, D) or v.shape != (B, Sk, H, D):
-        raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+def _check(q, k, v, bias_k, fn: str = "flash_attention_fwd") -> list:
+    """Raises on what the kernels do not take; returns the (batch,
+    sequence, head) strides of q, k and v, in elements."""
+    qs, ks = q.shape, k.shape
+    if (len(qs) != 4 or len(ks) != 4 or v.shape != ks
+            or (ks[0], ks[2], ks[3]) != (qs[0], qs[2], qs[3])):
+        raise ValueError(f"{fn}: shapes q {tuple(qs)}, k {tuple(ks)}, "
+                         f"v {tuple(v.shape)} are not [B, S, H, D] alike")
+    B, Sq, H, D = qs
+    Sk = ks[1]
     if D not in HEAD_DIMS or Sq == 0 or Sk == 0:
         raise ValueError(f"{fn}: head_dim {D} not in "
                          f"{HEAD_DIMS} or an empty sequence (Sq={Sq}, Sk={Sk})")
-    if q.dtype not in (torch.bfloat16, torch.float32) or not (
-            q.dtype == k.dtype == v.dtype):
+    dt = q.dtype
+    if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"{fn}: q, k, v must share one dtype, "
                         f"bf16 or fp32; got {q.dtype}, {k.dtype}, {v.dtype}")
     dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError(f"{fn}: q on {dev}, k on {k.device}, v on {v.device}")
+    strides = []
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != dev:
-            raise ValueError(f"{fn}: {name} on {x.device}, "
-                             f"q on {dev}")
-        if x.stride(-1) != 1:
-            raise ValueError(f"{fn}: {name}'s last stride is "
-                             f"{x.stride(-1)}, the kernel needs 1")
-        # the kernel moves 16-byte vectors along every row it reads
-        vec = 16 // x.element_size()
-        if x.data_ptr() % 16 or any(s % vec for s in x.stride()[:3]):
-            raise ValueError(f"{fn}: {name} is not 16-byte "
-                             "aligned in its pointer and strides")
+        st = x.stride()
+        # the kernels read rows of D elements as 16-byte vectors and TMA
+        # boxes
+        if not _aligned(x, st):
+            raise ValueError(f"{fn}: {name} (strides {st}) needs a unit last "
+                             "stride and a 16-byte aligned pointer and "
+                             "strides")
+        strides += st[:3]
     if bias_k is not None:
         if (bias_k.shape != (B, Sk) or bias_k.dtype != torch.float32
                 or bias_k.device != dev or bias_k.stride(-1) != 1):
@@ -108,6 +159,24 @@ def _check(q, k, v, bias_k, fn: str = "flash_attention_fwd") -> None:
                              f"[B, Sk] = [{B}, {Sk}] with unit last stride on "
                              f"{dev}; got {tuple(bias_k.shape)} "
                              f"{bias_k.dtype} on {bias_k.device}")
+    return strides
+
+
+def _aligned(x: torch.Tensor, st: Optional[Tuple[int, ...]] = None) -> bool:
+    """Unit last stride, a 16-byte aligned pointer and strides: what the
+    kernels' 16-byte loads and TMA boxes need."""
+    st = x.stride() if st is None else st
+    vec = 16 // x.element_size()
+    return (st[-1] == 1 and x.data_ptr() % 16 == 0
+            and st[0] % vec == 0 and st[1] % vec == 0 and st[2] % vec == 0)
+
+
+def _launch_context(dev: torch.device):
+    """(device guard, current stream of `dev`): no guard when `dev` is the
+    current device already."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext(), torch.cuda.current_stream().cuda_stream
+    return torch.cuda.device(dev), torch.cuda.current_stream(dev).cuda_stream
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,24 +192,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_plain(q, k, v, bias_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: no kernel for {q.device}")
-    _check(q, k, v, bias_k)
+    strides = _check(q, k, v, bias_k)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    lib = kernels.load(KERNEL)
-    fn = lib.mme_flash_fwd
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if bias_k is None else bias_k.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(),
-                 B, Sq, Sk, H, D, int(q.dtype == torch.bfloat16),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 0 if bias_k is None else bias_k.stride(0),
-                 *out.stride()[:3], 1.0 / D ** 0.5,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    guard, stream = _launch_context(q.device)
+    with guard:
+        err = _fn("mme_flash_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias_k is None else bias_k.data_ptr(),
+            out.data_ptr(), lse.data_ptr(),
+            B, Sq, Sk, H, D, int(q.dtype == torch.bfloat16), *strides,
+            0 if bias_k is None else bias_k.stride(0),
+            *out.stride()[:3], 1.0 / D ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
     kernels.LAUNCHES[KERNEL] += 1
@@ -166,8 +231,73 @@ def _masked_row_correction(bias_k: Optional[torch.Tensor],
 
 
 def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """rowsum(O * dO) in fp32, [B, H, Sq], outside the kernel as in JAX."""
+    """rowsum(O * dO) in fp32, [B, H, Sq], as the JAX wrapper computes it
+    beside its kernel."""
     return (out.float() * do.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+def flash_bwd_prepass_plain(out: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor,
+                            bias_k: Optional[torch.Tensor]
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(delta, corr) of the backward: rowsum(O * dO) and the masked-row
+    correction, both [B, H, Sq] fp32; corr is None without a bias."""
+    return _delta(out, do), _masked_row_correction(bias_k, lse)
+
+
+def _check_bwd_rows(fn: str, q, out, do, lse) -> None:
+    B, Sq, H, _ = q.shape
+    for name, x in (("out", out), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{fn}: {name} must match q "
+                             f"({tuple(q.shape)} {q.dtype} on {q.device}); "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"{fn}: lse must be fp32 [B, H, Sq] "
+                         f"= [{B}, {H}, {Sq}] on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+
+
+def flash_bwd_prepass(out: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                      bias_k: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backward's first launch on its own: (delta, corr) as
+    :func:`flash_bwd_prepass_plain`. A CUDA tensor launches the kernel; a
+    CPU tensor takes the plain version."""
+    if out.device.type == "cpu":
+        return flash_bwd_prepass_plain(out, do, lse, bias_k)
+    if out.device.type != "cuda":
+        raise ValueError(f"flash_bwd_prepass: no kernel for {out.device}")
+    _check_bwd_rows("flash_bwd_prepass", out, out, do, lse)
+    B, Sq, H, D = out.shape
+    if D not in HEAD_DIMS or out.dtype not in _DTYPES:
+        raise ValueError(f"flash_bwd_prepass: head_dim {D} or dtype "
+                         f"{out.dtype} not taken")
+    if bias_k is not None and (bias_k.shape[0] != B
+                               or bias_k.dtype != torch.float32
+                               or bias_k.stride(-1) != 1):
+        raise ValueError("flash_bwd_prepass: bias_k must be fp32 [B, Sk] "
+                         "with a unit last stride")
+    out = out if _aligned(out) else out.contiguous()
+    do = do if _aligned(do) else do.contiguous()
+    lse = lse.contiguous()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=out.device)
+    corr = None if bias_k is None else torch.empty_like(delta)
+    strides = (ctypes.c_longlong * 6)(*out.stride()[:3], *do.stride()[:3])
+    guard, stream = _launch_context(out.device)
+    with guard:
+        err = _fn("mme_flash_bwd_prepass")(
+            out.data_ptr(), do.data_ptr(),
+            None if bias_k is None else bias_k.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if corr is None else corr.data_ptr(),
+            B, Sq, 0 if bias_k is None else bias_k.shape[1], H, D,
+            int(out.dtype == torch.bfloat16), strides,
+            0 if bias_k is None else bias_k.stride(0), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_prepass launch failed: cudaError {err}")
+    kernels.LAUNCHES[PREPASS] += 1
+    return delta, corr
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -187,13 +317,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     if bias_k is not None:
         logits = logits + bias_k.float()[:, None, None, :]
     x = logits - lse[..., None]
-    corr = _masked_row_correction(bias_k, lse)
+    delta, corr = flash_bwd_prepass_plain(out, do, lse, bias_k)
     if corr is not None:
         x = x - corr[..., None]
     p = torch.exp(x)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = (p * (dp - _delta(out, do)[..., None])).to(q.dtype).float()
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -210,52 +340,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, out, do [B, Sq, H, D], k/v [B, Sk, H, D] (any strides with a unit
     last one), bias_k [B, Sk] fp32 or None, lse [B, H, Sq] fp32 →
     (dq, dk, dv), contiguous, in the inputs' dtype. A CUDA tensor launches
-    the kernel on the current stream; a CPU tensor takes the plain
-    version."""
+    the kernels on the current stream (the pre-pass, dK/dV, dQ); a CPU
+    tensor takes the plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, bias_k, out, lse, do)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
-    _check(q, k, v, bias_k, "flash_attention_bwd")
+    strides = _check(q, k, v, bias_k, "flash_attention_bwd")
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(
-            s % (16 // do.element_size()) for s in do.stride()[:3]):
-        # autograd may hand over an expanded or transposed gradient (a
-        # broadcast sum's, say); the kernel reads rows of D elements as
-        # 16-byte vectors, so such a dO is copied once here
-        do = do.contiguous()
-    for name, x in (("out", out), ("do", do)):
-        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
-            raise ValueError(f"flash_attention_bwd: {name} must match q "
-                             f"({tuple(q.shape)} {q.dtype} on {q.device}); "
-                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
-    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
-            or lse.device != q.device):
-        raise ValueError("flash_attention_bwd: lse must be fp32 [B, H, Sq] "
-                         f"= [{B}, {H}, {Sq}] on {q.device}; got "
-                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    _check_bwd_rows("flash_attention_bwd", q, out, do, lse)
+    # autograd may hand over an expanded or transposed gradient (a
+    # broadcast sum's, say), and a caller another O; the kernels read rows
+    # of D elements as 16-byte vectors and TMA boxes, so such a tensor is
+    # copied once here
+    do = do if _aligned(do) else do.contiguous()
+    out = out if _aligned(out) else out.contiguous()
     lse = lse.contiguous()
-    delta = _delta(out, do)
-    corr = _masked_row_correction(bias_k, lse)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Sk, H, D), dtype=v.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 21)(*(
-        s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]))
-    lib = kernels.load(KERNEL_BWD)
-    fn = lib.mme_flash_bwd
-    fn.argtypes = _ARGTYPES_BWD
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 None if bias_k is None else bias_k.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(),
-                 None if corr is None else corr.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B, Sq, Sk, H, D, int(q.dtype == torch.bfloat16), strides,
-                 0 if bias_k is None else bias_k.stride(0), 1.0 / D ** 0.5,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    # delta, and the masked-row correction when there is a bias: written
+    # by the first launch
+    rows = torch.empty((1 if bias_k is None else 2, B, H, Sq),
+                       dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*strides, *(
+        s for x in (out, do, dq, dk, dv) for s in x.stride()[:3]))
+    guard, stream = _launch_context(q.device)
+    with guard:
+        err = _fn("mme_flash_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), None if bias_k is None else bias_k.data_ptr(),
+            lse.data_ptr(), rows[0].data_ptr(),
+            None if bias_k is None else rows[1].data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, Sk, H, D, int(q.dtype == torch.bfloat16), strides,
+            0 if bias_k is None else bias_k.stride(0), 1.0 / D ** 0.5,
+            stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed: cudaError {err}")
     kernels.LAUNCHES[KERNEL_BWD] += 1

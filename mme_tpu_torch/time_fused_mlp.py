@@ -24,15 +24,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
-import tempfile
 
 import torch
 
 from mme_tpu_torch.device import card_line
 from mme_tpu_torch.ops.fused_mlp import bounds, fused_mlp_bwd, fused_mlp_fwd
+from mme_tpu_torch.time_flash import event_ms, kernel_ms
 
 # (tower, rows at batch 8, hidden, intermediate, layers)
 SHAPES = (("text", 560, 768, 3072, 6), ("audio", 2392, 1024, 4096, 24),
@@ -41,44 +40,6 @@ SHAPES = (("text", 560, 768, 3072, 6), ("audio", 2392, 1024, 4096, 24),
 PIECES = {"fwd": (("fc1", 2), ("fc2", 2)),
           "bwd": (("dual", 4), ("grouped", 6), ("sum_db1", 0),
                   ("sum_db2", 0))}
-
-
-def _ms(fn, iters: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_ms(fn, iters: int = 5) -> list:
-    """Device ms of each kernel one call of ``fn`` starts, in launch order,
-    averaged over ``iters`` calls of a profiler trace."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    kern = sorted((e for e in events if e.get("cat") == "kernel"),
-                  key=lambda e: e["ts"])
-    per = len(kern) // iters
-    if per * iters != len(kern):
-        raise RuntimeError(f"{len(kern)} kernels in {iters} calls")
-    return [{"kernel": kern[i]["name"][:60],
-             "ms": sum(kern[c * per + i]["dur"] for c in range(iters))
-             / iters / 1e3} for i in range(per)]
 
 
 def time_tree() -> dict:
@@ -96,7 +57,7 @@ def time_tree() -> dict:
         row = {"shape": name, "N": n, "H": h, "F": f, "layers": layers}
         for (key, call), (flops, _, bound, by) in zip(calls.items(),
                                                       bounds(n, h, f, 2)):
-            ms = _ms(call)
+            ms = event_ms(call)
             row[key] = {"ms": ms, "tflops": flops / ms / 1e9,
                         "bound_ms": bound, "bound_by": by,
                         "kernels": kernel_ms(call)}

@@ -28,7 +28,9 @@ from mme_tpu_torch.ops.flash_attention import (FlashAttention,
                                                flash_attention_bwd,
                                                flash_attention_bwd_plain,
                                                flash_attention_fwd,
-                                               flash_attention_fwd_plain)
+                                               flash_attention_fwd_plain,
+                                               flash_bwd_prepass,
+                                               flash_bwd_prepass_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -211,6 +213,120 @@ def test_flash_autograd_matches_non_flash_path(cuda, monkeypatch):
     leaf = q.detach().clone().requires_grad_()
     FlashAttention.apply(leaf, k, v, None).sum().backward()   # expanded dO
     assert torch.isfinite(leaf.grad).all()
+
+
+def _check_fwd_bwd(q, k, v, bias, do, dtype):
+    """Both kernels against their plain versions on the same inputs; the
+    backward from the kernel's own O and LSE. Returns the kernels' results."""
+    o, lse = flash_attention_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, bias)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    got = flash_attention_bwd(q, k, v, bias, o, lse, do)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, flash_attention_bwd_plain(q, k, v, bias, o, lse,
+                                                       do), dtype)
+    return o, lse, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Sk", [(1, 473), (127, 129), (128, 299),
+                                   (129, 1), (299, 128), (473, 127)])
+def test_flash_kernels_at_tile_edges(cuda, dtype, D, Sq, Sk):
+    """Lengths on both sides of the 64- and 128-row tiles, Sq != Sk, a
+    ragged key mask in one batch row."""
+    q, k, v, bias = _inputs(2, Sq, Sk, 3, D, dtype, [Sk, max(1, Sk // 3)],
+                            seed=Sq + Sk)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    do = torch.randn(2, Sq, 3, D, generator=g, device="cuda").to(dtype)
+    _check_fwd_bwd(q, k, v, bias, do, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bf16_row_masked_by_bias(cuda, D):
+    """A bf16 row whose every key carries the -0.7 f32max mask bias: the
+    softmax must subtract the row maximum before its scale by log2(e), or
+    the bias overflows to -inf and the row turns into a sentinel row. The
+    non-flash contract: O is the mean of v, the LSE is finite, dV is not
+    zero."""
+    q, k, v, bias = _inputs(2, 150, 150, 3, D, torch.bfloat16, [150, 0])
+    g = torch.Generator(device="cuda").manual_seed(12)
+    do = torch.randn(2, 150, 3, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    o, lse, (dq, dk, dv) = _check_fwd_bwd(q, k, v, bias, do, torch.bfloat16)
+    mean_v = v[1].float().mean(dim=0)                         # [H, D]
+    torch.testing.assert_close(o[1].float(),
+                               mean_v.expand_as(o[1]).contiguous(),
+                               atol=2e-2, rtol=1e-2)
+    assert torch.isfinite(lse[1]).all() and (lse[1] < -1e30).all()
+    assert dv[1].abs().max() > 0
+
+
+def test_flash_bwd_bf16_two_runs_bit_equal(cuda):
+    q, k, v, bias = _inputs(2, 300, 300, 4, 64, torch.bfloat16, [300, 123])
+    do = torch.randn(2, 300, 4, 64, device="cuda").to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    first = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    second = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_bwd_non_contiguous_do(cuda, dtype):
+    """dO as a strided view (read in place) and with a last stride that is
+    not 1 (copied once), against the plain version on a contiguous dO."""
+    q, k, v, bias = _inputs(2, 90, 90, 2, 64, dtype, [90, 33])
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    wide = torch.randn(2, 90, 2, 2, 64, generator=g, device="cuda").to(dtype)
+    transposed = torch.randn(2, 90, 64, 2, generator=g, device="cuda").to(
+        dtype).transpose(2, 3)
+    for do in (wide[:, :, 1], transposed):
+        assert not do.is_contiguous()
+        got = flash_attention_bwd(q, k, v, bias, out, lse, do)
+        _assert_grads_close(got, flash_attention_bwd_plain(
+            q, k, v, bias, out, lse, do.contiguous()), dtype)
+
+
+@pytest.mark.parametrize("B,H,S", [(1, 1, 200), (2, 12, 1464)],
+                         ids=["2_blocks", "288_blocks"])
+def test_flash_grids_under_and_over_one_wave(cuda, B, H, S):
+    """Grids far below and above the card's 132 SMs, bf16."""
+    q, k, v, bias = _inputs(B, S, S, H, 64, torch.bfloat16,
+                            [S, S // 2][:B])
+    do = torch.randn(B, S, H, 64, device="cuda").to(torch.bfloat16)
+    _check_fwd_bwd(q, k, v, bias, do, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_flash_bwd_prepass_matches_plain(cuda, dtype, with_bias):
+    """delta and the masked-row correction of the backward's first launch,
+    with a row masked by bias and a sentinel row (every score -inf)."""
+    q, k, v, bias = _inputs(3, 333, 333, 5, 64, dtype, [333, 0, 100])
+    bias[2] = float("-inf")
+    bias = bias if with_bias else None
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    do = torch.randn(3, 333, 5, 64, device="cuda").to(dtype)
+    before = kernels.LAUNCHES["flash_bwd_prepass"]
+    delta, corr = flash_bwd_prepass(out, do, lse, bias)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_prepass"] == before + 1
+    want_delta, want_corr = flash_bwd_prepass_plain(out, do, lse, bias)
+    torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-5)
+    if with_bias:
+        torch.testing.assert_close(corr, want_corr, atol=1e-6, rtol=1e-6)
+        assert (corr[1] > 0).all() and (corr[0] == 0).all()
+        assert (corr[2] == 0).all()
+    else:
+        assert corr is None and want_corr is None
 
 
 def _ulps(a, b):

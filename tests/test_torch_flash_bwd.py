@@ -24,9 +24,11 @@ from mme_tpu.ops import flash_attention as j_flash
 
 from mme_tpu_torch.ops import attention, kernels
 from mme_tpu_torch.ops.flash_attention import (LSE_MASKED, FlashAttention,
-                                               flash_attention_bwd,
+                                               bounds, flash_attention_bwd,
                                                flash_attention_bwd_plain,
-                                               flash_attention_fwd_plain)
+                                               flash_attention_fwd_plain,
+                                               flash_bwd_prepass,
+                                               flash_bwd_prepass_plain)
 
 torch.set_num_threads(2)
 
@@ -213,3 +215,74 @@ def test_strided_qkv_views_give_the_contiguous_result():
     assert kernels.LAUNCHES["flash_bwd"] == before      # CPU: plain version
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prepass_plain_delta_matches_jax_wrapper(dtype):
+    """The pre-pass's delta against rowsum(O * dO) as the JAX wrapper
+    computes it beside its kernel (``_bwd_flat``: fp32 product, summed over
+    head_dim, heads before the sequence)."""
+    B, S, H, D = 2, 77, 3, 64
+    q, k, v, do, bias_k = _inputs(7, B, S, S, H, D, [77, 40])
+    tdtype = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdtype) for x in (q, k, v, do))
+    tb = torch.from_numpy(bias_k)
+    out, lse = flash_attention_fwd_plain(tq, tk, tv, tb)
+    delta, _ = flash_bwd_prepass_plain(out, tdo, lse, tb)
+    jdtype = getattr(jnp, dtype)
+    jout = jnp.asarray(out.float().numpy()).astype(jdtype)
+    jdo = jnp.asarray(tdo.float().numpy()).astype(jdtype)
+    prod = (jout.astype(jnp.float32) * jdo.astype(jnp.float32)).reshape(
+        B, S, H, D).sum(-1)
+    want = np.asarray(prod.transpose(0, 2, 1))
+    assert delta.shape == (B, H, S) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_prepass_plain_correction_contract():
+    """corr is log n of the bias row for a row whose every key is masked by
+    bias (LSE < -1e30), 0 for a row with a real key and for the sentinel row
+    (every score -inf), and None without a bias."""
+    B, S, H, D = 3, 50, 2, 64
+    q, k, v, do, bias_k = _inputs(8, B, S, S, H, D, [50, 0, 20])
+    bias_k[2] = -np.inf                              # the sentinel row
+    tq, tk, tv, tdo, tb = map(torch.from_numpy, (q, k, v, do, bias_k))
+    out, lse = flash_attention_fwd_plain(tq, tk, tv, tb)
+    _, corr = flash_bwd_prepass_plain(out, tdo, lse, tb)
+    assert torch.all(lse[1] < -LSE_MASKED) and torch.all(lse[2] == LSE_MASKED)
+    np.testing.assert_allclose(corr[1].numpy(), np.log(S), rtol=1e-6)
+    assert torch.all(corr[0] == 0) and torch.all(corr[2] == 0)
+    assert flash_bwd_prepass_plain(out, tdo, lse, None)[1] is None
+
+
+def test_prepass_wrapper_takes_plain_version_on_cpu():
+    q, k, v, do, bias_k = _inputs(9, 2, 40, 40, 2, 64, [40, 0])
+    tq, tk, tv, tdo, tb = map(torch.from_numpy, (q, k, v, do, bias_k))
+    out, lse = flash_attention_fwd_plain(tq, tk, tv, tb)
+    before = kernels.LAUNCHES["flash_bwd_prepass"]
+    got = flash_bwd_prepass(out, tdo, lse, tb)
+    assert kernels.LAUNCHES["flash_bwd_prepass"] == before
+    for a, b in zip(got, flash_bwd_prepass_plain(out, tdo, lse, tb)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# per-call bounds (ms) at the served bf16 shapes, batch 8, head_dim 64, as
+# PERF.md's kernel table gives them: (K1, K2, what bounds them)
+BOUNDS = {
+    "text": (70, 12, True, 0.0010, 0.0021, "bytes"),
+    "audio": (299, 16, True, 0.0059, 0.0118, "bytes"),
+    "video": (1464, 12, False, 0.0533, 0.1331, "operations"),
+    "fusion": (473, 12, True, 0.0070, 0.0140, "bytes"),
+}
+
+
+@pytest.mark.parametrize("shape", list(BOUNDS))
+def test_bounds_at_the_served_shapes(shape):
+    S, H, has_bias, fwd_ms, bwd_ms, by = BOUNDS[shape]
+    (f_flops, f_bytes, f_ms, f_by), (b_flops, b_bytes, b_ms, b_by) = bounds(
+        8, S, S, H, 64, 2, has_bias)
+    assert f_flops == 4 * 8 * H * S * S * 64
+    assert b_flops == 10 * 8 * H * S * S * 64
+    assert b_bytes > f_bytes
+    assert round(f_ms, 4) == fwd_ms and round(b_ms, 4) == bwd_ms
+    assert f_by == b_by == by
