@@ -9,11 +9,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device: the card's name, the device count and ``nvidia-smi``'s name and
    power limit.
 2. Build: every CUDA kernel from ``mme_tpu_torch/csrc/`` (flash forward
-   and backward, the fused MLP), one ``nvcc`` per source started together;
-   prints the build time, ``-Xptxas -v`` of the flash kernels and a summary
-   of the fused MLP's (registers, spills) and of every flash kernel's
-   (registers, spills, wgmma serialized by ptxas or not). The Triton kernels compile at
-   their first launch.
+   and backward, the fused MLP, the fused LayerNorm), one ``nvcc`` per
+   source started together; prints the build time, ``-Xptxas -v`` of the
+   flash kernels and a summary of the fused MLP's (registers, spills), of
+   every flash kernel's (registers, spills, wgmma serialized by ptxas or
+   not) and of every LayerNorm instance's (registers, spills, static shared
+   memory; the ring's dynamic shared memory is printed per shape in phase
+   3). The Triton kernel (K3) compiles at its first launch.
 3. Kernels against their plain PyTorch versions on the card:
    - the flash forward (K1) and backward (K2), q/k/v as strided views of a
      fused QKV tensor, at the four model shapes in bf16 and fp32, a ragged
@@ -27,10 +29,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and other leaves and steps get other dither. Times it on every
      distinct size of fusable leaf;
    - the fused LayerNorm forward (K4a) and backward (K4b) at [2 392, 1024],
-     [11 712, 768], [3 784, 768], [153 592, 512] and a ragged [3 001, 768]
-     in bf16 and fp32, and fp32 in / bf16 out: y, dx, dscale, dbias, two
-     runs bit-equal. Times them at every shape a training step launches,
-     beside ``F.layer_norm`` and its backward;
+     [11 712, 768], [3 784, 768], [153 592, 512], a ragged [3 001, 768] and
+     the widest row [1 024, 8 192] in bf16 and fp32, fp32 in / bf16 out, and
+     x as a row-offset view: y, dx, dscale, dbias, two runs bit-equal. Times
+     them at every shape a training step launches, beside ``F.layer_norm``
+     and its backward (weight and bias cast to bf16 once, outside the
+     timed call), with the bounds of ``ops/layer_norm.py::bounds``;
    - the wgmma/TMA product core of the bf16 MLP kernels alone
      (``gemm_bf16``) against an fp32 product at the four operand orders,
      ragged extents and the video tower's product shapes;
@@ -105,17 +109,19 @@ from mme_tpu_torch.ops.fused_mlp import (ACTS, fused_mlp_bwd,
                                          fused_mlp_fwd_plain, gemm_bf16,
                                          gemm_operand_major, kernel_supports)
 from mme_tpu_torch.ops.fused_mlp import bounds as mlp_bounds
-from mme_tpu_torch.ops.layer_norm import (MIN_FUSED_ROWS, bwd_programs,
-                                          fused_layer_norm_bwd,
+from mme_tpu_torch.ops.layer_norm import bounds as ln_bounds
+from mme_tpu_torch.ops.layer_norm import (fused_layer_norm_bwd,
                                           fused_layer_norm_bwd_plain,
                                           fused_layer_norm_fwd,
-                                          fused_layer_norm_fwd_plain)
+                                          fused_layer_norm_fwd_plain,
+                                          launch_geometry, smem_bytes)
 from mme_tpu_torch.ops.flash_attention import (bounds as flash_bounds,
                                                flash_attention_bwd,
                                                flash_attention_bwd_plain,
                                                flash_attention_fwd,
                                                flash_attention_fwd_plain)
 from mme_tpu_torch.serve import Predictor
+from mme_tpu_torch.time_layer_norm import fused_ln_shapes
 from mme_tpu_torch.train.build_tav import build_tav, example_tav_batch
 from mme_tpu_torch.train.losses import cross_entropy
 from mme_tpu_torch.train.optim import global_norm_f32
@@ -194,8 +200,10 @@ def ptxas_summary(log: str) -> dict:
 
 
 def kernel_ptxas(log: str) -> list:
-    """Registers and spill bytes of every kernel in one source's ``-Xptxas
-    -v`` output, by kernel and template arguments (D, element type)."""
+    """Registers, spill bytes and static shared memory of every kernel in
+    one source's ``-Xptxas -v`` output, by kernel and template arguments
+    (D and element type; for LayerNorm x and y or g in bf16 (1) or fp32 (0)
+    and the chunks per thread)."""
     out = []
     # ptxas names each kernel whose wgmma it serialised (C7512, C7515, ...)
     serialized = set(re.findall(r"are serialized[^\n]*'([^'\n]+)'", log))
@@ -211,12 +219,14 @@ def kernel_ptxas(log: str) -> list:
         elif re.search(r"IfLi", name):
             args.append("fp32")
         regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", block)
         out.append({"kernel": base + "<" + ",".join(args) + ">",
                     "registers": int(regs.group(1)) if regs else None,
                     "spill_bytes": (int(spills.group(1)) + int(spills.group(2))
                                     if spills else None),
+                    "static_smem_bytes": int(smem.group(1)) if smem else 0,
                     "serialized_wgmma": name in serialized})
     return out
 
@@ -503,40 +513,6 @@ def knobs_on():
             del os.environ[k]
 
 
-def ln_sites(spec: TAVSpec, batch: int, text_len: int = 70,
-             samples: int = 96000):
-    """(rows, features) of every FusedLayerNorm call of one forward of the
-    TAV model, from the spec alone."""
-    a = spec.audio
-    frames, conv = samples, []
-    for k, st, d in zip(a.conv_kernels, a.conv_strides, a.conv_dims):
-        frames = (frames - k) // st + 1
-        conv.append((batch * frames, d))
-
-    def encoder(e, rows):
-        return [(rows, e.hidden)] * (2 * e.layers + int(e.final_ln))
-
-    sites = conv * (1 if spec.share_audio_frontend else 2)
-    # the two feature projections (PreFormer, audio tower) and audio_ln
-    sites += [(batch * frames, a.conv_dims[-1])] * 2
-    sites += [(batch * frames, a.encoder.hidden)]
-    sites += encoder(a.encoder, batch * frames)
-    sites += encoder(spec.video.encoder,
-                     batch * (spec.video.num_patches - spec.video_keep_k))
-    sites += encoder(spec.fusion,
-                     batch * (text_len + frames + spec.video_keep_k))
-    sites += [(batch * text_len, spec.text.encoder.hidden)]      # embeddings
-    sites += encoder(spec.text.encoder, batch * text_len)
-    sites += [(batch, spec.hidden)] * 4                          # pooled
-    return sites
-
-
-def fused_ln_shapes(spec: TAVSpec, batch: int) -> Counter:
-    """The sites that MME_FUSED_LN=1 sends to the kernels, by shape."""
-    return Counter((n, h) for n, h in ln_sites(spec, batch)
-                   if n >= MIN_FUSED_ROWS and h % 8 == 0)
-
-
 def mlp_shapes(spec: TAVSpec, batch: int, text_len: int = 70,
                samples: int = 96000):
     """(name, rows, hidden, intermediate, layers) of the four towers' MLPs."""
@@ -553,9 +529,12 @@ def mlp_shapes(spec: TAVSpec, batch: int, text_len: int = 70,
             for name, e, n in towers]
 
 
-def ln_case(n, h, xdtype, ydtype, seed):
+def ln_case(n, h, xdtype, ydtype, seed, offset=0):
+    """With ``offset`` rows, x is a row-offset view: its base pointer is not
+    the allocation's."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn(n, h, generator=g, device="cuda") * 2 + 0.5).to(xdtype)
+    x = (torch.randn(n + offset, h, generator=g, device="cuda") * 2
+         + 0.5).to(xdtype)[offset:]
     w = 1 + 0.3 * torch.randn(h, generator=g, device="cuda")
     b = 0.2 * torch.randn(h, generator=g, device="cuda")
     gy = torch.randn(n, h, generator=g, device="cuda").to(ydtype)
@@ -568,13 +547,15 @@ def check_layer_norm(spec: TAVSpec, card: str):
     training step of the bf16 bench configuration."""
     eps = 1e-5
     shapes = [(2392, 1024), (11712, 768), (3784, 768), (153592, 512),
-              (3001, 768)]                                   # one ragged N
-    cases = [(n, h, dt, dt) for dt in (torch.bfloat16, torch.float32)
+              (3001, 768),                                   # one ragged N
+              (1024, 8192)]                                  # the widest row
+    cases = [(n, h, dt, dt, 0) for dt in (torch.bfloat16, torch.float32)
              for n, h in shapes]
-    cases.append((2392, 1024, torch.float32, torch.bfloat16))  # fp32 → bf16
+    cases.append((2392, 1024, torch.float32, torch.bfloat16, 0))  # fp32 → bf16
+    cases.append((2392, 1024, torch.bfloat16, torch.bfloat16, 8))  # row view
     err_fwd = err_bwd = 0.0
-    for i, (n, h, xdt, ydt) in enumerate(cases):
-        x, w, b, gy = ln_case(n, h, xdt, ydt, 400 + i)
+    for i, (n, h, xdt, ydt, offset) in enumerate(cases):
+        x, w, b, gy = ln_case(n, h, xdt, ydt, 400 + i, offset)
         y = fused_layer_norm_fwd(x, w, b, eps, ydt)
         got = fused_layer_norm_bwd(gy, x, w, eps)
         again = fused_layer_norm_bwd(gy, x, w, eps)
@@ -595,7 +576,8 @@ def check_layer_norm(spec: TAVSpec, card: str):
         same = all(torch.equal(a, r) for a, r in zip(got, again))
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (y,) + tuple(got))
-        print(f"layer_norm N={n} H={h} x {str(xdt)[6:]} y {str(ydt)[6:]}: "
+        print(f"layer_norm N={n} H={h} x {str(xdt)[6:]} y {str(ydt)[6:]}"
+              f"{' (row-offset view)' if offset else ''}: "
               f"max|dy|={e_y:.3e}, max|d(dx)|={e_dx:.3e} (atol, rtol "
               f"{LN_TOL[ydt]}, {LN_TOL[xdt]}); dscale, dbias within "
               f"{sums:.3e} of their largest element (tol {LN_SUM_RTOL}); "
@@ -611,30 +593,33 @@ def check_layer_norm(spec: TAVSpec, card: str):
     bwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0}
     rows = []
     dt = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (n, h), count in sorted(fused_ln_shapes(spec, 8).items()):
         x, w, b, gy = ln_case(n, h, dt, dt, n % 1000)
-        lx, lw, lb = (t.detach().clone().requires_grad_()
-                      for t in (x, w, b))
-        ly = F.layer_norm(lx, (h,), lw.to(dt), lb.to(dt), eps)
-        programs = bwd_programs(n)
+        # the library's weight and bias in the input's type, cast once
+        lx, lw, lb = (t.detach().to(dt).requires_grad_() for t in (x, w, b))
+        ly = F.layer_norm(lx, (h,), lw, lb, eps)
         t = {"fwd": cuda_ms(lambda: fused_layer_norm_fwd(x, w, b, eps, dt)),
              "fwd_plain": cuda_ms(lambda: fused_layer_norm_fwd_plain(
                  x, w, b, eps, dt), iters=5, warmup=1),
              "fwd_library": cuda_ms(lambda: F.layer_norm(
-                 x, (h,), w.to(dt), b.to(dt), eps)),
+                 x, (h,), lw, lb, eps)),
              "bwd": cuda_ms(lambda: fused_layer_norm_bwd(gy, x, w, eps)),
              "bwd_plain": cuda_ms(lambda: fused_layer_norm_bwd_plain(
                  gy, x, w, eps), iters=5, warmup=1),
              "bwd_library": cuda_ms(lambda: torch.autograd.grad(
                  ly, (lx, lw, lb), gy, retain_graph=True))}
-        # x in, y out, scale and bias; g and x in, dx out, the partial rows
-        # written once and the two [H] sums
-        fwd_bytes = 2 * n * h * 2 + 2 * h * 4
-        bwd_bytes = 3 * n * h * 2 + h * 4 + 2 * programs * h * 4 + 2 * h * 4
+        # x in, y out, scale and bias; g and x in, dx out, scale in and the
+        # two [H] sums out: the same work whatever implements it
+        (_, fwd_bytes, fwd_bound, _), (_, bwd_bytes, bwd_bound, _) = \
+            ln_bounds(n, h, 2)
+        geom = launch_geometry(n, h, sms)
         rows.append({"N": n, "H": h, "dtype": "bf16",
                      "launches_per_step": count, **t,
-                     "fwd_bound_ms": fwd_bytes / PEAK_BYTES * 1e3,
-                     "bwd_bound_ms": bwd_bytes / PEAK_BYTES * 1e3})
+                     "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+                     "grid": geom.grid, "rows_per_team": geom.rows_per_team,
+                     "smem_fwd": smem_bytes(geom, h, 2),
+                     "smem_bwd": smem_bytes(geom, h, 2, 2)})
         for tot, key, nb in ((fwd, "fwd", fwd_bytes), (bwd, "bwd", bwd_bytes)):
             tot["ms"] += t[key] * count
             tot["plain_ms"] += t[key + "_plain"] * count
@@ -873,7 +858,7 @@ def main_path(card: str):
 
         # the same requests with MME_FUSED_LN=1 and MME_FUSED_MLP=1
         with knobs_on():
-            serve(pred, reqs[:1])                   # Triton compiles here
+            serve(pred, reqs[:1])                   # warm-up
             kernels.reset_launches()
             fused = serve(pred, reqs)
             count = dict(kernels.LAUNCHES)
@@ -1231,13 +1216,16 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = kernels.build(["flash_fwd", "flash_bwd", "fused_mlp"])
+    logs = kernels.build(["flash_fwd", "flash_bwd", "fused_mlp",
+                          "layer_norm"])
     print(f"build: {time.perf_counter() - t0:.1f} s\n{logs['flash_fwd']}\n"
           f"{logs['flash_bwd']}", flush=True)
     print(json.dumps({"fused_mlp_ptxas": ptxas_summary(logs["fused_mlp"])}),
           flush=True)
     print(json.dumps({"flash_ptxas": {name: kernel_ptxas(logs[name])
                                       for name in ("flash_fwd", "flash_bwd")}}),
+          flush=True)
+    print(json.dumps({"layer_norm_ptxas": kernel_ptxas(logs["layer_norm"])}),
           flush=True)
 
     spec = TAVSpec(output_dim=7)
@@ -1294,9 +1282,9 @@ def main() -> int:
          "ms": adam["ms"], "plain_ms": adam["plain_ms"],
          "library_ms": None, "bound_ms": adam["bound_ms"],
          "bound_by": "bytes"},
-        entry("layer_norm_fwd", "triton", "mme_tpu_torch/ops/layer_norm.py",
+        entry("layer_norm_fwd", "cuda", "mme_tpu_torch/csrc/layer_norm.cu",
               "mme_tpu/ops/layer_norm.py:63", ln_fwd),
-        entry("layer_norm_bwd", "triton", "mme_tpu_torch/ops/layer_norm.py",
+        entry("layer_norm_bwd", "cuda", "mme_tpu_torch/csrc/layer_norm.cu",
               "mme_tpu/ops/layer_norm.py:73", ln_bwd),
         entry("fused_mlp_fwd", "cuda", "mme_tpu_torch/csrc/fused_mlp.cu",
               "mme_tpu/ops/fused_mlp.py:105", mlp_fwd),

@@ -17,6 +17,7 @@ DeviceLike = Union[str, torch.device]
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
 # dense): the rates a kernel's bound is taken against
 PEAK_BF16_FLOPS = 989e12     # bf16 tensor-core FLOP/s
+PEAK_FP32_FLOPS = 67e12      # fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12         # HBM3 bytes/s
 
 

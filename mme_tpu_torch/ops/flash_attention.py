@@ -31,9 +31,8 @@ restores log n from the bias (:func:`_masked_row_correction`).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -59,20 +58,12 @@ _SIGNATURES = {
     "mme_flash_bwd_prepass": (KERNEL_BWD, [_P] * 6 + [_I] * 6
                               + [_P, _L, _P]),
 }
-_FNS: Dict[str, Callable] = {}
 
 
 def _fn(symbol: str) -> Callable:
-    """The C entry point ``symbol``, its library built and its argument
-    types set on the first call only."""
-    fn = _FNS.get(symbol)
-    if fn is None:
-        lib_name, argtypes = _SIGNATURES[symbol]
-        fn = getattr(kernels.load(lib_name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
-    return fn
+    """The C entry point ``symbol`` (:func:`kernels.entry`)."""
+    lib_name, argtypes = _SIGNATURES[symbol]
+    return kernels.entry(lib_name, symbol, argtypes)
 
 
 def bounds(B: int, Sq: int, Sk: int, H: int, D: int, elem: int,
@@ -171,14 +162,6 @@ def _aligned(x: torch.Tensor, st: Optional[Tuple[int, ...]] = None) -> bool:
             and st[0] % vec == 0 and st[1] % vec == 0 and st[2] % vec == 0)
 
 
-def _launch_context(dev: torch.device):
-    """(device guard, current stream of `dev`): no guard when `dev` is the
-    current device already."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext(), torch.cuda.current_stream().cuda_stream
-    return torch.cuda.device(dev), torch.cuda.current_stream(dev).cuda_stream
-
-
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias_k: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -197,7 +180,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk = k.shape[1]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    guard, stream = _launch_context(q.device)
+    guard, stream = kernels.launch_context(q.device)
     with guard:
         err = _fn("mme_flash_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -285,7 +268,7 @@ def flash_bwd_prepass(out: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=out.device)
     corr = None if bias_k is None else torch.empty_like(delta)
     strides = (ctypes.c_longlong * 6)(*out.stride()[:3], *do.stride()[:3])
-    guard, stream = _launch_context(out.device)
+    guard, stream = kernels.launch_context(out.device)
     with guard:
         err = _fn("mme_flash_bwd_prepass")(
             out.data_ptr(), do.data_ptr(),
@@ -366,7 +349,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*strides, *(
         s for x in (out, do, dq, dk, dv) for s in x.stride()[:3]))
-    guard, stream = _launch_context(q.device)
+    guard, stream = kernels.launch_context(q.device)
     with guard:
         err = _fn("mme_flash_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

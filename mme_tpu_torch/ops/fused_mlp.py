@@ -217,10 +217,6 @@ def scratch_shapes(n: int, f: int) -> dict:
             "db1_rows": ((n + ROW_TILE - 1) // ROW_TILE, f)}
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _raise_on(err: int, fn: str) -> None:
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
@@ -244,14 +240,13 @@ def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((n, h), dtype=x.dtype, device=x.device)
     a = (torch.empty(scratch_shapes(n, f)["a"], dtype=x.dtype,
                      device=x.device) if bf else None)
-    fn = kernels.load(SOURCE).mme_mlp_fwd
-    fn.argtypes = _ARGTYPES_FWD
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), a.data_ptr() if bf else None, out.data_ptr(),
-                 n, h, f, ACTS.index(act), int(bf), x.stride(0),
-                 out.stride(0), _stream(x))
+    guard, stream = kernels.launch_context(x.device)
+    with guard:
+        err = kernels.entry(SOURCE, "mme_mlp_fwd", _ARGTYPES_FWD)(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), a.data_ptr() if bf else None, out.data_ptr(),
+            n, h, f, ACTS.index(act), int(bf), x.stride(0), out.stride(0),
+            stream)
     _raise_on(err, "fused_mlp_fwd")
     kernels.LAUNCHES[KERNEL_FWD] += 1
     return out
@@ -289,18 +284,17 @@ def fused_mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     else:
         a = dh = None
         db1, db2 = empty((f,), torch.float32), empty((h,), torch.float32)
-    fn = kernels.load(SOURCE).mme_mlp_bwd
-    fn.argtypes = _ARGTYPES_BWD
-    fn.restype = ctypes.c_int
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 do.data_ptr(), ptr(a), ptr(dh), dx.data_ptr(),
-                 dw1.data_ptr(), dw2.data_ptr(), db1.data_ptr(), ptr(db2),
-                 n, h, f, ACTS.index(act), int(bf), x.stride(0), do.stride(0),
-                 dx.stride(0), _stream(x))
+    guard, stream = kernels.launch_context(x.device)
+    with guard:
+        err = kernels.entry(SOURCE, "mme_mlp_bwd", _ARGTYPES_BWD)(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            do.data_ptr(), ptr(a), ptr(dh), dx.data_ptr(), dw1.data_ptr(),
+            dw2.data_ptr(), db1.data_ptr(), ptr(db2), n, h, f,
+            ACTS.index(act), int(bf), x.stride(0), do.stride(0),
+            dx.stride(0), stream)
         _raise_on(err, "fused_mlp_bwd")
         if bf:
             db1 = torch.sum(db1, dim=0)
@@ -352,12 +346,11 @@ def gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ldb = b.stride(0) if b_mn else b.stride(1)
     ldc = (n + 7) // 8 * 8
     c = torch.empty((m, ldc), dtype=torch.bfloat16, device=a.device)[:, :n]
-    fn = kernels.load(SOURCE).mme_gemm_bf16
-    fn.argtypes = _ARGTYPES_GEMM
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a_mn,
-                 b_mn, lda, ldb, ldc, _stream(a))
+    guard, stream = kernels.launch_context(a.device)
+    with guard:
+        err = kernels.entry(SOURCE, "mme_gemm_bf16", _ARGTYPES_GEMM)(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a_mn, b_mn,
+            lda, ldb, ldc, stream)
     _raise_on(err, "gemm_bf16")
     kernels.LAUNCHES[KERNEL_GEMM] += 1
     return c

@@ -11,17 +11,25 @@ raises.
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made since the
 last :func:`reset_launches`; a wrapper adds one where it launches its kernel
 and nowhere else, so a run can show that it went through the kernel.
+
+Every wrapper launches the same way: :func:`entry` gives the C entry point
+with its argument types set on the first call only, and
+:func:`launch_context` the current stream, with a device guard only when the
+tensor is not on the current device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -31,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable] = {}
 
 
 def reset_launches() -> None:
@@ -97,3 +106,29 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> Callable:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, returning an
+    int; its library is built and its argument types set on the first call
+    only."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def launch_context(dev: torch.device):
+    """(device guard, current stream of `dev` as a raw handle): no guard
+    when `dev` is the current device already. The handle is read with
+    ``torch._C._cuda_getCurrentRawStream`` (as PyTorch's own Triton
+    launches do): ``torch.cuda.current_stream()`` builds a Stream object,
+    several µs of host time per launch."""
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    guard = (contextlib.nullcontext() if index == current
+             else torch.cuda.device(index))
+    return guard, torch._C._cuda_getCurrentRawStream(index)

@@ -15,25 +15,37 @@ computes the variance another way, so the port writes its own.
   ``_fwd_kernel`` (``:63``) and ``_bwd_kernel`` (``:73``): a
   ``torch.autograd.Function`` that saves only ``(x, weight)`` and recomputes
   mean and rstd in the backward, ``dx = rstd·(gγ − mean(gγ) − x̂·mean(gγ·x̂))``.
-  For a CUDA tensor it launches the two Triton kernels below (or raises);
-  for a CPU tensor it runs :func:`fused_layer_norm_fwd_plain` and
-  :func:`fused_layer_norm_bwd_plain`, the same arithmetic in torch ops (the
-  backward is the kernel's explicit formula, not autograd of the forward).
+  For a CUDA tensor it launches the CUDA kernels of ``csrc/layer_norm.cu``
+  (or raises); for a CPU tensor it runs :func:`fused_layer_norm_fwd_plain`
+  and :func:`fused_layer_norm_bwd_plain`, the same arithmetic in torch ops
+  (the backward is the kernel's explicit formula, not autograd of the
+  forward).
 
-Both kernels are bound by bytes alone (forward: x in, y out; backward: g and
-x in, dx out, plus the partial sums), so the design is a single pass with
-16-byte loads: a program takes a block of rows by the whole feature axis
-(padded to a power of two and masked, since 768 is none), reduces along the
-row in registers and writes once. The TPU kernel's 256-row tiles and (8, H)
-partial blocks are Mosaic constraints and are not carried over. The
-backward's dscale and dbias need a sum over all rows, which no single
-program sees: each program adds up Σ g·x̂ and Σ g over its own rows (rows
-past N are masked out) and writes one fp32 row of a ``[programs, H]`` buffer
-that the wrapper reduces with ``torch.sum``, as the JAX wrapper reduces its
-partials outside the kernel. No atomics: two runs give the same bits.
-Offsets are 64-bit (the first conv LayerNorm of the audio frontend has
-78.6 M elements). Against the plain version the kernels differ by an fp32
-ulp or so (``rsqrt`` and fused multiply-adds), before the final cast.
+Both kernels are bound by bytes (forward: x in, y out; backward: g and x
+in, dx out; :func:`bounds`), so the design moves each element once and
+keeps rows in flight (the source's header has the detail): a team of warps
+takes a row (one warp up to H = 1024), each thread owning fixed 8-column
+chunks read as 16-byte vectors, nothing padded to a power of two; a
+persistent grid of one or two blocks per SM (:func:`launch_geometry`)
+strides over the rows, and each team stages its next row in a ring of
+shared-memory slots filled by 1-D bulk copies (:func:`smem_bytes`). The TPU kernel's
+256-row tiles and (8, H) partial blocks are Mosaic constraints and are not
+carried over. The backward's dscale and dbias need a sum over all rows: each
+thread adds Σ g·x̂ and Σ g over its team's rows in registers, each block
+writes one fp32 partial row, and a second launch of the same call adds the
+rows in a fixed order. No atomics: two runs give the same bits. Against the
+plain version the kernels differ by an fp32 ulp or so (``rsqrt`` and fused
+multiply-adds), before the final cast.
+
+The wrappers launch through one ctypes call each (argument types set once,
+:func:`kernels.entry`; the launch plan one cached int array,
+:func:`launch_plan`), with a device guard only off the current device, and
+allocate with ``torch.empty`` alone (the backward's partial rows in one
+buffer kept per device and stream). They check the kernels' range and
+raise on what they do not take, including a pointer that is not 16-byte
+aligned; they never fall back. On the H100 the backward is 3× faster than
+the Triton draft it replaced and the forward's wall time 2.4× shorter, but
+the forward's kernel alone is slower than that draft's (``PERF.md``).
 
 One deviation from the TPU kernel: its forward returns ``x``'s type, while
 the non-fused path returns the module's ``dtype``; they differ when an fp32
@@ -45,13 +57,16 @@ paths (``dtype=`` of :func:`fused_layer_norm`).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
-from typing import Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
-from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.device import (PEAK_BYTES, PEAK_FP32_FLOPS, DeviceLike,
+                                  resolve_device)
 from mme_tpu_torch.ops import kernels
 
 KERNEL_FWD = "layer_norm_fwd"
@@ -59,15 +74,24 @@ KERNEL_BWD = "layer_norm_bwd"
 kernels.LAUNCHES.setdefault(KERNEL_FWD, 0)
 kernels.LAUNCHES.setdefault(KERNEL_BWD, 0)
 
+SOURCE = "layer_norm"
 MIN_FUSED_ROWS = 1024
-MAX_FUSED_FEATURES = 8192     # a row block is held in registers
-_FWD_ROWS = 4                 # rows per forward program
-_BWD_ROWS = 4                 # rows per backward tile
-# bound by _kernels() at the first launch: Triton resolves the names a
-# kernel uses in its module's globals
-tl = None
-_ln_fwd_kernel = None
-_ln_bwd_kernel = None
+MAX_FUSED_FEATURES = 8192     # 4 chunks of 8 per thread, 8 warps per row
+_DTYPES = (torch.float32, torch.bfloat16)
+
+# launch geometry (csrc/layer_norm.cu)
+WARPS_PER_BLOCK = 8
+BLOCKS_PER_SM = 2
+MIN_ROWS_PER_TEAM = 2         # one block per SM below: fewer partial rows
+# a team computes one row while the next is on its way (3 or 4 slots
+# measured no faster on the H100)
+RING_SLOTS = 2
+SMEM_MAX = 232448             # 227 KB, a block's most
+
+_P, _F = ctypes.c_void_p, ctypes.c_float
+_CFG = ctypes.c_int * 12      # the launch plan, one array per shape
+_ARGTYPES_FWD = [_P] * 4 + [ctypes.POINTER(ctypes.c_int), _F, _P]
+_ARGTYPES_BWD = [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _F, _P]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -111,92 +135,124 @@ def fused_layer_norm_bwd_plain(g: torch.Tensor, x2d: torch.Tensor,
     return dx, (g * xhat).sum(dim=0), g.sum(dim=0)
 
 
-def _kernels():
-    """The Triton kernels, defined on first use: this module must import
-    where ``triton`` is not installed."""
-    global tl, _ln_fwd_kernel, _ln_bwd_kernel
-    if _ln_fwd_kernel is not None:
-        return _ln_fwd_kernel, _ln_bwd_kernel
-    import triton
-    import triton.language as tl
+class Geometry(NamedTuple):
+    """How the kernels cover an [N, H] input. A team is the warps that take
+    one row at a time: one warp up to H = 1024, ``warps_per_row`` beyond."""
+    grid: int                 # blocks: one partial row each in the backward
+    teams: int                # teams per block
+    warps_per_row: int
+    chunks_per_thread: int    # 8-column chunks a thread owns in each row
+    rows_per_team: int        # the most rows one team takes
 
-    @triton.jit
-    def _ln_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, n_rows, H, eps,
-                       ROWS: tl.constexpr, BLOCK_H: tl.constexpr):
-        rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
-        cols = tl.arange(0, BLOCK_H)
-        cmask = cols < H
-        mask = (rows < n_rows)[:, None] & cmask[None, :]
-        offs = rows.to(tl.int64)[:, None] * H + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=1) / H
-        var = tl.maximum(tl.sum(x * x, axis=1) / H - mean * mean, 0.0)
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        mul = tl.rsqrt(var + eps)[:, None] * w[None, :]
-        y = (x - mean[:, None]) * mul + b[None, :]
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    @triton.jit
-    def _ln_bwd_kernel(g_ptr, x_ptr, w_ptr, dx_ptr, ds_ptr, db_ptr, n_rows,
-                       H, eps, ROWS: tl.constexpr, TILES: tl.constexpr,
-                       BLOCK_H: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_H)
-        cmask = cols < H
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        inv_h = 1.0 / H
-        ds = tl.zeros([BLOCK_H], dtype=tl.float32)
-        db = tl.zeros([BLOCK_H], dtype=tl.float32)
-        for i in range(TILES):
-            rows = (pid * TILES + i) * ROWS + tl.arange(0, ROWS)
-            # rows past n_rows load zeros, so they add nothing to ds, db
-            mask = (rows < n_rows)[:, None] & cmask[None, :]
-            offs = rows.to(tl.int64)[:, None] * H + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=1) / H
-            var = tl.maximum(tl.sum(x * x, axis=1) / H - mean * mean, 0.0)
-            rstd = tl.rsqrt(var + eps)
-            # the padding columns hold x = 0, not x̂ = 0
-            xhat = tl.where(mask, (x - mean[:, None]) * rstd[:, None], 0.0)
-            gg = g * w[None, :]
-            m1 = tl.sum(gg, axis=1) * inv_h
-            m2 = tl.sum(gg * xhat, axis=1) * inv_h
-            dx = rstd[:, None] * (gg - m1[:, None] - xhat * m2[:, None])
-            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty),
-                     mask=mask)
-            ds += tl.sum(g * xhat, axis=0)
-            db += tl.sum(g, axis=0)
-        tl.store(ds_ptr + pid.to(tl.int64) * H + cols, ds, mask=cmask)
-        tl.store(db_ptr + pid.to(tl.int64) * H + cols, db, mask=cmask)
+def launch_geometry(n: int, h: int, sms: int) -> Geometry:
+    """The grid and rows per team (warp, up to H = 1024) of both kernels
+    for ``n`` rows of ``h`` features on a card of ``sms`` SMs. Team ``i`` of
+    block ``b`` takes rows ``b·teams + i``, then every ``grid·teams``-th
+    after it. Two blocks per SM, or one where the teams would get fewer
+    than ``MIN_ROWS_PER_TEAM`` rows each (every SM gets the same number of
+    blocks), and no more blocks than the rows need. It depends on (N, H, SM
+    count) alone, so the backward's sums are added in the same order in
+    every run."""
+    chunks = h // 8
+    wpr = -(-chunks // 128)
+    teams = max(1, WARPS_PER_BLOCK // wpr)
+    per_sm = min(BLOCKS_PER_SM,
+                 max(1, n // (sms * teams * MIN_ROWS_PER_TEAM)))
+    grid = min(sms * per_sm, -(-n // teams))
+    return Geometry(grid, teams, wpr, -(-chunks // (32 * wpr)),
+                    -(-n // (grid * teams)))
 
-    return _ln_fwd_kernel, _ln_bwd_kernel
+
+def smem_bytes(geom: Geometry, h: int, elem: int, g_elem: int = 0) -> int:
+    """Dynamic shared memory of one block for rows of ``h`` elements of
+    ``elem`` bytes, plus ``g_elem`` for the backward's g. The block holds,
+    in this order, every team's ``RING_SLOTS`` row slots, the scale (and the
+    forward's bias) in fp32, 4 floats of reduction scratch per warp and an
+    mbarrier per slot."""
+    slot = h * (elem + g_elem)
+    tables = (1 if g_elem else 2) * h * 4 + geom.teams * geom.warps_per_row * 16
+    return tables + RING_SLOTS * geom.teams * (slot + 8)
+
+
+def scratch_shapes(geom: Geometry, h: int) -> dict:
+    """Shapes of the backward's fp32 buffers: one partial row (dscale,
+    dbias) per block, and the two sums."""
+    return {"partial_rows": (geom.grid, 2, h), "sums": (2, h)}
+
+
+def bounds(n: int, h: int, elem: int) -> List[Tuple[int, int, float, str]]:
+    """(forward, backward) of one call as (flops, bytes, bound ms, bound
+    by), whatever implements them. Forward: x in and y out in ``elem``-byte
+    elements, scale and bias in fp32, 6 fp32 operations per element.
+    Backward: g and x in and dx out, scale in, dscale and dbias out in
+    fp32, 16 operations per element."""
+    fwd = (6 * n * h, 2 * n * h * elem + 2 * h * 4)
+    bwd = (16 * n * h, 3 * n * h * elem + h * 4 + 2 * h * 4)
+    out = []
+    for flops, nbytes in (fwd, bwd):
+        by_ops, by_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        out.append((flops, nbytes, max(by_ops, by_bytes) * 1e3,
+                    "operations" if by_ops >= by_bytes else "bytes"))
+    return out
 
 
 def _check(fn: str, x2d: torch.Tensor, weight: torch.Tensor,
            others: Tuple[Tuple[str, torch.Tensor], ...]) -> None:
+    """Raises on what the kernels do not take. ``others`` holds the bias
+    [H] or g [N, H]; x and g are read by bulk copies, so they must be
+    16-byte aligned."""
     n, h = x2d.shape
-    if x2d.dtype not in (torch.float32, torch.bfloat16):
+    if x2d.dtype not in _DTYPES:
         raise TypeError(f"{fn}: x must be fp32 or bf16, got {x2d.dtype}")
-    if n == 0 or h > MAX_FUSED_FEATURES:
+    if n == 0 or h % 8 or h > MAX_FUSED_FEATURES:
         raise ValueError(f"{fn}: [{n}, {h}] is outside the kernel's range "
-                         f"(N > 0, H <= {MAX_FUSED_FEATURES})")
+                         f"(N > 0, H a multiple of 8 up to "
+                         f"{MAX_FUSED_FEATURES})")
     if not x2d.is_contiguous():
         raise ValueError(f"{fn}: x must be contiguous")
+    if x2d.data_ptr() % 16:
+        raise ValueError(f"{fn}: x must be 16-byte aligned (its rows are "
+                         "read by bulk copies)")
     for name, t in (("weight", weight),) + others:
         if t.device != x2d.device or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous on "
                              f"{x2d.device}")
-    if weight.shape != (h,):
-        raise ValueError(f"{fn}: weight must be [{h}], got "
-                         f"{tuple(weight.shape)}")
+        if name in ("weight", "bias"):
+            if t.shape != (h,):
+                raise ValueError(f"{fn}: {name} must be [{h}], got "
+                                 f"{tuple(t.shape)}")
+            if t.dtype not in _DTYPES:
+                raise TypeError(f"{fn}: {name} must be fp32 or bf16, got "
+                                f"{t.dtype}")
+        elif t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be 16-byte aligned (its "
+                             "rows are read by bulk copies)")
 
 
-def _block_h(h: int) -> Tuple[int, int]:
-    """(padded feature block, warps)."""
-    block = 1 << max(h - 1, 1).bit_length()
-    return block, (8 if block >= 1024 else 4)
+def launch_plan(n: int, h: int, sms: int, dtypes: Tuple[torch.dtype, ...],
+                backward: bool) -> Tuple[Geometry, List[int]]:
+    """The geometry and the kernel's ``cfg`` array: n, h, whether x, y (g
+    in the backward), the scale and the bias are bf16, then the grid, teams,
+    warps per row, chunks per thread, ring slots and shared memory.
+    ``dtypes``: x, y or g, scale and (forward) bias."""
+    geom = launch_geometry(n, h, sms)
+    bf16 = [int(d == torch.bfloat16) for d in dtypes]
+    bf16 += [0] * (4 - len(bf16))
+    elem, other = (4 - 2 * b for b in bf16[:2])
+    smem = smem_bytes(geom, h, elem, other if backward else 0)
+    return geom, [n, h, *bf16, geom.grid, geom.teams, geom.warps_per_row,
+                  geom.chunks_per_thread, RING_SLOTS, smem]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n: int, h: int, dev_index: int, dtypes: Tuple[torch.dtype, ...],
+          backward: bool) -> Tuple[Geometry, ctypes.Array]:
+    """:func:`launch_plan` on this card, the ``cfg`` as a ctypes array made
+    once per shape."""
+    sms = torch.cuda.get_device_properties(dev_index).multi_processor_count
+    geom, cfg = launch_plan(n, h, sms, dtypes, backward)
+    return geom, _CFG(*cfg)
 
 
 def fused_layer_norm_fwd(x2d: torch.Tensor, weight: torch.Tensor,
@@ -209,65 +265,76 @@ def fused_layer_norm_fwd(x2d: torch.Tensor, weight: torch.Tensor,
     if x2d.device.type != "cuda":
         raise ValueError(f"fused_layer_norm_fwd: no kernel for {x2d.device}")
     _check("fused_layer_norm_fwd", x2d, weight, (("bias", bias),))
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in _DTYPES:
         raise TypeError(f"fused_layer_norm_fwd: output dtype {dtype}")
     n, h = x2d.shape
-    y = torch.empty((n, h), dtype=dtype, device=x2d.device)
-    block, warps = _block_h(h)
-    fwd, _ = _kernels()
-    with torch.cuda.device(x2d.device):
-        fwd[(-(-n // _FWD_ROWS),)](x2d, weight, bias, y, n, h, float(eps),
-                                   ROWS=_FWD_ROWS, BLOCK_H=block,
-                                   num_warps=warps)
+    _, cfg = _plan(n, h, x2d.device.index,
+                   (x2d.dtype, dtype, weight.dtype, bias.dtype), False)
+    y = torch.empty_like(x2d, dtype=dtype)
+    guard, stream = kernels.launch_context(x2d.device)
+    with guard:
+        err = kernels.entry(SOURCE, "mme_layer_norm_fwd", _ARGTYPES_FWD)(
+            x2d.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            cfg, eps, stream)
+    if err != 0:
+        raise RuntimeError(f"layer_norm_fwd kernel launch failed: "
+                           f"cudaError {err}")
     kernels.LAUNCHES[KERNEL_FWD] += 1
     return y
 
 
-def _bwd_tiles(n: int) -> int:
-    """Row tiles per backward program: more tiles mean fewer partial rows
-    to write and reduce (one per 32 rows of a long input), fewer mean more
-    programs to fill the card. Decided by the row count alone."""
-    if n >= 4096:
-        return 8
-    return 4 if n >= MIN_FUSED_ROWS else 1
+_WORKSPACE: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
 
 
-def bwd_programs(n: int) -> int:
-    """Programs of the backward kernel for ``n`` rows: the rows of its
-    partial-sum buffers."""
-    return -(-n // (_BWD_ROWS * _bwd_tiles(n)))
+def _workspace(dev: torch.device, stream: int, shape: Tuple[int, ...]
+               ) -> torch.Tensor:
+    """The backward's partial rows, in one fp32 buffer kept per device and
+    stream and grown as needed: the calls on one stream run in order, so
+    each may reuse it, and the buffer costs no allocation per call."""
+    numel = shape[0] * shape[1] * shape[2]
+    buf = _WORKSPACE.get((dev.index, stream))
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=dev)
+        _WORKSPACE[(dev.index, stream)] = buf
+    return buf
 
 
 def fused_layer_norm_bwd(g: torch.Tensor, x2d: torch.Tensor,
                          weight: torch.Tensor, eps: float
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx in x's type, dscale, dbias in fp32) from the output gradient and
-    the saved ``(x2d, weight)``. A CUDA tensor launches the kernel on the
-    current stream; a CPU tensor takes the plain version."""
+    the saved ``(x2d, weight)``. A CUDA tensor launches the kernels on the
+    current stream (the backward and the fixed-order sum of its partial
+    rows); a CPU tensor takes the plain version."""
     if x2d.device.type == "cpu":
         return fused_layer_norm_bwd_plain(g, x2d, weight, eps)
     if x2d.device.type != "cuda":
         raise ValueError(f"fused_layer_norm_bwd: no kernel for {x2d.device}")
     g = g.contiguous()          # autograd may hand over an expanded gradient
     _check("fused_layer_norm_bwd", x2d, weight, (("g", g),))
-    if g.shape != x2d.shape or g.dtype not in (torch.float32,
-                                               torch.bfloat16):
+    if g.shape != x2d.shape or g.dtype not in _DTYPES:
         raise ValueError(f"fused_layer_norm_bwd: g must be fp32 or bf16 "
                          f"{tuple(x2d.shape)}; got {g.dtype} "
                          f"{tuple(g.shape)}")
     n, h = x2d.shape
-    programs = bwd_programs(n)
+    geom, cfg = _plan(n, h, x2d.device.index,
+                      (x2d.dtype, g.dtype, weight.dtype), True)
     dx = torch.empty_like(x2d)
-    ds = torch.empty((programs, h), dtype=torch.float32, device=x2d.device)
-    db = torch.empty((programs, h), dtype=torch.float32, device=x2d.device)
-    block, warps = _block_h(h)
-    _, bwd = _kernels()
-    with torch.cuda.device(x2d.device):
-        bwd[(programs,)](g, x2d, weight, dx, ds, db, n, h, float(eps),
-                         ROWS=_BWD_ROWS, TILES=_bwd_tiles(n), BLOCK_H=block,
-                         num_warps=warps)
+    guard, stream = kernels.launch_context(x2d.device)
+    shapes = scratch_shapes(geom, h)
+    part = _workspace(x2d.device, stream, shapes["partial_rows"])
+    # the sums get their own small buffer, which the gradients keep alive
+    sums = torch.empty(shapes["sums"], dtype=torch.float32,
+                       device=x2d.device)
+    with guard:
+        err = kernels.entry(SOURCE, "mme_layer_norm_bwd", _ARGTYPES_BWD)(
+            g.data_ptr(), x2d.data_ptr(), weight.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), sums.data_ptr(), cfg, eps, stream)
+    if err != 0:
+        raise RuntimeError(f"layer_norm_bwd kernel launch failed: "
+                           f"cudaError {err}")
     kernels.LAUNCHES[KERNEL_BWD] += 1
-    return dx, ds.sum(dim=0), db.sum(dim=0)
+    return dx, sums[0], sums[1]
 
 
 class _FusedLayerNorm(torch.autograd.Function):
@@ -305,10 +372,10 @@ def use_fused_ln(h: int, dtype: torch.dtype, rows: int = 1 << 30,
     Default off (``MME_FUSED_LN`` unset or ``0``). ``MME_FUSED_LN=1`` opts in
     for CUDA tensors, fp32 or bf16, with at least 1024 rows: pooled [B, H]
     norms and short sequences stay on the plain path, as in JAX. The TPU
-    rule ``h % 128 == 0`` is a lane rule; the kernels here mask the feature
-    axis and need only ``h % 8 == 0``, which keeps every row 16-byte aligned
-    for vector loads, and ``h <= 8192``, since a row block lives in
-    registers. ``MME_FUSED_LN=interpret`` lifts every gate, as in JAX: on
+    rule ``h % 128 == 0`` is a lane rule; the kernels here need only
+    ``h % 8 == 0``, which keeps every row 16-byte aligned for bulk copies and
+    vector loads, and ``h <= 8192``, since 8 warps hold a row's chunks and
+    a block's ring must hold two rows of each team. ``MME_FUSED_LN=interpret`` lifts every gate, as in JAX: on
     the CPU the function then runs its plain versions."""
     mode = os.environ.get("MME_FUSED_LN", "0")
     if mode in ("0", ""):

@@ -38,8 +38,9 @@ from mme_tpu_torch.train.build_tav import (example_tav_batch,
 FAMILIES = (("flash_fwd", "flash_fwd (K1)"),
             ("flash_bwd", "flash_bwd (K2)"),
             ("adam_update", "adam_update (K3)"),
-            ("_ln_fwd", "layer_norm_fwd (K4a)"),
-            ("_ln_bwd", "layer_norm_bwd (K4b)"),
+            ("mme_ln_fwd", "layer_norm_fwd (K4a)"),
+            # K4b is mme_ln_bwd and its mme_ln_bwd_reduce
+            ("mme_ln_bwd", "layer_norm_bwd (K4b)"),
             ("mlp_fwd", "fused_mlp_fwd (K5a)"),
             ("mlp_bwd", "fused_mlp_bwd (K5b)"),
             # bf16: K5a is two mlp_gemm launches, K5b mlp_dual and one

@@ -427,7 +427,8 @@ def test_encoder_remat_on_cuda_recomputes_through_the_kernels(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("n,h", [(1, 128), (300, 96), (2392, 1024),
-                                 (11712, 768), (153592, 512)])
+                                 (11712, 768), (153592, 512), (3001, 768),
+                                 (1031, 520), (517, 1032), (1024, 8192)])
 def test_layer_norm_kernels_match_plain(cuda, dtype, n, h):
     from mme_tpu_torch.ops import layer_norm as ln
     g = torch.Generator(device="cuda").manual_seed(n)
@@ -452,6 +453,71 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, n, h):
     for a, r in zip(got[1:], want[1:]):
         assert (a - r).abs().max() <= 1e-4 * r.abs().max().clamp(min=1e-6)
     assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def _ln_inputs(n, h, xdt, gdt, seed=0, offset=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(n + offset, h, generator=g, device="cuda") * 2
+         + 0.5).to(xdt)[offset:]
+    w = 1 + 0.3 * torch.randn(h, generator=g, device="cuda")
+    b = 0.2 * torch.randn(h, generator=g, device="cuda")
+    return x, w, b, torch.randn(n, h, generator=g, device="cuda").to(gdt)
+
+
+@pytest.mark.parametrize("xdt,ydt", [(torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)],
+                         ids=["fp32-bf16", "bf16-fp32"])
+def test_layer_norm_mixed_types_and_row_offset_view(cuda, xdt, ydt):
+    """y in another type than x, g in y's type (a bf16 module fed fp32, and
+    the reverse), and x a row-offset view of a larger tensor; bf16 weights
+    in the forward read as the fp32 ones rounded."""
+    from mme_tpu_torch.ops import layer_norm as ln
+    x, w, b, gy = _ln_inputs(2392, 768, xdt, ydt, seed=1, offset=8)
+    assert x.data_ptr() != x.untyped_storage().data_ptr()
+    y = ln.fused_layer_norm_fwd(x, w, b, 1e-5, ydt)
+    got = ln.fused_layer_norm_bwd(gy, x, w, 1e-5)
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    y_bf = ln.fused_layer_norm_fwd(x, wb, bb, 1e-5, ydt)
+    torch.cuda.synchronize()
+    assert y.dtype == ydt and got[0].dtype == xdt
+    for out, ref in ((y, ln.fused_layer_norm_fwd_plain(x, w, b, 1e-5, ydt)),
+                     (y_bf, ln.fused_layer_norm_fwd_plain(x, wb.float(),
+                                                          bb.float(), 1e-5,
+                                                          ydt))):
+        atol, rtol = TOL[ydt]
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+    want = ln.fused_layer_norm_bwd_plain(gy, x, w, 1e-5)
+    atol, rtol = TOL[xdt]
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol,
+                               rtol=rtol)
+    for a, r in zip(got[1:], want[1:]):
+        assert (a - r).abs().max() <= 1e-4 * r.abs().max()
+
+
+def test_layer_norm_rejects_misaligned_rows_and_repeats_bits(cuda):
+    """A pointer off 16 bytes raises ValueError in both directions (no
+    fallback, no launch); two runs of the forward and of the backward give
+    the same bits, and each call counts one launch."""
+    from mme_tpu_torch.ops import layer_norm as ln
+    x, w, b, gy = _ln_inputs(1024, 768, torch.bfloat16, torch.bfloat16)
+    flat = torch.zeros(1024 * 768 + 1, dtype=torch.bfloat16, device="cuda")
+    off = flat[1:].view(1024, 768)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        ln.fused_layer_norm_fwd(off, w, b, 1e-5, torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ln.fused_layer_norm_bwd(gy, off, w, 1e-5)
+    with pytest.raises(ValueError, match="16-byte"):
+        ln.fused_layer_norm_bwd(off, x, w, 1e-5)
+    assert kernels.LAUNCHES == before
+    runs = [(ln.fused_layer_norm_fwd(x, w, b, 1e-5, torch.bfloat16),
+             *ln.fused_layer_norm_bwd(gy, x, w, 1e-5)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(*runs))
+    assert kernels.LAUNCHES["layer_norm_fwd"] == before["layer_norm_fwd"] + 2
+    assert kernels.LAUNCHES["layer_norm_bwd"] == before["layer_norm_bwd"] + 2
 
 
 def test_layer_norm_module_dispatch_on_cuda(cuda, monkeypatch):

@@ -188,3 +188,125 @@ def test_a_device_without_a_kernel_raises():
         t_ln.fused_layer_norm_fwd(x, w, w, 1e-6, torch.float32)
     with pytest.raises(ValueError, match="no kernel"):
         t_ln.fused_layer_norm_bwd(x, x, w, 1e-6)
+
+
+# --- the CUDA kernels' launch plan, checked without a card ----------------
+
+_SMS = 132          # an H100 SXM
+
+
+@pytest.mark.parametrize("n", [1, 300, 1024, 2392, 3001, 153592])
+def test_launch_geometry_covers_every_row_and_column_once(n):
+    """Team i of block b takes rows b·teams + i + k·grid·teams; thread t of
+    a team owns the 8-column chunks t + 32·warps_per_row·k. Every row and
+    every chunk is taken exactly once, and the backward writes one partial
+    row per block."""
+    for h in (96, 512, 768, 1024, 8192):
+        geom = t_ln.launch_geometry(n, h, _SMS)
+        assert geom.teams * geom.warps_per_row <= t_ln.WARPS_PER_BLOCK
+        assert 1 <= geom.chunks_per_thread <= 4
+        assert geom.grid <= t_ln.BLOCKS_PER_SM * _SMS
+        teams = geom.grid * geom.teams
+        rows = [np.arange(team, n, teams) for team in range(teams)]
+        assert max(len(r) for r in rows) == geom.rows_per_team
+        counts = np.bincount(np.concatenate(rows), minlength=n)
+        assert counts.shape == (n,) and (counts == 1).all()
+        size = 32 * geom.warps_per_row
+        chunks = np.array([t + size * k for t in range(size)
+                           for k in range(geom.chunks_per_thread)])
+        chunks = chunks[chunks < h // 8]
+        assert sorted(chunks.tolist()) == list(range(h // 8))
+        shapes = t_ln.scratch_shapes(geom, h)
+        assert shapes == {"partial_rows": (geom.grid, 2, h), "sums": (2, h)}
+    # one warp per row at the model's widths: 2, 3 and 4 chunks per lane
+    assert [t_ln.launch_geometry(11712, h, _SMS)[2:4]
+            for h in (512, 768, 1024)] == [(1, 2), (1, 3), (1, 4)]
+
+
+def test_smem_fits_a_block_and_the_ring_holds_the_partial_rows():
+    """For every width the kernels take and every pair of element types,
+    the block's shared memory fits Hopper's 227 KB with two slots per
+    team, and the ring can hold the block's [teams, 2, H] fp32 sums at the
+    end of the backward."""
+    for h in range(8, t_ln.MAX_FUSED_FEATURES + 1, 8):
+        geom = t_ln.launch_geometry(4096, h, _SMS)
+        for elem in (2, 4):
+            for g_elem in (0, 2, 4):
+                smem = t_ln.smem_bytes(geom, h, elem, g_elem)
+                assert smem <= t_ln.SMEM_MAX, (h, elem, g_elem, smem)
+                ring = geom.teams * t_ln.RING_SLOTS * h * (elem + g_elem)
+                if g_elem:
+                    assert ring >= geom.teams * 2 * h * 4
+    # two blocks per SM at the model's bf16 shapes
+    for h in (512, 768, 1024):
+        geom = t_ln.launch_geometry(11712, h, _SMS)
+        for g_elem in (0, 2):
+            assert 2 * t_ln.smem_bytes(geom, h, 2, g_elem) <= 228 * 1024
+
+
+def test_launch_plan_packs_the_kernel_arguments():
+    """The ``cfg`` array the C entry points read: n, h, the bf16 flags of
+    x, y or g, scale and bias, then the geometry, slots and shared
+    memory."""
+    bf, f32 = torch.bfloat16, torch.float32
+    geom, cfg = t_ln.launch_plan(2392, 1024, _SMS, (bf, bf, f32, f32), False)
+    assert geom == t_ln.Geometry(132, 8, 1, 4, 3)     # one block per SM
+    smem = t_ln.smem_bytes(geom, 1024, 2)
+    assert cfg == [2392, 1024, 1, 1, 0, 0, 132, 8, 1, 4, 2, smem]
+    geom, cfg = t_ln.launch_plan(11712, 768, _SMS, (f32, bf, bf), True)
+    assert geom.grid == 2 * _SMS and cfg[:6] == [11712, 768, 0, 1, 1, 0]
+    assert cfg[10:] == [2, t_ln.smem_bytes(geom, 768, 4, 2)]
+
+
+def test_bounds_count_the_same_bytes_whatever_the_grid():
+    """Forward: x in and y out plus scale and bias in fp32; backward: g and
+    x in and dx out, scale in, dscale and dbias out. Both bound by bytes
+    at the model's bf16 shapes, whatever grid runs them."""
+    for n, h in ((2392, 1024), (11712, 768), (3784, 768), (153592, 512)):
+        (f_ops, f_bytes, f_ms, f_by), (b_ops, b_bytes, b_ms, b_by) = \
+            t_ln.bounds(n, h, 2)
+        assert f_bytes == 2 * n * h * 2 + 2 * h * 4
+        assert b_bytes == 3 * n * h * 2 + h * 4 + 2 * h * 4
+        assert f_by == b_by == "bytes"
+        assert f_ms == pytest.approx(f_bytes / 3.35e12 * 1e3)
+        assert b_ms == pytest.approx(b_bytes / 3.35e12 * 1e3)
+        assert (t_ln.launch_geometry(n, h, 1).grid
+                != t_ln.launch_geometry(n, h, _SMS).grid)
+    assert t_ln.bounds(1024, 768, 4)[0][1] == 2 * 1024 * 768 * 4 + 2 * 768 * 4
+
+
+def test_served_and_trained_shapes_count_114_and_107_launches():
+    from mme_tpu_torch import time_layer_norm
+    shapes = time_layer_norm.step_and_chunk_shapes()
+    assert sum(s for _, _, s, _ in shapes) == 107
+    assert sum(c for _, _, _, c in shapes) == 114
+    assert (2392, 1024, 50, 50) in shapes and (153592, 512, 1, 2) in shapes
+
+
+_TRITON_BLOCKED = """
+import sys
+sys.modules["triton"] = None          # any import of triton now raises
+import torch
+from mme_tpu_torch.ops import layer_norm as ln
+x = torch.randn(40, 64, dtype=torch.float64).float().requires_grad_()
+w = torch.ones(64, requires_grad=True)
+b = torch.zeros(64, requires_grad=True)
+y = ln.fused_layer_norm(x, w, b, 1e-5)
+y.square().sum().backward()
+assert torch.isfinite(x.grad).all() and w.grad.shape == (64,)
+import re
+assert not re.search(r"import triton|triton\.|@triton", open(ln.__file__).read())
+print("ok")
+"""
+
+
+def test_layer_norm_runs_with_triton_blocked():
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _TRITON_BLOCKED], cwd=repo,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -326,10 +326,9 @@ def test_grads_bf16_run_and_clip_norm_accumulates_in_fp32(ref, monkeypatch):
                for a, b in zip(before, model.parameters()))
 
 
-def test_factored_state_is_not_ported_yet(ref, monkeypatch):
-    """Kept under the name it had while ``MME_OPT_STATE=factored`` raised
-    NotImplementedError: the factored optimizer is ported, and this is its
-    step test. The first moment starts at zero, so the first update is
+def test_factored_step_matches_jax(ref, monkeypatch):
+    """``MME_OPT_STATE=factored``: the factored optimizer's step against
+    JAX. The first moment starts at zero, so the first update is
     deterministic on both sides (only the stored moment is rounded
     stochastically): loss, gradient norm and every parameter after one step
     against JAX, with the rows and columns of each leaf taken in the flax
