@@ -9,13 +9,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device: the card's name, the device count and ``nvidia-smi``'s name and
    power limit.
 2. Build: every CUDA kernel from ``mme_tpu_torch/csrc/`` (flash forward
-   and backward, the fused MLP, the fused LayerNorm), one ``nvcc`` per
-   source started together; prints the build time, ``-Xptxas -v`` of the
-   flash kernels and a summary of the fused MLP's (registers, spills), of
-   every flash kernel's (registers, spills, wgmma serialized by ptxas or
-   not) and of every LayerNorm instance's (registers, spills, static shared
-   memory; the ring's dynamic shared memory is printed per shape in phase
-   3). The Triton kernel (K3) compiles at its first launch.
+   and backward, the fused MLP, the fused LayerNorm, the fused Adam
+   update), one ``nvcc`` per source started together; prints the build
+   time, ``-Xptxas -v`` of the flash kernels and a summary of the fused
+   MLP's (registers, spills), of every flash kernel's (registers, spills,
+   wgmma serialized by ptxas or not), of every LayerNorm instance's
+   (registers, spills, static shared memory; the ring's dynamic shared
+   memory is printed per shape in phase 3) and of the Adam kernel's.
 3. Kernels against their plain PyTorch versions on the card:
    - the flash forward (K1) and backward (K2), q/k/v as strided views of a
      fused QKV tensor, at the four model shapes in bf16 and fp32, a ragged
@@ -26,8 +26,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    - the fused bf16-moment Adam update (K3) on the model's leaf shapes:
      exact in ``zero_noise`` mode, and with noise every moment is one of
      the two bf16 neighbours, the mean error is within 5 standard errors,
-     and other leaves and steps get other dither. Times it on every
-     distinct size of fusable leaf;
+     other leaves and steps get other dither, and the moments equal the
+     plain version's bit for bit on the same Philox words; one launch over
+     a mixed list (fp32 and bf16 gradients, 1 to 38.6 M elements, a leaf
+     not 16-byte aligned), fresh and in place; one launch over the step's
+     725 trainable leaves against the plain version on the same words.
+     Times one call over the step's trainable leaves (and over its 235 big
+     ones, the per-leaf kernel's old set): wrapper by CUDA events, kernel
+     alone in a profiler trace, host µs per call, the plain version once;
    - the fused LayerNorm forward (K4a) and backward (K4b) at [2 392, 1024],
      [11 712, 768], [3 784, 768], [153 592, 512], a ragged [3 001, 768] and
      the widest row [1 024, 8 192] in bf16 and fp32, fp32 in / bf16 out, and
@@ -68,8 +74,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        restarts; 2 warm-up and 4 timed steps, 54 + 54 launches per step;
        prints ms per step, utterances per second, peak memory and a
        forward / backward / optimizer split by CUDA events;
-   (4) the same state with ``MME_FUSED_ADAM=1``: one K3 launch per fusable
-       leaf per step;
+   (4) the same state with ``MME_FUSED_ADAM=1``: one K3 launch per step
+       covering every trainable leaf, the moments bf16 and updated in
+       place, peak memory within 0.2 GB of leg (3)'s; device kernels per
+       step beside leg (3)'s (profiler);
    (5) the same state with ``MME_FUSED_LN=1 MME_FUSED_MLP=1``: launches per
        step, ms per step, the split and peak memory beside leg (3)'s.
 
@@ -89,7 +97,7 @@ import os
 import re
 import sys
 import time
-from collections import Counter
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -99,10 +107,12 @@ from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import from_flax, init_params
 from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES, card_line
 from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
-from mme_tpu_torch.ops import kernels
-from mme_tpu_torch.ops.adam_update import (MIN_FUSED_ELEMENTS,
-                                           adam_update_leaf,
-                                           adam_update_leaf_plain)
+from mme_tpu_torch import time_adam
+from mme_tpu_torch.ops import adam_update, kernels
+from mme_tpu_torch.ops.adam_update import (adam_update_leaf,
+                                           adam_update_leaf_plain,
+                                           adam_update_leaves,
+                                           adam_update_leaves_plain)
 from mme_tpu_torch.ops.attention import additive_mask
 from mme_tpu_torch.ops.fused_mlp import (ACTS, fused_mlp_bwd,
                                          fused_mlp_bwd_plain, fused_mlp_fwd,
@@ -420,26 +430,42 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max().item())
 
 
+def adam_leaf(shape, seed, gdtype=torch.float32, offset=0):
+    """A leaf's gradient and moments on the card; with ``offset`` each is a
+    view that many elements into its storage (1: not 16-byte aligned)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(np.prod(shape))
+
+    def at(x, dtype):
+        buf = torch.empty(n + offset, dtype=dtype, device="cuda")
+        buf[offset:] = x
+        return buf[offset:].view(shape)
+
+    return (at(torch.randn(n, generator=g, device="cuda") * 1e-3, gdtype),
+            at(torch.randn(n, generator=g, device="cuda") * 1e-3,
+               torch.bfloat16),
+            at(torch.rand(n, generator=g, device="cuda") * 1e-6,
+               torch.bfloat16))
+
+
+def adam_same_bits(got, want) -> Tuple[bool, int]:
+    """(every moment bit-equal, largest ulp distance of out) of two
+    (outs, mu's, nu's) lists."""
+    exact = all(torch.equal(a, b) for xs, ys in zip(got[1:], want[1:])
+                for a, b in zip(xs, ys))
+    return exact, max(ulps(a, b) for a, b in zip(got[0], want[0]))
+
+
 def check_adam(spec: TAVSpec, card: str):
-    """Phase 3, K3. Returns (max |out - out_plain|, per-step totals over
-    every fusable leaf of the model, the number of fusable leaves)."""
+    """Phase 3, K3. Returns (max |out - out_plain|, times and bound of one
+    call over the step's trainable leaves and over its 235 big ones)."""
     kw = dict(b1=0.9, b2=0.999, eps=1e-8)
     bc1, bc2 = 1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3
-
-    def leaf(shape, seed):
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        grad = torch.randn(shape, generator=g, device="cuda") * 1e-3
-        mu = (torch.randn(shape, generator=g, device="cuda") * 1e-3
-              ).bfloat16()
-        nu = (torch.rand(shape, generator=g, device="cuda") * 1e-6
-              ).bfloat16()
-        return grad, mu, nu
-
     max_err = 0.0
     # embedding, an MLP weight (port layout), an audio MLP weight, a conv
     for i, shape in enumerate(((50265, 768), (3072, 768), (1024, 4096),
                                (512, 512, 3))):
-        grad, mu, nu = leaf(shape, 300 + i)
+        grad, mu, nu = adam_leaf(shape, 300 + i)
         out, mu2, nu2 = adam_update_leaf(grad, mu, nu, bc1, bc2, 7,
                                          zero_noise=True, **kw)
         torch.cuda.synchronize()
@@ -457,7 +483,8 @@ def check_adam(spec: TAVSpec, card: str):
         m32 = 0.9 * mu.float() + (1.0 - 0.9) * grad
         bits = m32.view(torch.int32) & -65536
         lo, hi = bits.view(torch.float32), (bits + 65536).view(torch.float32)
-        a = adam_update_leaf(grad, mu, nu, bc1, bc2, 11, **kw)[1].float()
+        noisy = adam_update_leaf(grad, mu, nu, bc1, bc2, 11, **kw)
+        a = noisy[1].float()
         b = adam_update_leaf(grad, mu, nu, bc1, bc2, 11, **kw)[1].float()
         c = adam_update_leaf(grad, mu, nu, bc1, bc2, 12, **kw)[1].float()
         bracket = bool(((a == lo) | (a == hi)).all())
@@ -467,39 +494,88 @@ def check_adam(spec: TAVSpec, card: str):
         mean_err, trunc = e.mean().item(), (lo.abs() - m32.abs()).double(
             ).mean().item()
         seeded = torch.equal(a, b) and not torch.equal(a, c)
+        # noise on, the same Philox words: the plain version's bits
+        same, n_ulp = adam_same_bits(
+            [[x] for x in noisy],
+            adam_update_leaves_plain([grad], [mu], [nu], bc1, bc2, [11],
+                                     **kw))
         print(f"adam_update {str(shape):14s}: zero_noise moments equal "
               f"{exact}, out within {d_ulp} ulp (tol {ADAM_OUT_ULPS}); "
               f"noise: neighbours {bracket}, mean error {mean_err:.3e} = "
               f"{abs(mean_err) / se:.2f} standard errors (tol 5; "
               f"truncation {trunc / se:.1f}), same seed same bits and "
-              f"other seed other bits {seeded}", flush=True)
+              f"other seed other bits {seeded}; same words as the plain "
+              f"version: moments equal {same}, out within {n_ulp} ulp",
+              flush=True)
         if not (exact and d_ulp <= ADAM_OUT_ULPS and bracket and seeded
-                and abs(mean_err) <= 5 * se and trunc < -20 * se):
+                and abs(mean_err) <= 5 * se and trunc < -20 * se
+                and same and n_ulp <= ADAM_OUT_ULPS):
             raise SystemExit(f"adam_update check failed on leaf {shape}")
+        del grad, mu, nu, noisy, a, b, c, e, m32
 
-    # time per step: every distinct size of fusable leaf, times its count
-    sizes = Counter(p.numel() for p in TAVModel(spec, device="meta"
-                                                ).parameters()
-                    if p.numel() >= MIN_FUSED_ELEMENTS)
-    total = {"ms": 0.0, "plain_ms": 0.0, "elements": 0}
-    rows = []
-    for n, count in sorted(sizes.items()):
-        grad, mu, nu = leaf((n,), n % 1000)
-        ms = cuda_ms(lambda: adam_update_leaf(grad, mu, nu, bc1, bc2, 5,
-                                              **kw))
-        plain = cuda_ms(lambda: adam_update_leaf_plain(
-            grad, mu, nu, bc1, bc2, **kw), iters=5, warmup=1)
-        rows.append({"elements": n, "leaves": count, "ms": ms,
-                     "plain_ms": plain,
-                     "bound_ms": 16 * n / PEAK_BYTES * 1e3})
-        total["ms"] += ms * count
-        total["plain_ms"] += plain * count
-        total["elements"] += n * count
-    total["bound_ms"] = 16 * total["elements"] / PEAK_BYTES * 1e3
-    total["leaves"] = sum(sizes.values())
-    print(json.dumps({"adam_update_leaves": rows, "per_step": total,
-                      "card": card}), flush=True)
-    return max_err, total
+    # one launch over a mixed list, fresh and in place, noise on
+    specs = [((1,), torch.float32, 0), ((7,), torch.bfloat16, 0),
+             ((768,), torch.float32, 0), ((70001,), torch.bfloat16, 0),
+             ((3072, 768), torch.float32, 0), ((4099,), torch.float32, 1),
+             ((50265, 768), torch.bfloat16, 0)]
+    leaves = [adam_leaf(shape, 400 + k, dt, off)
+              for k, (shape, dt, off) in enumerate(specs)]
+    gs, mus, nus = (list(x) for x in zip(*leaves))
+    seeds = [(5 << 20) + k for k in range(len(specs))]
+    before = kernels.LAUNCHES["adam_update"], adam_update.LEAVES_FUSED
+    fresh = adam_update_leaves(gs, mus, nus, bc1, bc2, seeds, **kw)
+    torch.cuda.synchronize()
+    counted = (kernels.LAUNCHES["adam_update"] - before[0],
+               adam_update.LEAVES_FUSED - before[1])
+    want = adam_update_leaves_plain(gs, mus, nus, bc1, bc2, seeds, **kw)
+    same, n_ulp = adam_same_bits(fresh, want)
+    max_err = max(max_err, max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(fresh[0], want[0])))
+    inplace = adam_update_leaves(gs, mus, nus, bc1, bc2, seeds, outs=gs,
+                                 mu_outs=mus, nu_outs=nus, **kw)
+    torch.cuda.synchronize()
+    aliased = all(torch.equal(a, b) for xs, ys in zip(inplace, fresh)
+                  for a, b in zip(xs, ys)) and all(
+        x is y for xs, ys in zip(inplace, (gs, mus, nus))
+        for x, y in zip(xs, ys))
+    print(json.dumps({"adam_update_mixed": {
+        "leaves": [[list(sh), str(dt), off] for sh, dt, off in specs],
+        "launches": counted[0], "leaves_covered": counted[1],
+        "moments_equal_plain": same, "out_ulps": n_ulp,
+        "in_place_equals_fresh": aliased, "card": card}}), flush=True)
+    if not (counted == (1, len(specs)) and same and n_ulp <= ADAM_OUT_ULPS
+            and aliased):
+        raise SystemExit("adam_update check failed on the mixed list")
+    del leaves, gs, mus, nus, fresh, want, inplace
+    torch.cuda.empty_cache()
+
+    # one call over the step's trainable leaves (and its 235 big ones):
+    # wrapper, kernel alone, host
+    timed = time_adam.with_bounds(time_adam.time_tree())
+    # the step's launch (past 32 leaves warp 0 searches in rounds) against
+    # the plain version on the same inputs and words, which is timed too
+    sizes = time_adam.step_leaf_sizes(spec)
+    gs, mus, nus = time_adam.leaf_state(sizes, 1)
+    seeds = [(9 << 20) + k for k in range(len(sizes))]
+    got = adam_update_leaves(gs, mus, nus, bc1, bc2, seeds, **kw)
+    want = []
+
+    def plain():
+        want[:] = [adam_update_leaves_plain(gs, mus, nus, bc1, bc2, seeds,
+                                            **kw)]
+
+    timed["all"]["plain_ms"] = cuda_ms(plain, iters=1, warmup=1)
+    same, n_ulp = adam_same_bits(got, want[0])
+    max_err = max(max_err, max((a - b).abs().max().item()
+                               for a, b in zip(got[0], want[0][0])))
+    timed["all"].update(moments_equal_plain=same, out_ulps=n_ulp)
+    del gs, mus, nus, got, want
+    torch.cuda.empty_cache()
+    print(json.dumps({"adam_update_step": timed, "card": card}), flush=True)
+    if not (same and n_ulp <= ADAM_OUT_ULPS):
+        raise SystemExit("adam_update check failed over the step's "
+                         f"{len(sizes)} leaves")
+    return max_err, timed
 
 
 @contextlib.contextmanager
@@ -1059,7 +1135,7 @@ def train_bench(params, card: str):
     batch, labels, mask, cw = train_inputs(spec, 8, SEED + 40)
     batch = to_device(batch, "cuda")
     before = [p.detach().clone() for p in state.params[:8]]
-    n_fusable = sum(p.numel() >= MIN_FUSED_ELEMENTS for p in state.params)
+    n_trainable = sum(m is not None for m in state.opt_state.mu)
     n_ln = sum(fused_ln_shapes(spec, 8).values())
     fused_names = ("fused_mlp_fwd", "fused_mlp_bwd", "layer_norm_fwd",
                    "layer_norm_bwd")
@@ -1103,12 +1179,23 @@ def train_bench(params, card: str):
             ev[3].record()
             torch.cuda.synchronize()
             split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-        return [float(x) for x in np.median(np.array(split), axis=0)], grads
+        return [float(x) for x in np.median(np.array(split), axis=0)]
+
+    def device_kernels():
+        """Device kernels (and copies) per step, from a profiler window of
+        two steps after a one-step window that warms the profiler."""
+        for steps in (1, 2):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                run(steps)
+        return sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA) // 2
 
     run(2)                                          # warm-up
     torch.cuda.reset_peak_memory_stats()
     res, times, counts = run(4)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    n_kernels = device_kernels()
     moved = max((a - b.detach()).abs().max().item()
                 for a, b in zip(before, state.params[:8]))
     moments_bf16 = all(m.dtype == torch.bfloat16
@@ -1123,38 +1210,55 @@ def train_bench(params, card: str):
         "ms_per_step": ms, "utt_per_s": 8e3 / ms, "times_ms": times,
         "losses": [r[0] for r in res], "grad_norms": [r[1] for r in res],
         "max_memory_allocated_gb": peak, "launches_per_step": counts[-1],
-        "params_moved": moved, "moments_bf16": moments_bf16,
-        "card": card}}), flush=True)
+        "device_kernels_per_step": n_kernels, "params_moved": moved,
+        "moments_bf16": moments_bf16, "card": card}}), flush=True)
     if not ok:
         raise SystemExit("the bf16 training leg failed its checks")
-    (fwd, bwd, opt), grads = split_ms()
+    (fwd, bwd, opt) = split_ms()
     print(json.dumps({"train_bf16_split_ms": {
         "forward": fwd, "backward": bwd, "optimizer_unfused": opt,
         "card": card}}), flush=True)
 
+    # (4) one K3 launch per step over every trainable leaf, the moments
+    # updated in place from the first fused step on
     os.environ["MME_FUSED_ADAM"] = "1"
     try:
-        run(1)                                      # Triton compiles here
+        run(1)
+        moments = [m for m in state.opt_state.mu + state.opt_state.nu
+                   if m is not None]
+        ptrs = [m.data_ptr() for m in moments]
+        torch.cuda.reset_peak_memory_stats()
+        leaves0 = adam_update.LEAVES_FUSED
         res_f, times_f, counts_f = run(3)
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        ev0.record()
-        tx.update(state.params, grads, state.opt_state, gen)
-        ev1.record()
-        torch.cuda.synchronize()
-        opt_fused = ev0.elapsed_time(ev1)
+        covered = (adam_update.LEAVES_FUSED - leaves0) / 3
+        peak_f = torch.cuda.max_memory_allocated() / 1e9
+        kept = [m.data_ptr() for m in state.opt_state.mu
+                + state.opt_state.nu if m is not None] == ptrs and all(
+            m.dtype == torch.bfloat16 for m in moments)
+        n_kernels_f = device_kernels()
+        (fwd_f, bwd_f, opt_fused) = split_ms()
     finally:
         del os.environ["MME_FUSED_ADAM"]
-    del grads
+    del moments
     ms_f = float(np.median(times_f))
     print(json.dumps({"train_bf16_fused_adam": {
         "ms_per_step": ms_f, "ms_per_step_unfused": ms, "times_ms": times_f,
-        "losses": [r[0] for r in res_f], "fusable_leaves": n_fusable,
-        "launches_per_step": counts_f[-1], "optimizer_fused_ms": opt_fused,
+        "losses": [r[0] for r in res_f], "trainable_leaves": n_trainable,
+        "leaves_covered_per_step": covered,
+        "moments_bf16_in_place": kept,
+        "launches_per_step": counts_f[-1],
+        "device_kernels_per_step": n_kernels_f,
+        "device_kernels_per_step_unfused": n_kernels,
+        "max_memory_allocated_gb": peak_f,
+        "max_memory_allocated_gb_unfused": peak,
+        "split_ms": {"forward": fwd_f, "backward": bwd_f,
+                     "optimizer_fused": opt_fused},
         "optimizer_unfused_ms": opt, "card": card}}), flush=True)
     if not (all(np.isfinite(x) for r in res_f for x in r) and all(
-            c["adam_update"] == n_fusable
+            c["adam_update"] == 1
             and c["flash_fwd"] == c["flash_bwd"] == LAUNCHES_PER_CHUNK
-            for c in counts_f)):
+            for c in counts_f) and covered == n_trainable and kept
+            and abs(peak_f - peak) <= 0.2):
         raise SystemExit("the MME_FUSED_ADAM=1 training leg failed")
 
     # (5) the same state and batch with both knobs on
@@ -1164,7 +1268,7 @@ def train_bench(params, card: str):
         torch.cuda.reset_peak_memory_stats()
         res_k, times_k, counts_k = run(4)
         peak_k = torch.cuda.max_memory_allocated() / 1e9
-        (fwd_k, bwd_k, opt_k), _ = split_ms()
+        (fwd_k, bwd_k, opt_k) = split_ms()
     ms_k = float(np.median(times_k))
     print(json.dumps({"train_bf16_knobs_on": {
         "knobs": KNOBS, "ms_per_step": ms_k, "ms_per_step_knobs_off": ms,
@@ -1217,7 +1321,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = kernels.build(["flash_fwd", "flash_bwd", "fused_mlp",
-                          "layer_norm"])
+                          "layer_norm", "adam_update"])
     print(f"build: {time.perf_counter() - t0:.1f} s\n{logs['flash_fwd']}\n"
           f"{logs['flash_bwd']}", flush=True)
     print(json.dumps({"fused_mlp_ptxas": ptxas_summary(logs["fused_mlp"])}),
@@ -1226,6 +1330,8 @@ def main() -> int:
                                       for name in ("flash_fwd", "flash_bwd")}}),
           flush=True)
     print(json.dumps({"layer_norm_ptxas": kernel_ptxas(logs["layer_norm"])}),
+          flush=True)
+    print(json.dumps({"adam_update_ptxas": kernel_ptxas(logs["adam_update"])}),
           flush=True)
 
     spec = TAVSpec(output_dim=7)
@@ -1274,14 +1380,17 @@ def main() -> int:
                     "mme_tpu/ops/flash_attention.py:184", bwd_shapes,
                     "launches_per_step", bwd_err,
                     {"launches": step["flash_bwd"]}),
-        # times and bound: every fusable leaf of one step
-        {"name": "adam_update", "route": "triton",
-         "source": "mme_tpu_torch/ops/adam_update.py",
+        # times and bound: one call over every trainable leaf of one step
+        {"name": "adam_update", "route": "cuda",
+         "source": "mme_tpu_torch/csrc/adam_update.cu",
          "replaces": "mme_tpu/ops/adam_update.py:67",
          "launches": step_fused["adam_update"], "max_abs_err": adam_err,
-         "ms": adam["ms"], "plain_ms": adam["plain_ms"],
-         "library_ms": None, "bound_ms": adam["bound_ms"],
-         "bound_by": "bytes"},
+         "ms": adam["all"]["ms"], "plain_ms": adam["all"]["plain_ms"],
+         "library_ms": None, "bound_ms": adam["all"]["bound_ms"],
+         "bound_by": adam["all"]["bound_by"],
+         "kernel_ms": adam["all"]["kernels_ms"],
+         "host_us": adam["all"]["host_us"], "leaves": adam["all"]["leaves"],
+         "big_leaves_ms": adam["big"]["ms"]},
         entry("layer_norm_fwd", "cuda", "mme_tpu_torch/csrc/layer_norm.cu",
               "mme_tpu/ops/layer_norm.py:63", ln_fwd),
         entry("layer_norm_bwd", "cuda", "mme_tpu_torch/csrc/layer_norm.cu",

@@ -13,10 +13,14 @@ where it does.
 
 bf16 moments: all arithmetic stays fp32, only storage is bf16, written with
 stochastic rounding (``E[sr(x)] = x``) so a long moving average does not
-stall once an update falls below half a bf16 step. A leaf that
-``ops/adam_update.py::fusable`` accepts goes through the fused kernel with
-its dither drawn in the kernel; every other leaf takes the unfused update
-below, its dither drawn from the step's generator.
+stall once an update falls below half a bf16 step. Every leaf that
+``ops/adam_update.py::fusable`` accepts goes through one launch of the fused
+kernel per step, its dither drawn in the kernel from a seed per (step,
+leaf); on that path the moments are updated in place (the tensors in
+``AdamWState.mu`` / ``nu`` keep their storage) and the update is written
+into the clipped gradient, which the step owns. Every other leaf takes the
+unfused update below, its dither drawn from the step's generator, and gets
+new moment tensors.
 
 Factored second moment (``adamw_factored``, Adafactor's factorisation under
 Adam semantics): a matrix-shaped leaf of at least 16 384 elements keeps row
@@ -189,13 +193,16 @@ class Optimizer:
         bc1 = 1.0 - self.b1 ** count
         bc2 = 1.0 - self.b2 ** count
         with torch.no_grad():
+            fused = (self._fused_leaves(clipped, live, state, count, bc1,
+                                        bc2)
+                     if self.state_dtype == "bf16" else set())
             for g, i in zip(clipped, live):
                 p = params[i]
-                if self.state_dtype == "bf16":
+                if i in fused:
+                    u = g               # the kernel wrote the update here
+                elif self.state_dtype == "bf16":
                     u, state.mu[i], state.nu[i] = self._lowmem_leaf(
-                        g, state.mu[i], state.nu[i], bc1, bc2,
-                        # one dither stream per (step, leaf)
-                        state.seed + (count << 20) + i, generator)
+                        g, state.mu[i], state.nu[i], bc1, bc2, generator)
                 elif self.state_dtype == "factored":
                     u = self._factored_leaf(g, i, state, bc1, bc2, generator)
                 else:
@@ -236,13 +243,28 @@ class Optimizer:
         state.mu[i] = stochastic_round_bf16(m32, generator)
         return out
 
-    def _lowmem_leaf(self, g, mu, nu, bc1, bc2, seed, generator):
-        if adam_update.fusable(g):
-            return adam_update.adam_update_leaf(
-                g, mu, nu, bc1, bc2, seed, b1=self.b1, b2=self.b2,
-                eps=self.eps)
-        # unfused (the counterpart of JAX's XLA path): small leaves, and
-        # every leaf unless MME_FUSED_ADAM=1
+    def _fused_leaves(self, clipped, live, state, count, bc1, bc2):
+        """One launch of the fused kernel over every bf16-moment leaf that
+        it takes: the update goes into the clipped gradient and the moments
+        are written in place. Returns the indices of those leaves."""
+        take = [(g, i) for g, i in zip(clipped, live)
+                if adam_update.fusable(g) and state.mu[i].is_contiguous()
+                and state.nu[i].is_contiguous()]
+        if not take:
+            return set()
+        gs = [g for g, _ in take]
+        mus = [state.mu[i] for _, i in take]
+        nus = [state.nu[i] for _, i in take]
+        adam_update.adam_update_leaves(
+            gs, mus, nus, bc1, bc2,
+            # one dither stream per (step, leaf)
+            [state.seed + (count << 20) + i for _, i in take], b1=self.b1,
+            b2=self.b2, eps=self.eps, outs=gs, mu_outs=mus, nu_outs=nus)
+        return {i for _, i in take}
+
+    def _lowmem_leaf(self, g, mu, nu, bc1, bc2, generator):
+        # unfused (the counterpart of JAX's XLA path): every leaf unless
+        # MME_FUSED_ADAM is set, and the leaves the kernel does not take
         g32 = g.float()
         m32 = self.b1 * mu.float() + (1.0 - self.b1) * g32
         n32 = self.b2 * nu.float() + (1.0 - self.b2) * g32 * g32

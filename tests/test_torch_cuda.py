@@ -22,8 +22,11 @@ import torch
 from mme_tpu_torch.models.layers import EncoderSpec, TransformerEncoder
 from mme_tpu_torch.ops import kernels
 from mme_tpu_torch.ops.attention import additive_mask, dot_product_attention_shd
+from mme_tpu_torch.ops import adam_update
 from mme_tpu_torch.ops.adam_update import (adam_update_leaf,
-                                           adam_update_leaf_plain)
+                                           adam_update_leaf_plain,
+                                           adam_update_leaves,
+                                           adam_update_leaves_plain)
 from mme_tpu_torch.ops.flash_attention import (FlashAttention,
                                                flash_attention_bwd,
                                                flash_attention_bwd_plain,
@@ -382,6 +385,124 @@ def test_adam_kernel_noise_brackets_is_unbiased_and_seeded(cuda):
     # truncation, by contrast, shrinks every magnitude
     trunc = (lo.abs() - m32.abs()).double().mean().item()
     assert trunc < -20 * err.std().item() / n ** 0.5
+
+
+def _adam_leaves(specs, seed):
+    """(gs, mus, nus, seeds) on the card: one leaf per (shape, g dtype,
+    offset in elements), each tensor a view starting ``offset`` elements
+    into its storage (1: not 16-byte aligned)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gs, mus, nus = [], [], []
+    for shape, gdtype, offset in specs:
+        n = 1
+        for d in shape:
+            n *= d
+
+        def at(x, dtype):
+            buf = torch.empty(n + offset, dtype=dtype, device="cuda")
+            buf[offset:] = x.reshape(-1)
+            return buf[offset:].view(shape)
+
+        gs.append(at(torch.randn(n, generator=g, device="cuda") * 1e-3,
+                     gdtype))
+        mus.append(at(torch.randn(n, generator=g, device="cuda") * 1e-3,
+                      torch.bfloat16))
+        nus.append(at(torch.rand(n, generator=g, device="cuda") * 1e-6,
+                      torch.bfloat16))
+    seeds = [(seed << 40) + (k << 20) + 3 for k in range(len(specs))]
+    return gs, mus, nus, seeds
+
+
+# every size class of the model's leaves (1 to a whole embedding), fp32 and
+# bf16 gradients, and leaves that are not 16-byte aligned
+ADAM_MIXED = [((1,), torch.float32, 0), ((7,), torch.bfloat16, 0),
+              ((768,), torch.float32, 0), ((70001,), torch.bfloat16, 0),
+              ((3072, 768), torch.float32, 0), ((4099,), torch.float32, 1),
+              ((5120,), torch.bfloat16, 1), ((50265, 768), torch.float32, 0)]
+
+
+def _adam_equal(got, want):
+    """Moments bit-equal; out within one fp32 ulp (equal in bf16)."""
+    for k in range(len(want[0])):
+        assert torch.equal(got[1][k], want[1][k]), k
+        assert torch.equal(got[2][k], want[2][k]), k
+        if want[0][k].dtype == torch.float32:
+            assert _ulps(got[0][k], want[0][k]) <= 1, k
+        else:
+            assert torch.equal(got[0][k], want[0][k]), k
+
+
+@pytest.mark.parametrize("zero_noise", [False, True],
+                         ids=["noise", "zero_noise"])
+def test_adam_leaves_one_launch_matches_plain_bit_for_bit(cuda, zero_noise):
+    """One launch over a mixed list equals the plain version drawing the
+    same Philox words; the launch and leaf counters move by one and by the
+    number of leaves."""
+    gs, mus, nus, seeds = _adam_leaves(ADAM_MIXED, 4)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, zero_noise=zero_noise)
+    before = kernels.LAUNCHES["adam_update"], adam_update.LEAVES_FUSED
+    got = adam_update_leaves(gs, mus, nus, 0.271, 0.003, seeds, **kw)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["adam_update"], adam_update.LEAVES_FUSED) == (
+        before[0] + 1, before[1] + len(gs))
+    want = adam_update_leaves_plain(gs, mus, nus, 0.271, 0.003, seeds, **kw)
+    _adam_equal(got, want)
+    if not zero_noise:      # the words differ between leaves and seeds
+        other = adam_update_leaves(gs[-1:], mus[-1:], nus[-1:], 0.271, 0.003,
+                                   [seeds[-1] + 1], **kw)
+        assert not torch.equal(other[1][0], got[1][-1])
+
+
+@pytest.mark.parametrize("n_leaves", [100, 1100])
+def test_adam_leaves_many_leaves_match_plain_bit_for_bit(cuda, n_leaves):
+    """More leaves than one round of warp 0's 32-way search (two rounds at
+    100, three past 1 024), sizes, g dtypes and offsets mixed: every block
+    finds its leaf and chunk, so each leaf equals the plain version on the
+    same words."""
+    sizes = (1, 7, 512, 768, 3072, 4099, 5120, 8193, 70001)
+    specs = [((sizes[k % len(sizes)],),
+              (torch.float32, torch.bfloat16)[k % 2], (k // 3) % 2)
+             for k in range(n_leaves)]
+    gs, mus, nus, seeds = _adam_leaves(specs, 7)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    before = kernels.LAUNCHES["adam_update"], adam_update.LEAVES_FUSED
+    got = adam_update_leaves(gs, mus, nus, 0.271, 0.003, seeds, **kw)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["adam_update"], adam_update.LEAVES_FUSED) == (
+        before[0] + 1, before[1] + n_leaves)
+    want = adam_update_leaves_plain(gs, mus, nus, 0.271, 0.003, seeds, **kw)
+    _adam_equal(got, want)
+
+
+def test_adam_leaves_in_place_equals_fresh_outputs(cuda):
+    """out into g and the moments into themselves, as the optimizer calls
+    it: the same bits as new outputs, in the same storage."""
+    gs, mus, nus, seeds = _adam_leaves(ADAM_MIXED[:-1], 5)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    fresh = adam_update_leaves(gs, mus, nus, 0.5, 0.25, seeds, **kw)
+    gs2, mus2, nus2 = ([x.clone() for x in xs] for xs in (gs, mus, nus))
+    ptrs = [x.data_ptr() for x in gs2 + mus2 + nus2]
+    got = adam_update_leaves(gs2, mus2, nus2, 0.5, 0.25, seeds, outs=gs2,
+                             mu_outs=mus2, nu_outs=nus2, **kw)
+    torch.cuda.synchronize()
+    assert [x.data_ptr() for xs in got for x in xs] == ptrs
+    for ours, theirs in zip(got, fresh):
+        assert all(torch.equal(a, b) for a, b in zip(ours, theirs))
+
+
+def test_adam_leaves_refuse_what_the_kernel_does_not_take(cuda):
+    gs, mus, nus, seeds = _adam_leaves(ADAM_MIXED[:3], 6)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    before = kernels.LAUNCHES["adam_update"]
+    with pytest.raises(TypeError):
+        adam_update_leaves([gs[0].half()] + gs[1:], mus, nus, 0.5, 0.5,
+                           seeds, **kw)
+    strided = torch.zeros(768, 2, dtype=torch.bfloat16, device="cuda")[:, 0]
+    for bad in ([mus[0].cpu()] + mus[1:], [mus[0].float()] + mus[1:],
+                mus[:2] + [strided]):
+        with pytest.raises(ValueError):
+            adam_update_leaves(gs, bad, nus, 0.5, 0.5, seeds, **kw)
+    assert kernels.LAUNCHES["adam_update"] == before
 
 
 def test_encoder_remat_on_cuda_recomputes_through_the_kernels(cuda):

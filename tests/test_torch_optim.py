@@ -199,6 +199,19 @@ def test_sr_bf16_is_bit_exact_against_jax_on_the_same_dither():
     ((17, 8, 384), "bfloat16", 0.5, 0.75),
     ((300, 256), "float32", 0.9, 0.999),
     ((17, 8, 384), "bfloat16", 0.9, 0.999),
+    # the small leaves (biases, LayerNorm) that the port's kernel now takes;
+    # at 7 elements one contracted product is 1/7 of the leaf, so only the
+    # exact b1 = 0.5 cases
+    ((7,), "float32", 0.5, 0.75),
+    ((7,), "bfloat16", 0.5, 0.75),
+    ((768,), "float32", 0.5, 0.75),
+    ((768,), "bfloat16", 0.5, 0.75),
+    ((768,), "float32", 0.9, 0.999),
+    ((768,), "bfloat16", 0.9, 0.999),
+    ((5120,), "float32", 0.5, 0.75),
+    ((5120,), "bfloat16", 0.5, 0.75),
+    ((5120,), "float32", 0.9, 0.999),
+    ((5120,), "bfloat16", 0.9, 0.999),
 ])
 def test_adam_plain_matches_interpreted_pallas_kernel_zero_noise(
         shape, gdtype, b1, b2):
@@ -226,7 +239,14 @@ def test_adam_plain_matches_interpreted_pallas_kernel_zero_noise(
         torch.from_numpy(g).to(getattr(torch, gdtype)),
         torch.from_numpy(mu).bfloat16(), torch.from_numpy(nu).bfloat16(),
         float(bc1), float(bc2), 5, b1=b1, b2=b2, eps=eps, zero_noise=True)
+    # the multi-leaf entry point takes the same plain version on the CPU
+    many = adam_update.adam_update_leaves(
+        [torch.from_numpy(g).to(getattr(torch, gdtype))],
+        [torch.from_numpy(mu).bfloat16()], [torch.from_numpy(nu).bfloat16()],
+        float(bc1), float(bc2), [5], b1=b1, b2=b2, eps=eps, zero_noise=True)
     assert kernels.LAUNCHES["adam_update"] == before    # CPU: plain version
+    for ours, theirs in zip((out, mu2, nu2), many):
+        assert torch.equal(ours, theirs[0])
     assert out.dtype == getattr(torch, gdtype)
     for ours, theirs in ((mu2, j_mu), (nu2, j_nu)):
         assert ours.dtype == torch.bfloat16
@@ -359,13 +379,21 @@ def test_make_optimizer_state_dtypes(monkeypatch):
 
 def test_fusable_gate(monkeypatch):
     """Off by default; with MME_FUSED_ADAM=1 only a CUDA leaf qualifies, so
-    nothing does here."""
+    nothing does here; MME_FUSED_ADAM=interpret admits a contiguous leaf of
+    any size on any device; a non-contiguous leaf never qualifies."""
     big = torch.zeros(512, 768)
+    small = torch.zeros(7)
+    strided = torch.zeros(768, 512).t()
     monkeypatch.delenv("MME_FUSED_ADAM", raising=False)
-    assert not adam_update.fusable(big)
+    assert not adam_update.fusable(big) and not adam_update.fusable(small)
     monkeypatch.setenv("MME_FUSED_ADAM", "1")
-    assert not adam_update.fusable(big)
-    assert adam_update.MIN_FUSED_ELEMENTS == 1 << 16
+    assert not adam_update.fusable(big) and not adam_update.fusable(small)
+    monkeypatch.setenv("MME_FUSED_ADAM", "interpret")
+    assert adam_update.fusable(big) and adam_update.fusable(small)
+    assert adam_update.fusable(small.bfloat16())
+    assert not adam_update.fusable(strided)
+    assert not adam_update.fusable(torch.zeros(0))
+    assert not adam_update.fusable(small.half())
 
 
 def _factored_state(j_state):
