@@ -80,6 +80,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        step beside leg (3)'s (profiler);
    (5) the same state with ``MME_FUSED_LN=1 MME_FUSED_MLP=1``: launches per
        step, ms per step, the split and peak memory beside leg (3)'s.
+6. The training loop at full width: phase 5's weights in a fresh bf16
+   ``TAVModel`` (dropout 0.1, shared audio frontend) through the CLI's
+   ``cli/common.py::run_classifier`` with ``MME_OPT_STATE=bf16
+   MME_FUSED_ADAM=1`` on synthetic records (70 tokens, 96 000 samples, a
+   16x224x224 clip; 32 / 8 / 8 utterances), batch 8, two epochs,
+   validation every 2 steps, random keep-masks and SpecAugment, checkpoints
+   in a temporary directory deleted at the end. Epoch 0 runs the weighted
+   sampler and plain loss; epoch 1 runs in order with class weights and
+   dialog accumulation (dialogs of 16: two batches per update). Checks:
+   finite losses in both epochs; 54 K1 launches per train step and eval
+   batch, 54 K2 per train step, one K3 per applied update (6 for 8
+   steps); no saved state carries the accumulation buffer; the best
+   checkpoint restored into fresh tensors equals the state the loop
+   returned bit for bit; a save followed by a train step before its
+   ``wait()`` still restores the state of the save (the step rewrites
+   parameters and moments in place); ``MME_EVAL_ONLY=1`` on the same
+   directory reproduces the test matrix and loss. Prints the loop's
+   utterances per second beside leg (4)'s bare step, peak memory,
+   checkpoint size, the host ms of each save's blocking part, of each
+   ``wait()`` and of each restore, free disk space and the phase's time;
+   then runs one more epoch under ``torch.profiler`` (device activity
+   only) for the device's busy share of it.
 
 Then one JSON line of per-kernel results (seven kernels), the card's name
 and power limit, and last the line ``{"ok": true, "device": {...}}``.
@@ -95,7 +117,9 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import sys
+import tempfile
 import time
 from typing import Tuple
 
@@ -103,8 +127,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mme_tpu_torch.cli.common import run_classifier
 from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import from_flax, init_params
+from mme_tpu_torch.data.dataset import batches
+from mme_tpu_torch.data.synthetic import synthetic_tav_dataset
 from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES, card_line
 from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
 from mme_tpu_torch import time_adam
@@ -132,11 +159,14 @@ from mme_tpu_torch.ops.flash_attention import (bounds as flash_bounds,
                                                flash_attention_fwd_plain)
 from mme_tpu_torch.serve import Predictor
 from mme_tpu_torch.time_layer_norm import fused_ln_shapes
-from mme_tpu_torch.train.build_tav import build_tav, example_tav_batch
+from mme_tpu_torch.train.build_tav import (build_tav, example_tav_batch,
+                                           make_video_keep_transform)
+from mme_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
 from mme_tpu_torch.train.losses import cross_entropy
-from mme_tpu_torch.train.optim import global_norm_f32
+from mme_tpu_torch.train.optim import AdamWState, global_norm_f32
 from mme_tpu_torch.train.schedules import cosine_warm_restarts
-from mme_tpu_torch.train.steps import make_optimizer, to_device
+from mme_tpu_torch.train.steps import (TrainState, make_optimizer,
+                                       make_train_step, to_device)
 
 SEED = 0
 # tolerances of the flash kernel against its plain version, elementwise
@@ -1288,12 +1318,13 @@ def train_bench(params, card: str):
             and c["layer_norm_fwd"] == c["layer_norm_bwd"] == n_ln
             and c["adam_update"] == 0 for c in counts_k)):
         raise SystemExit("the training leg with both knobs on failed")
-    return counts[-1], counts_f[-1], counts_k[-1]
+    return counts[-1], counts_f[-1], counts_k[-1], ms_f
 
 
 def train_path(card: str):
-    """Phase 5. Returns the launches of one step of the bf16 leg, of the
-    fused-Adam leg and of the leg with both knobs on."""
+    """Phase 5. Returns the flax tree, the launches of one step of the bf16
+    leg, of the fused-Adam leg and of the leg with both knobs on, and the
+    fused-Adam leg's ms per step."""
     t0 = time.perf_counter()
     params = init_params(dataclasses.replace(TAVSpec(output_dim=7),
                                              share_audio_frontend=True), SEED)
@@ -1304,7 +1335,277 @@ def train_path(card: str):
         leg(params, card)
         torch.cuda.empty_cache()
         print(f"{leg.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
-    return train_bench(params, card)
+    return (params, *train_bench(params, card))
+
+
+# phase 6: the loop at full width. Train, validation and test utterances
+# with their seeds; the train split's dialogs hold 16 utterances, so epoch 1
+# (dialog accumulation) applies one update per two batches of 8
+LOOP_SIZES = ((32, 0), (8, 1), (8, 2))
+LOOP_DIALOG = 16
+LOOP_CFG = dict(batch_size=8, epoch=2, log_val=2, patience=10,
+                learning_rate=5e-6, mask=True, output_dim=7,
+                dataset="synthetic", seed=SEED)
+LOOP_ENV = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1"}
+# 8 train steps, 6 applied updates (4 in epoch 0, 2 in epoch 1), 4
+# validations of one batch and one test batch
+LOOP_STEPS, LOOP_UPDATES, LOOP_EVAL_BATCHES = 8, 6, 5
+# eval-only against the trained run's test pass: the same weights, masks
+# and kernels (no atomics); the loss is a mean of fp32 values
+EVAL_ONLY_RTOL = 1e-6
+
+
+class TimedCheckpoints(CheckpointManager):
+    """The loop's checkpoint manager with host times: the blocking part of
+    each ``save_best`` and each ``restore_best`` (the ``wait()`` they start
+    with counted apart) and each ``wait()``; whether every saved state was
+    stripped of its accumulation buffer; the target of the last restore,
+    which is the state the loop returns."""
+
+    def __init__(self, directory: str):
+        super().__init__(directory)
+        self.ms = {"save_best": [], "wait": [], "restore_best": []}
+        self.stripped = []
+        self.returned = None
+
+    def _timed(self, key, fn, *args):
+        n = len(self.ms["wait"])
+        t = time.perf_counter()
+        out = fn(*args)
+        self.ms[key].append((time.perf_counter() - t) * 1e3
+                            - sum(self.ms["wait"][n:]))
+        return out
+
+    def wait(self):
+        t = time.perf_counter()
+        super().wait()
+        self.ms["wait"].append((time.perf_counter() - t) * 1e3)
+
+    def save_best(self, state, meta):
+        self.stripped.append(state.accum_grads is None)
+        self._timed("save_best", super().save_best, state, meta)
+
+    def restore_best(self, target_state):
+        self.returned = target_state
+        return self._timed("restore_best", super().restore_best,
+                           target_state)
+
+
+def empty_state_like(state: TrainState) -> TrainState:
+    """A state of the same structure in new, uninitialised tensors."""
+    def like(xs):
+        return None if xs is None else [
+            None if x is None else torch.empty_like(x) for x in xs]
+    o = state.opt_state
+    return TrainState(
+        step=-1, params=like(state.params), accum_grads=None,
+        opt_state=AdamWState(count=-1, mu=like(o.mu), nu=like(o.nu),
+                             seed=-1, nu_row=like(o.nu_row),
+                             nu_col=like(o.nu_col)),
+        names=state.names)
+
+
+def state_diff(a: TrainState, b: TrainState) -> list:
+    """What differs between two states, bit for bit: counters by name,
+    tensor groups by how many tensors differ."""
+    out = [k for k, x, y in (("step", a.step, b.step),
+                             ("count", a.opt_state.count, b.opt_state.count),
+                             ("seed", a.opt_state.seed, b.opt_state.seed))
+           if x != y]
+    groups = (("params", a.params, b.params),
+              *((k, getattr(a.opt_state, k), getattr(b.opt_state, k))
+                for k in ("mu", "nu", "nu_row", "nu_col")))
+    for key, xs, ys in groups:
+        if xs is None or ys is None:
+            if xs is not ys:
+                out.append(key)
+            continue
+        bad = sum((x is None) != (y is None) or (
+            x is not None and not torch.equal(x, y)) for x, y in zip(xs, ys))
+        if bad or len(xs) != len(ys):
+            out.append(f"{key}: {bad} of {len(xs)}")
+    return out
+
+
+def loop_inputs(params, spec: TAVSpec, device: str, text_len: int,
+                audio_len: int):
+    """A model with ``params`` and the synthetic train, validation and test
+    splits of phase 6."""
+    (n_train, s_train), *evals = LOOP_SIZES
+    train_ds = synthetic_tav_dataset(spec, n_train, text_len, audio_len,
+                                     seed=s_train, dialog_size=LOOP_DIALOG)
+    val_ds, test_ds = (synthetic_tav_dataset(spec, n, text_len, audio_len,
+                                             seed=s) for n, s in evals)
+    model = TAVModel(spec, device=device)
+    model.load_state_dict(from_flax(params), strict=True)
+    return model, train_ds, val_ds, test_ds
+
+
+def busy_share(prof, wall_s: float) -> float:
+    """The share of ``wall_s`` in which the device ran anything: the union
+    of the device events' spans in a profiler window."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6 / wall_s
+
+
+def profiled_epoch(params, spec: TAVSpec) -> dict:
+    """One epoch of ``run_classifier`` as phase 6 runs it (4 steps, 2
+    validations and their saves, the best reload, then the test pass)
+    under ``torch.profiler`` with device activity only: its wall time and
+    the device's busy share of it."""
+    directory = tempfile.mkdtemp(prefix="mme_loop_prof_")
+    try:
+        cfg = ExperimentConfig(**dict(LOOP_CFG, epoch=1),
+                               checkpoint_dir=directory, text_max_len=70,
+                               audio_max_samples=96000)
+        model, *data = loop_inputs(params, spec, "cuda", 70, 96000)
+        transform = make_video_keep_transform(spec, random_mask=True)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run_classifier(cfg, model, *data, batch_transform=transform,
+                           device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return {"wall_s": wall, "device_busy_share": busy_share(prof, wall)}
+
+
+def loop_run(params, spec: TAVSpec, device: str, directory: str,
+             text_len: int = 70, audio_len: int = 96000) -> dict:
+    """Phase 6's runs on ``device`` (the CPU runs them at a tiny size):
+    ``run_classifier`` trains and tests; the best checkpoint is restored
+    into fresh tensors; a save is followed by a train step before its
+    ``wait()``; ``MME_EVAL_ONLY=1`` tests the checkpoint again. Checks all
+    but the kernel launches and returns what it measured."""
+    cfg = ExperimentConfig(**LOOP_CFG, checkpoint_dir=directory,
+                           text_max_len=text_len, audio_max_samples=audio_len)
+    model, train_ds, val_ds, test_ds = loop_inputs(
+        params, spec, device, text_len, audio_len)
+    n_train = len(train_ds)
+    transform = make_video_keep_transform(spec, random_mask=True)
+    ckpts = TimedCheckpoints(directory)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = run_classifier(cfg, model, train_ds, val_ds, test_ds,
+                             batch_transform=transform, checkpoints=ckpts,
+                             device=device)
+    loop_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    train_logs = [d for d in logs if "train/loss" in d]
+    losses = [d[k] for d in logs for k in ("train/loss", "val/loss",
+                                           "test/loss") if k in d]
+    state = ckpts.returned
+
+    # the best checkpoint into fresh tensors
+    fresh = empty_state_like(state)
+    t = time.perf_counter()
+    ckpts.restore_best(fresh)
+    round_trip = state_diff(fresh, state)
+
+    # the in-place trap: one more step rewrites parameters and moments
+    # while the save is in flight
+    ckpts.save_best(state, {"epoch": cfg.epoch, "step": state.step,
+                            "val_loss": 0.0})
+    tx = make_optimizer(cosine_warm_restarts(cfg.learning_rate, cfg.T_max,
+                                             n_train // cfg.batch_size),
+                        cfg.weight_decay, cfg.clip)
+    batch, labels, mask, _ = next(batches(train_ds, np.arange(n_train),
+                                          cfg.batch_size))
+    batch = transform(torch.Generator(device=device).manual_seed(SEED),
+                      to_device(batch, device))
+    make_train_step(model, tx, num_classes=cfg.output_dim)(
+        state, batch, labels, mask, np.ones(cfg.output_dim, np.float32),
+        1.0, True, SEED)
+    stepped = [k for k in state_diff(state, fresh)
+               if k.startswith(("params", "mu", "nu"))]
+    ckpts.wait()
+    ckpts.restore_best(state)
+    trap = state_diff(state, fresh)
+    del fresh
+
+    os.environ["MME_EVAL_ONLY"] = "1"
+    os.environ["MME_RUN_DIR"] = os.path.join(directory, "eval_only")
+    try:
+        again = run_classifier(cfg, model, train_ds, val_ds, test_ds,
+                               batch_transform=transform, device=device)
+    finally:
+        del os.environ["MME_EVAL_ONLY"], os.environ["MME_RUN_DIR"]
+    eval_rel = (abs(again["test/loss"] - summary["test/loss"])
+                / abs(summary["test/loss"]))
+    out = {
+        "loop_s": loop_s, "launches": launches,
+        "utt_per_s_loop": [d["train/steps_per_sec"] * cfg.batch_size
+                           for d in train_logs],
+        "epochs": [d["epoch"] for d in train_logs],
+        "losses": losses, "test_loss": summary["test/loss"],
+        "saved_states_stripped": ckpts.stripped,
+        "round_trip_diff": round_trip, "in_place_step_changed": stepped,
+        "in_place_trap_diff": trap, "eval_only_loss_rel_diff": eval_rel,
+        "eval_only_same_matrix": (again["test/confusion_matrix"]
+                                  == summary["test/confusion_matrix"]),
+        "checkpoint_gb": os.path.getsize(os.path.join(
+            ckpts.best_path, STATE_FILE)) / 1e9,
+        "save_best_ms": ckpts.ms["save_best"], "wait_ms": ckpts.ms["wait"],
+        "restore_best_ms": ckpts.ms["restore_best"]}
+    ok = (all(np.isfinite(losses)) and sorted(set(out["epochs"])) == [0, 1]
+          and len([d for d in logs if "val/loss" in d]) == 4
+          and len(ckpts.stripped) >= 2 and all(ckpts.stripped)
+          and not round_trip and stepped and not trap
+          and out["eval_only_same_matrix"] and eval_rel <= EVAL_ONLY_RTOL)
+    if not ok:
+        print(json.dumps({"train_loop_failed": out}), flush=True)
+        raise SystemExit("the training loop phase failed its checks")
+    return out
+
+
+def train_loop(params, card: str, step_ms: float) -> dict:
+    """Phase 6 on the card. Returns the kernel launches of the loop's run."""
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(
+        TAVSpec(output_dim=7, dropout=0.1).with_compute_dtype(torch.bfloat16),
+        share_audio_frontend=True)
+    directory = tempfile.mkdtemp(prefix="mme_loop_")
+    free_gb = shutil.disk_usage(directory).free / 1e9
+    os.environ.update(LOOP_ENV)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out = loop_run(params, spec, "cuda", directory)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        shutil.rmtree(directory, ignore_errors=True)
+        torch.cuda.empty_cache()
+        epoch = profiled_epoch(params, spec)
+    finally:
+        for k in LOOP_ENV:
+            del os.environ[k]
+        shutil.rmtree(directory, ignore_errors=True)
+    n = out["launches"]
+    want = {"flash_fwd": LAUNCHES_PER_CHUNK * (LOOP_STEPS + LOOP_EVAL_BATCHES),
+            "flash_bwd": LAUNCHES_PER_CHUNK * LOOP_STEPS,
+            "adam_update": LOOP_UPDATES}
+    print(json.dumps({"train_loop": {
+        **out, "expected_launches": want,
+        "bare_step_ms_fused_adam": step_ms,
+        "utt_per_s_bare_step": 8e3 / step_ms,
+        "profiled_epoch": epoch,
+        "max_memory_allocated_gb": peak, "free_disk_gb_before": free_gb,
+        "phase_s": time.perf_counter() - t0, "card": card}}), flush=True)
+    if any(n.get(k, 0) != v for k, v in want.items()):
+        raise SystemExit("the training loop did not launch K1, K2 and K3 "
+                         "as its steps and updates need")
+    return n
 
 
 def main() -> int:
@@ -1344,7 +1645,9 @@ def main() -> int:
     check_gemm_core(card)
     mlp_fwd, mlp_bwd = check_fused_mlp(train_spec, card)
     served, served_knobs = main_path(card)
-    step, step_fused, step_knobs = train_path(card)
+    params, step, step_fused, step_knobs, step_ms = train_path(card)
+    torch.cuda.empty_cache()
+    loop = train_loop(params, card, step_ms)
 
     def entry(name, route, source, replaces, result):
         """A kernel of this slice: launches of one training step with both
@@ -1375,16 +1678,19 @@ def main() -> int:
                     "mme_tpu/ops/flash_attention.py:125", fwd_shapes,
                     "launches_per_chunk", fwd_err,
                     {"launches": served,
-                     "launches_train_step": step["flash_fwd"]}),
+                     "launches_train_step": step["flash_fwd"],
+                     "launches_train_loop": loop["flash_fwd"]}),
         flash_entry("flash_bwd", "mme_tpu_torch/csrc/flash_bwd.cu",
                     "mme_tpu/ops/flash_attention.py:184", bwd_shapes,
                     "launches_per_step", bwd_err,
-                    {"launches": step["flash_bwd"]}),
+                    {"launches": step["flash_bwd"],
+                     "launches_train_loop": loop["flash_bwd"]}),
         # times and bound: one call over every trainable leaf of one step
         {"name": "adam_update", "route": "cuda",
          "source": "mme_tpu_torch/csrc/adam_update.cu",
          "replaces": "mme_tpu/ops/adam_update.py:67",
-         "launches": step_fused["adam_update"], "max_abs_err": adam_err,
+         "launches": step_fused["adam_update"],
+         "launches_train_loop": loop["adam_update"], "max_abs_err": adam_err,
          "ms": adam["all"]["ms"], "plain_ms": adam["all"]["plain_ms"],
          "library_ms": None, "bound_ms": adam["all"]["bound_ms"],
          "bound_by": adam["all"]["bound_by"],

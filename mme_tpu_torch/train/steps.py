@@ -37,25 +37,30 @@ Rng = Union[int, torch.Generator]
 @dataclasses.dataclass
 class TrainState:
     """``params`` are the model's parameters themselves (the step updates
-    them in place); ``accum_grads`` is None when accumulation is off."""
+    them in place); ``accum_grads`` is None when accumulation is off.
+    ``names``, one per parameter, key the parameters in a checkpoint
+    (``train/checkpoint.py``); without them a parameter's index does."""
 
     step: int
     params: List[nn.Parameter]
     opt_state: AdamWState
     accum_grads: Optional[List[torch.Tensor]]
     accum_count: int = 0
+    names: Optional[List[str]] = None
 
     @classmethod
     def create(cls, params: Sequence[nn.Parameter], tx: Optimizer,
                use_accum: bool = True,
-               generator: Optional[torch.Generator] = None) -> "TrainState":
+               generator: Optional[torch.Generator] = None,
+               names: Optional[Sequence[str]] = None) -> "TrainState":
         """``use_accum=False`` drops the gradient-accumulation buffer, a
         whole fp32 copy of the parameters; every step then applies."""
         params = list(params)
         zeros = ([torch.zeros_like(p) for p in params] if use_accum
                  else None)
         return cls(step=0, params=params,
-                   opt_state=tx.init(params, generator), accum_grads=zeros)
+                   opt_state=tx.init(params, generator), accum_grads=zeros,
+                   names=None if names is None else list(names))
 
 
 HIST_BUCKETS = 17  # bucket 0: exact zeros; 1..16: |x| exponent ranges

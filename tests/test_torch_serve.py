@@ -118,7 +118,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "mme_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mme_tpu"):
     sys.modules[name] = None          # any import of these now raises
 import mme_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(mme_tpu_torch.__path__,
@@ -147,14 +147,21 @@ state, loss, cm, norm = train_step(state, batch, labels, mask, cw, 1.0,
                                    True, 0)
 assert np.isfinite(loss.item()) and int(cm.sum()) == 2 and state.step == 1
 assert np.isfinite(eval_step(batch, labels, mask, cw)[0].item())
-assert len(mods) >= 27, mods
+from mme_tpu_torch.cli.tav_nn import main
+summary = main(["--dataset", "synthetic", "-e", "1", "-b", "8"], device="cpu")
+assert np.array(summary["test/confusion_matrix"]).sum() == 16
+assert len(mods) >= 48, mods
 print(len(mods), "modules")
 """
 
 
-def test_port_runs_with_jax_blocked():
+def test_port_runs_with_jax_blocked(tmp_path):
+    """Every port module imports, and serving, the train step and a
+    one-epoch synthetic run of the CLI work, with JAX, flax, optax, orbax
+    and mme_tpu blocked (the CLI writes its checkpoints under tmp_path)."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
+                         cwd=str(tmp_path),
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "modules" in out.stdout
