@@ -101,7 +101,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    checkpoint size, the host ms of each save's blocking part, of each
    ``wait()`` and of each restore, free disk space and the phase's time;
    then runs one more epoch under ``torch.profiler`` (device activity
-   only) for the device's busy share of it.
+   only) for the device's busy share of it. The eval-only run also sets
+   ``MME_PREDICT_OUT`` and ``MME_EXPORT_BUNDLE`` to a temporary directory:
+   phase 7's first leg.
+7. The serving front ends at full width, on phase 6's trained model (bf16
+   compute over fp32 weights, batch 8):
+   (1) the eval-only run's exports: one prediction row per test utterance,
+       probabilities summing to 1; a bundle whose program calls K1 as the
+       operator ``mme_tpu_torch::flash_fwd``; export, save and load
+       seconds and the bundle's size;
+   (2) the bundle loaded with ``load_bundle(device="cuda")`` serves phase
+       4's requests (video normalised, fixed keep-masks) against a live
+       ``Predictor`` on the bundle's weights: probabilities within
+       ``SERVE_TOL[bf16]``, predictions equal where the top-2 margin
+       exceeds it, 54 K1 launches per chunk and no other kernel; ms per
+       batch of 8 of both;
+   (3) a second bundle exported with ``MME_FUSED_LN=1 MME_FUSED_MLP=1``,
+       served with the knobs unset: K1, K5a (54 each) and K4a (the spec's
+       count) per chunk through the operators, against the live model;
+   (4) ``python -m mme_tpu_torch.cli.serve`` on the first bundle in a
+       process of its own: ``/healthz`` and one float-video utterance
+       against leg (2); then a live ``Predictor`` behind ``make_server`` in
+       this process with 3 uint8-video utterances against the Predictor
+       itself. Prints ms per request and request bytes, the phase's time
+       and peak memory; the temporary directory is deleted.
 
 Then one JSON line of per-kernel results (seven kernels), the card's name
 and power limit, and last the line ``{"ok": true, "device": {...}}``.
@@ -117,11 +140,16 @@ import dataclasses
 import json
 import os
 import re
+import select
 import shutil
+import signal
+import subprocess
 import sys
 import tempfile
+import threading
 import time
-from typing import Tuple
+import urllib.request
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,7 +185,9 @@ from mme_tpu_torch.ops.flash_attention import (bounds as flash_bounds,
                                                flash_attention_bwd_plain,
                                                flash_attention_fwd,
                                                flash_attention_fwd_plain)
-from mme_tpu_torch.serve import Predictor
+from mme_tpu_torch.ops.video import normalize_uint8_video
+from mme_tpu_torch.serve import Predictor, export_bundle, load_bundle
+from mme_tpu_torch.serve_http import PredictionService, make_server
 from mme_tpu_torch.time_layer_norm import fused_ln_shapes
 from mme_tpu_torch.train.build_tav import (build_tav, example_tav_batch,
                                            make_video_keep_transform)
@@ -1481,12 +1511,16 @@ def profiled_epoch(params, spec: TAVSpec) -> dict:
 
 
 def loop_run(params, spec: TAVSpec, device: str, directory: str,
-             text_len: int = 70, audio_len: int = 96000) -> dict:
+             text_len: int = 70, audio_len: int = 96000,
+             front_ends: Optional[str] = None) -> dict:
     """Phase 6's runs on ``device`` (the CPU runs them at a tiny size):
     ``run_classifier`` trains and tests; the best checkpoint is restored
     into fresh tensors; a save is followed by a train step before its
-    ``wait()``; ``MME_EVAL_ONLY=1`` tests the checkpoint again. Checks all
-    but the kernel launches and returns what it measured."""
+    ``wait()``; ``MME_EVAL_ONLY=1`` tests the checkpoint again, and with
+    ``front_ends`` (a directory) writes the serving exports there too:
+    ``MME_PREDICT_OUT`` rows and an ``MME_EXPORT_BUNDLE`` bundle (phase 7's
+    first leg). Checks all but the kernel launches and returns what it
+    measured."""
     cfg = ExperimentConfig(**LOOP_CFG, checkpoint_dir=directory,
                            text_max_len=text_len, audio_max_samples=audio_len)
     model, train_ds, val_ds, test_ds = loop_inputs(
@@ -1536,13 +1570,24 @@ def loop_run(params, spec: TAVSpec, device: str, directory: str,
     trap = state_diff(state, fresh)
     del fresh
 
-    os.environ["MME_EVAL_ONLY"] = "1"
-    os.environ["MME_RUN_DIR"] = os.path.join(directory, "eval_only")
+    eval_env = {"MME_EVAL_ONLY": "1",
+                "MME_RUN_DIR": os.path.join(directory, "eval_only")}
+    if front_ends is not None:
+        eval_env.update(MME_PREDICT_OUT=os.path.join(front_ends, ROWS_FILE),
+                        MME_EXPORT_BUNDLE=os.path.join(front_ends, "bundle"))
+    os.environ.update(eval_env)
     try:
         again = run_classifier(cfg, model, train_ds, val_ds, test_ds,
                                batch_transform=transform, device=device)
     finally:
-        del os.environ["MME_EVAL_ONLY"], os.environ["MME_RUN_DIR"]
+        for k in eval_env:
+            del os.environ[k]
+    exports = {}
+    with open(os.path.join(eval_env["MME_RUN_DIR"], "metrics.jsonl")) as f:
+        for line in f:
+            d = json.loads(line)
+            if "export_bundle" in d or "predict_out" in d:
+                exports.update(d)
     eval_rel = (abs(again["test/loss"] - summary["test/loss"])
                 / abs(summary["test/loss"]))
     out = {
@@ -1559,7 +1604,8 @@ def loop_run(params, spec: TAVSpec, device: str, directory: str,
         "checkpoint_gb": os.path.getsize(os.path.join(
             ckpts.best_path, STATE_FILE)) / 1e9,
         "save_best_ms": ckpts.ms["save_best"], "wait_ms": ckpts.ms["wait"],
-        "restore_best_ms": ckpts.ms["restore_best"]}
+        "restore_best_ms": ckpts.ms["restore_best"],
+        "serving_exports": exports, "test_rows": len(test_ds)}
     ok = (all(np.isfinite(losses)) and sorted(set(out["epochs"])) == [0, 1]
           and len([d for d in logs if "val/loss" in d]) == 4
           and len(ckpts.stripped) >= 2 and all(ckpts.stripped)
@@ -1571,8 +1617,11 @@ def loop_run(params, spec: TAVSpec, device: str, directory: str,
     return out
 
 
-def train_loop(params, card: str, step_ms: float) -> dict:
-    """Phase 6 on the card. Returns the kernel launches of the loop's run."""
+def train_loop(params, card: str, step_ms: float, front_dir: str
+               ) -> Tuple[dict, dict, TAVSpec]:
+    """Phase 6 on the card; its eval-only run writes phase 7's prediction
+    log and bundle into ``front_dir``. Returns the kernel launches of the
+    loop's run, what the eval-only run's exports logged and the spec."""
     t0 = time.perf_counter()
     spec = dataclasses.replace(
         TAVSpec(output_dim=7, dropout=0.1).with_compute_dtype(torch.bfloat16),
@@ -1582,7 +1631,8 @@ def train_loop(params, card: str, step_ms: float) -> dict:
     os.environ.update(LOOP_ENV)
     try:
         torch.cuda.reset_peak_memory_stats()
-        out = loop_run(params, spec, "cuda", directory)
+        out = loop_run(params, spec, "cuda", directory,
+                       front_ends=front_dir)
         peak = torch.cuda.max_memory_allocated() / 1e9
         shutil.rmtree(directory, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -1605,7 +1655,262 @@ def train_loop(params, card: str, step_ms: float) -> dict:
     if any(n.get(k, 0) != v for k, v in want.items()):
         raise SystemExit("the training loop did not launch K1, K2 and K3 "
                          "as its steps and updates need")
-    return n
+    return n, {**out["serving_exports"], "test_rows": out["test_rows"]}, spec
+
+
+# phase 7: the serving front ends at full width, on phase 6's trained
+# model. The prediction log's file name in the exports directory; the
+# requests of phase 4 (8, 5 and 11 utterances) with their video normalised
+# on the host and their own fixed keep-masks, the features a bundle of the
+# TAV model takes
+ROWS_FILE = "predictions.jsonl"
+HTTP_TIMEOUT_S = 300
+
+
+def bundle_requests(spec: TAVSpec) -> list:
+    out = []
+    for r in requests(spec):
+        r = dict(r)
+        r["video"] = normalize_uint8_video(torch.from_numpy(r["video"])).numpy()
+        out.append(r)
+    return out
+
+
+def median_ms(fn, batch, n: int = 5) -> Tuple[float, list]:
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn(batch)
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), times
+
+
+def served_diff(got, want, tol: float) -> Tuple[float, bool]:
+    """max |Δprobs| over the requests, and whether the predictions agree
+    wherever the reference's top-2 margin exceeds ``tol``."""
+    diff, same = 0.0, True
+    for (p, pr), (q, qr) in zip(got, want):
+        diff = max(diff, float(np.abs(pr - qr).max()))
+        top = np.sort(qr, -1)
+        sure = top[:, -1] - top[:, -2] > tol
+        same = same and bool((p[sure] == q[sure]).all())
+    return diff, same
+
+
+def http_json(url: str, payload: Optional[bytes] = None):
+    req = urllib.request.Request(
+        url, data=payload, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+        return json.loads(r.read())
+
+
+def instances(batch: dict, rows) -> bytes:
+    return json.dumps({"instances": [{k: v[i].tolist()
+                                      for k, v in batch.items()}
+                                     for i in rows]}).encode()
+
+
+def start_daemon(bundle: str) -> Tuple[subprocess.Popen, str]:
+    """``python -m mme_tpu_torch.cli.serve`` on a free port, as a user
+    starts it; returns the process and its URL once it listens."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mme_tpu_torch.cli.serve", "--bundle",
+         bundle, "--host", "127.0.0.1", "--port", "0"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    deadline = time.monotonic() + HTTP_TIMEOUT_S
+    lines = []
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if not ready:
+            continue
+        line = proc.stdout.readline()
+        if not line:
+            break
+        lines.append(line)
+        m = re.search(r"on (http://[\d.]+:\d+)", line)
+        if m:
+            return proc, m.group(1)
+    stop_daemon(proc)
+    raise SystemExit("the serving daemon did not start:\n" + "".join(lines))
+
+
+def stop_daemon(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def front_ends(card: str, spec: TAVSpec, front_dir: str,
+               exports: dict) -> dict:
+    """Phase 7. ``front_dir`` holds phase 6's prediction log and bundle,
+    ``exports`` what their run logged. Returns K1's launches per chunk
+    through that bundle and the knobs-on bundle's launches per chunk."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tol = SERVE_TOL[torch.bfloat16]
+    bundle = os.path.join(front_dir, "bundle")
+    out = {"export_s": exports["export_s"], "save_s": exports["save_s"],
+           "bundle_gb": exports["bytes"] / 1e9}
+
+    # (1) the run's exports: one row per test utterance
+    with open(os.path.join(front_dir, ROWS_FILE)) as f:
+        rows = [json.loads(line) for line in f]
+    sums = max(abs(sum(r["probs"]) - 1) for r in rows)
+    out["rows"] = len(rows)
+    out["rows_max_sum_err"] = sums
+    served = load_bundle(bundle, device="cuda")
+    out["load_s"] = served.load_s
+    ok1 = (len(rows) == exports["test_rows"] == exports["rows"]
+           and sums <= 1e-5 and served.ops == ("flash_fwd",)
+           and served.platforms == ("cuda",))
+    print(f"front ends (1): {len(rows)} rows (test split "
+          f"{exports['test_rows']}), max|sum-1| {sums:.1e}; bundle "
+          f"{out['bundle_gb']:.3f} GB, ops {served.ops}, export "
+          f"{out['export_s']:.1f} s, save {out['save_s']:.1f} s, load "
+          f"{out['load_s']:.1f} s", flush=True)
+    if not ok1:
+        raise SystemExit("the run's serving exports failed their checks")
+
+    # (2) the bundle in this process against a live Predictor on its
+    # weights
+    model = TAVModel(spec, device="cuda")
+    model.load_state_dict({k[len("model."):]: v for k, v in
+                           served.module.state_dict().items()}, strict=True)
+    live = Predictor(model, batch_size=8, device="cuda")
+    reqs = bundle_requests(spec)
+    chunks = sum(-(-len(r["input_ids"]) // 8) for r in reqs)
+    served(reqs[0])
+    live(reqs[0])                                   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = [served(r) for r in reqs]
+    torch.cuda.synchronize()
+    count = dict(kernels.LAUNCHES)
+    want = [live(r) for r in reqs]
+    diff, same = served_diff(got, want, tol)
+    out["bundle_ms_per_batch_of_8"], out["bundle_times_ms"] = median_ms(
+        served, reqs[0])
+    out["live_ms_per_batch_of_8"], out["live_times_ms"] = median_ms(
+        live, reqs[0])
+    out["bundle_vs_live_max_abs"] = diff
+    per_chunk = {k: v // chunks for k, v in count.items() if v}
+    out["bundle_launches_per_chunk"] = per_chunk
+    print(f"front ends (2): {chunks} chunks through the bundle, launches "
+          f"{count} (expected {LAUNCHES_PER_CHUNK * chunks} flash_fwd); "
+          f"max|probs - probs(live)| = {diff:.3e} (tol {tol}), predictions "
+          f"agree {same}; ms per batch of 8: bundle "
+          f"{out['bundle_ms_per_batch_of_8']:.1f}, live "
+          f"{out['live_ms_per_batch_of_8']:.1f}", flush=True)
+    if not (same and diff <= tol
+            and count["flash_fwd"] == LAUNCHES_PER_CHUNK * chunks
+            and sum(count.values()) == count["flash_fwd"]):
+        raise SystemExit("the bundle did not serve as the live model")
+
+    # (3) a second bundle exported with both knobs on: K1, K4a and K5a
+    # through the operators
+    knobs_bundle = os.path.join(front_dir, "bundle_knobs_on")
+    with knobs_on():
+        info = export_bundle(model, reqs[0], knobs_bundle, batch_size=8,
+                             device="cuda")
+    out["knobs_on"] = {"export_s": info["export_s"], "save_s": info["save_s"],
+                       "bundle_gb": info["bytes"] / 1e9}
+    served_on = load_bundle(knobs_bundle, device="cuda")
+    out["knobs_on"]["load_s"] = served_on.load_s
+    served_on(reqs[0])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got_on = [served_on(r) for r in reqs]
+    torch.cuda.synchronize()
+    count_on = dict(kernels.LAUNCHES)
+    diff_on, same_on = served_diff(got_on, want, tol)
+    ln_per_chunk = sum(fused_ln_shapes(spec, 8).values())
+    expect_on = {"flash_fwd": LAUNCHES_PER_CHUNK * chunks,
+                 "fused_mlp_fwd": LAUNCHES_PER_CHUNK * chunks,
+                 "layer_norm_fwd": ln_per_chunk * chunks}
+    knobs_per_chunk = {k: v // chunks for k, v in count_on.items() if v}
+    out["knobs_on"].update(launches_per_chunk=knobs_per_chunk,
+                           max_abs_vs_live=diff_on, ops=list(served_on.ops))
+    (out["knobs_on"]["ms_per_batch_of_8"],
+     out["knobs_on"]["times_ms"]) = median_ms(served_on, reqs[0])
+    print(f"front ends (3): knobs-on bundle launches {count_on} (expected "
+          f"{expect_on}); max|probs - probs(live, knobs off)| = "
+          f"{diff_on:.3e} (tol {tol}), predictions agree {same_on}",
+          flush=True)
+    del served_on
+    if not (same_on and diff_on <= tol
+            and {k: v for k, v in count_on.items() if v} == expect_on
+            and out["knobs_on"]["ops"] == ["flash_fwd", "fused_mlp_fwd",
+                                           "layer_norm_fwd"]):
+        raise SystemExit("the knobs-on bundle did not serve through K1, K4a "
+                         "and K5a")
+
+    # (4) over HTTP: the bundle through the real entry point in a process
+    # of its own, then a live Predictor behind the same service here
+    one = {k: v[:1] for k, v in reqs[0].items()}
+    body = instances(one, [0])
+    proc, url = start_daemon(bundle)
+    try:
+        health = http_json(f"{url}/healthz")
+        http_json(f"{url}/predict", body)               # warm-up
+        times, answer = [], None
+        for _ in range(3):
+            t = time.perf_counter()
+            answer = http_json(f"{url}/predict", body)["predictions"]
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        stop_daemon(proc)
+    http_diff = float(np.abs(np.asarray(answer[0]["probs"])
+                             - got[0][1][0]).max())
+    http_ok = (health["status"] == "ok" and health["batch_size"] == 8
+               and answer[0]["pred"] == int(got[0][0][0])
+               and http_diff <= tol)
+    out["http_bundle"] = {"ms_per_request": float(np.median(times)),
+                          "times_ms": times, "request_bytes": len(body),
+                          "utterances": 1, "max_abs_vs_bundle": http_diff}
+    u8 = requests(spec)[0]
+    rows3 = {k: v[:3] for k, v in u8.items()}
+    body3 = instances(rows3, range(3))
+    server = make_server(PredictionService(live, id2label=None))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        url3 = "http://%s:%d" % server.server_address[:2]
+        http_json(f"{url3}/predict", body3)             # warm-up
+        times3, answer3 = [], None
+        for _ in range(3):
+            t = time.perf_counter()
+            answer3 = http_json(f"{url3}/predict", body3)["predictions"]
+            times3.append((time.perf_counter() - t) * 1e3)
+    finally:
+        server.shutdown()
+        server.server_close()
+    direct = live(rows3)
+    live_diff, live_same = served_diff(
+        [(np.array([r["pred"] for r in answer3]),
+          np.array([r["probs"] for r in answer3]))], [direct], tol)
+    out["http_live_uint8"] = {"ms_per_request": float(np.median(times3)),
+                              "times_ms": times3,
+                              "request_bytes": len(body3), "utterances": 3,
+                              "max_abs_vs_predictor": live_diff}
+    print(f"front ends (4): daemon {url} healthz {health['status']}; one "
+          f"float-video utterance ({len(body) / 1e6:.1f} MB) "
+          f"{out['http_bundle']['ms_per_request']:.0f} ms, max|probs - "
+          f"bundle| {http_diff:.1e}; live service, 3 uint8 utterances "
+          f"({len(body3) / 1e6:.1f} MB) "
+          f"{out['http_live_uint8']['ms_per_request']:.0f} ms, max|probs - "
+          f"Predictor| {live_diff:.1e}", flush=True)
+    del served, live, model
+    torch.cuda.empty_cache()
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"front_ends": {**out, "card": card}}), flush=True)
+    if not (http_ok and live_same and live_diff <= tol):
+        raise SystemExit("serving over HTTP failed its checks")
+    return {"flash_fwd": per_chunk["flash_fwd"], "knobs_on": knobs_per_chunk}
 
 
 def main() -> int:
@@ -1647,7 +1952,15 @@ def main() -> int:
     served, served_knobs = main_path(card)
     params, step, step_fused, step_knobs, step_ms = train_path(card)
     torch.cuda.empty_cache()
-    loop = train_loop(params, card, step_ms)
+    front_dir = tempfile.mkdtemp(prefix="mme_front_")
+    try:
+        loop, exports, loop_spec = train_loop(params, card, step_ms,
+                                              front_dir)
+        del params
+        torch.cuda.empty_cache()
+        bundle = front_ends(card, loop_spec, front_dir, exports)
+    finally:
+        shutil.rmtree(front_dir, ignore_errors=True)
 
     def entry(name, route, source, replaces, result):
         """A kernel of this slice: launches of one training step with both
@@ -1657,6 +1970,7 @@ def main() -> int:
                "replaces": replaces, "launches": step_knobs[name], **result}
         if name.endswith("_fwd"):
             out["launches_serve_chunk"] = served_knobs[name]
+            out["launches_bundle_chunk"] = bundle["knobs_on"][name]
         return out
 
     def flash_entry(name, source, replaces, shapes, per, err, launches):
@@ -1679,7 +1993,8 @@ def main() -> int:
                     "launches_per_chunk", fwd_err,
                     {"launches": served,
                      "launches_train_step": step["flash_fwd"],
-                     "launches_train_loop": loop["flash_fwd"]}),
+                     "launches_train_loop": loop["flash_fwd"],
+                     "launches_bundle_chunk": bundle["flash_fwd"]}),
         flash_entry("flash_bwd", "mme_tpu_torch/csrc/flash_bwd.cu",
                     "mme_tpu/ops/flash_attention.py:184", bwd_shapes,
                     "launches_per_step", bwd_err,

@@ -8,13 +8,15 @@ its weights loaded (JAX's takes ``apply_fn`` and a parameter tree) and
 builds the rest as JAX does: class and sample weights, AdamW over cosine
 warm restarts with the trainable mask, the state without an accumulation
 buffer, the loss of ``--loss``, the train and eval steps, a ``RunLogger``,
-then the loop and the test pass.
+then the loop and the test pass, and after it the serving exports:
+``MME_PREDICT_OUT`` (a JSONL prediction log of the test split) and
+``MME_EXPORT_BUNDLE`` (a deployment bundle of the trained model,
+``serve.py::export_bundle``).
 
 Knobs that need parts the port does not have yet raise
-``NotImplementedError`` before any work: ``MME_PREDICT_OUT`` and
-``MME_EXPORT_BUNDLE`` (serving exports, ROADMAP Queue 1 item 4),
-``MME_MESH`` or more than one device through ``MME_MP`` / ``MME_DP``
-(parallel axes, item 7).
+``NotImplementedError`` before any work: ``MME_MESH`` or more than one
+device through ``MME_MP`` / ``MME_DP`` (the parallel axes and mesh
+serving, ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -32,13 +34,15 @@ from mme_tpu_torch.convert import factored_views
 from mme_tpu_torch.data.dataset import ArrayDataset, BucketedBatchIter
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.evals.metrics import Metrics
+from mme_tpu_torch.serve import Predictor, export_bundle
 from mme_tpu_torch.train.checkpoint import CheckpointManager
 from mme_tpu_torch.train.losses import class_weights_from_counts, make_loss_fn
 from mme_tpu_torch.train.loop import LoopCallbacks, evaluate, train_network
 from mme_tpu_torch.train.policies import sample_weights_from_labels
 from mme_tpu_torch.train.schedules import cosine_warm_restarts
 from mme_tpu_torch.train.steps import (TrainState, make_eval_step,
-                                       make_optimizer, make_train_step)
+                                       make_optimizer, make_train_step,
+                                       to_device)
 from mme_tpu_torch.utils.profiling import RunLogger
 
 MELD_EMOTIONS = ["neutral", "joy", "sadness", "anger", "surprise",
@@ -117,12 +121,6 @@ def make_bucket_iter(audio_len: int, default_on: bool = True
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
-    for var, item in (("MME_PREDICT_OUT", "the serving prediction log, "
-                       "ROADMAP Queue 1 item 4"),
-                      ("MME_EXPORT_BUNDLE", "the serving bundle, ROADMAP "
-                       "Queue 1 item 4")):
-        if os.environ.get(var):
-            raise NotImplementedError(f"{var} needs {item}, not ported yet")
     if os.environ.get("MME_MESH", "off") != "off":
         raise NotImplementedError("MME_MESH needs the parallel axes, "
                                   "ROADMAP Queue 1 item 7, not ported yet")
@@ -152,7 +150,8 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
     ``cfg.checkpoint_dir``. Environment: ``MME_OPT_STATE``,
     ``MME_LOG_NORMS``, ``MME_LOG_HISTS``, ``MME_RUN_DIR``,
     ``MME_EVAL_ONLY`` (restore the best checkpoint and only evaluate),
-    ``MME_RESUME``, ``MME_DUMP_PREDICTIONS``."""
+    ``MME_RESUME``, ``MME_DUMP_PREDICTIONS``, ``MME_PREDICT_OUT``,
+    ``MME_EXPORT_BUNDLE``."""
     _refuse_unported(cfg)
     dev = resolve_device(device)
     model.to(dev)
@@ -220,5 +219,43 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
                        callbacks=cb, dump_path=dump_path,
                        batch_iter=batch_iter, **kwargs)
     print_log(summary)
+    _serving_exports(cfg, model, test_ds, batch_transform, id2label, dev,
+                     _log)
     logger.finish()
     return summary
+
+
+def _serving_exports(cfg: ExperimentConfig, model: nn.Module,
+                     test_ds: ArrayDataset, batch_transform,
+                     id2label: Dict[int, str], dev: torch.device,
+                     log) -> None:
+    """``MME_PREDICT_OUT``: ``Predictor.predict_dataset`` rows over the test
+    split, through the run's ``batch_transform``, as JSONL.
+    ``MME_EXPORT_BUNDLE``: a bundle of the trained model on ``dev``; its
+    example goes through the same transform (generator seeded with 0), so
+    its features are the transformed ones (normalised float video and
+    ``video_keep`` for the TAV model)."""
+    predict_out = os.environ.get("MME_PREDICT_OUT")
+    if predict_out:
+        was_training = model.training
+        predictor = Predictor(model, batch_size=cfg.batch_size, device=dev)
+        rows = 0
+        with open(predict_out, "w") as fh:
+            for row in predictor.predict_dataset(
+                    test_ds, id2label, batch_transform=batch_transform):
+                fh.write(json.dumps(row) + "\n")
+                rows += 1
+        model.train(was_training)
+        log({"predict_out": predict_out, "rows": rows})
+    export_dir = os.environ.get("MME_EXPORT_BUNDLE")
+    if export_dir:
+        example = {k: np.asarray(v[:cfg.batch_size])
+                   for k, v in test_ds.features.items()}
+        if batch_transform is not None:
+            example = {k: v.cpu().numpy() for k, v in batch_transform(
+                torch.Generator(device=dev).manual_seed(0),
+                to_device(example, dev)).items()}
+        info = export_bundle(model, example, export_dir,
+                             batch_size=cfg.batch_size, id2label=id2label,
+                             device=dev)
+        log({"export_bundle": export_dir, **info})

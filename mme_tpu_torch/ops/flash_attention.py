@@ -13,8 +13,12 @@ block knobs) are not carried over.
   compute the same functions directly, written from the kernels'
   arithmetic. The CPU path, the tests and ``chip_smoke.py`` use them as the
   kernels' references.
-- :class:`FlashAttention` ties the two together under ``torch.autograd``
-  (the counterpart of the ``custom_vjp`` around the TPU kernels).
+- :data:`flash_fwd_op` is the forward as the operator
+  ``mme_tpu_torch::flash_fwd`` (:func:`kernels.define_op`), so that
+  ``torch.export`` records it by name.
+- :class:`FlashAttention` ties the operator and the backward together under
+  ``torch.autograd`` (the counterpart of the ``custom_vjp`` around the TPU
+  kernels).
 - :func:`flash_bwd_prepass` is the backward's first launch alone (delta and
   the masked-row correction), :func:`bounds` the least time the card could
   take for a call.
@@ -110,7 +114,8 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     dead = torch.isneginf(lse)         # every score -inf: O = 0, sentinel LSE
     out = out.masked_fill(dead.permute(0, 2, 1)[..., None], 0.0)
     lse = lse.masked_fill(dead, LSE_MASKED)
-    return out.to(q.dtype), lse
+    # contiguous, as the kernel writes it
+    return out.to(q.dtype).contiguous(), lse
 
 
 def _check(q, k, v, bias_k, fn: str = "flash_attention_fwd") -> list:
@@ -193,6 +198,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
     kernels.LAUNCHES[KERNEL] += 1
     return out, lse
+
+
+def _flash_fwd_fake(q, k, v, bias_k):
+    B, Sq, H, D = q.shape
+    return (q.new_empty((B, Sq, H, D)),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+flash_fwd_op = kernels.define_op(
+    "flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias_k) "
+    "-> (Tensor, Tensor)", flash_attention_fwd, _flash_fwd_fake)
 
 
 def _masked_row_correction(bias_k: Optional[torch.Tensor],
@@ -373,7 +389,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias_k):
-        out, lse = flash_attention_fwd(q, k, v, bias_k)
+        out, lse = flash_fwd_op(q, k, v, bias_k)
         ctx.save_for_backward(q, k, v, bias_k, out, lse)
         return out
 

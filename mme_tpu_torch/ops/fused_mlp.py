@@ -16,16 +16,19 @@ them; the activation, its derivative and the bias sums are fp32. The
 residual is ``(x, w1, b1, w2)`` only: no [N, F] tensor outlives a call.
 
 - :func:`fused_mlp` is a ``torch.autograd.Function`` behind a plain
-  function. For CUDA tensors it launches the kernels or raises; for CPU
-  tensors it runs the plain versions below. Each wrapper call counts one
-  launch, whatever number of kernels it starts. In bf16 the products run on
-  Hopper's ``wgmma`` with TMA-fed operands (``csrc/sm90_gemm.cuh``): the
-  forward is two launches through a transient ``a`` [N, F], the backward two
-  through transient ``a`` and ``dh`` [N, F] and one fp32 row of db1 partial
-  sums per 128 rows (:func:`scratch_shapes`), all allocated here with
-  ``torch.empty`` and freed when the call returns; db1 and db2 are then
-  summed by ``torch.sum`` in a fixed order. fp32 keeps the FMA kernels (no
-  TF32), which write every output themselves.
+  function. Its forward goes through :data:`fused_mlp_fwd_op`, the
+  operator ``mme_tpu_torch::fused_mlp_fwd`` that ``torch.export`` records
+  by name (:func:`kernels.define_op`). For CUDA tensors it launches the
+  kernels or raises; for CPU tensors it runs the plain versions below.
+  Each wrapper call counts one launch, whatever number of kernels it
+  starts. In bf16 the products run on Hopper's ``wgmma`` with TMA-fed
+  operands (``csrc/sm90_gemm.cuh``): the forward is two launches through
+  a transient ``a`` [N, F], the backward two through transient ``a`` and
+  ``dh`` [N, F] and one fp32 row of db1 partial sums per 128 rows
+  (:func:`scratch_shapes`), all allocated here with ``torch.empty`` and
+  freed when the call returns; db1 and db2 are then summed by
+  ``torch.sum`` in a fixed order. fp32 keeps the FMA kernels (no TF32),
+  which write every output themselves.
 - :func:`gemm_bf16` is the bf16 product core alone, ``a @ b`` for
   either storage order of each operand, for the card-side tests.
 - :func:`fused_mlp_fwd_plain` and :func:`fused_mlp_bwd_plain` compute the
@@ -252,6 +255,12 @@ def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out
 
 
+fused_mlp_fwd_op = kernels.define_op(
+    "fused_mlp_fwd(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+    "str act) -> Tensor", fused_mlp_fwd,
+    lambda x, w1, b1, w2, b2, act: x.new_empty(x.shape))
+
+
 def fused_mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, do: torch.Tensor, act: str = "gelu"
                   ) -> Tuple[torch.Tensor, ...]:
@@ -362,7 +371,7 @@ class _FusedMlp(torch.autograd.Function):
         ctx.save_for_backward(x, w1, b1, w2)
         ctx.act = act
         ctx.b2_dtype = b2.dtype
-        return fused_mlp_fwd(x, w1, b1, w2, b2, act)
+        return fused_mlp_fwd_op(x, w1, b1, w2, b2, act)
 
     @staticmethod
     def backward(ctx, do):

@@ -16,6 +16,16 @@ Every wrapper launches the same way: :func:`entry` gives the C entry point
 with its argument types set on the first call only, and
 :func:`launch_context` the current stream, with a device guard only when the
 tensor is not on the current device.
+
+The forward wrappers on the serving path (K1, K4a, K5a) are also operators
+of the ``mme_tpu_torch`` namespace (:func:`define_op`), so that
+``torch.export`` records them by name: a ctypes launch reads
+``data_ptr()``, which a traced (fake) tensor does not have. Each operator
+has the wrapper as its CPU and CUDA kernel and a fake implementation that
+gives the outputs' shapes, dtypes and strides. They are registered with
+``torch.library.Library`` directly rather than ``torch.library.custom_op``:
+the same schema, fake and name, without the Python layer that
+``custom_op`` adds to every call (its host cost is in ``PERF.md``).
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {}
+OPS = torch.library.Library("mme_tpu_torch", "FRAGMENT")
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], Callable] = {}
 
@@ -132,3 +143,17 @@ def launch_context(dev: torch.device):
     guard = (contextlib.nullcontext() if index == current
              else torch.cuda.device(index))
     return guard, torch._C._cuda_getCurrentRawStream(index)
+
+
+def define_op(schema: str, impl: Callable, fake: Callable):
+    """Registers the operator ``mme_tpu_torch::<schema>`` with ``impl`` as
+    its CPU and CUDA kernel and ``fake`` as its implementation for traced
+    tensors; returns its overload (``torch.ops.mme_tpu_torch.<name>.default``).
+    No autograd kernel: the callers differentiate through their own
+    ``torch.autograd.Function``."""
+    name = schema.split("(", 1)[0]
+    OPS.define(schema)
+    for key in ("CPU", "CUDA"):
+        OPS.impl(name, impl, key)
+    torch.library.register_fake(f"mme_tpu_torch::{name}", fake, lib=OPS)
+    return getattr(torch.ops.mme_tpu_torch, name).default

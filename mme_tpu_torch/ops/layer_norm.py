@@ -19,7 +19,9 @@ computes the variance another way, so the port writes its own.
   (or raises); for a CPU tensor it runs :func:`fused_layer_norm_fwd_plain`
   and :func:`fused_layer_norm_bwd_plain`, the same arithmetic in torch ops
   (the backward is the kernel's explicit formula, not autograd of the
-  forward).
+  forward). Its forward goes through :data:`layer_norm_fwd_op`, the
+  operator ``mme_tpu_torch::layer_norm_fwd`` that ``torch.export`` records
+  by name (:func:`kernels.define_op`).
 
 Both kernels are bound by bytes (forward: x in, y out; backward: g and x
 in, dx out; :func:`bounds`), so the design moves each element once and
@@ -283,6 +285,12 @@ def fused_layer_norm_fwd(x2d: torch.Tensor, weight: torch.Tensor,
     return y
 
 
+layer_norm_fwd_op = kernels.define_op(
+    "layer_norm_fwd(Tensor x, Tensor weight, Tensor bias, float eps, "
+    "ScalarType dtype) -> Tensor", fused_layer_norm_fwd,
+    lambda x2d, weight, bias, eps, dtype: torch.empty_like(x2d, dtype=dtype))
+
+
 _WORKSPACE: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
 
 
@@ -343,7 +351,7 @@ class _FusedLayerNorm(torch.autograd.Function):
         ctx.save_for_backward(x2d, weight)
         ctx.eps = eps
         ctx.bias_dtype = bias.dtype
-        return fused_layer_norm_fwd(x2d, weight, bias, eps, dtype)
+        return layer_norm_fwd_op(x2d, weight, bias, eps, dtype)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,4 +1,5 @@
-"""Video-path ops: sinusoid tables, keep masks, visible-patch gathering.
+"""Video-path ops: sinusoid tables, keep masks, visible-patch gathering,
+uint8 normalisation.
 
 Port of ``mme_tpu/ops/video.py``. ``balanced_keep_mask`` draws from a
 ``torch.Generator``, so its bits differ from JAX's; it is held to the same
@@ -11,6 +12,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from mme_tpu_torch.data.records import IMAGENET_MEAN, IMAGENET_STD
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -56,3 +59,14 @@ def gather_visible(x: torch.Tensor, keep: torch.Tensor,
                           stable=True)
     idx = order[:, :keep_k]
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def normalize_uint8_video(video: torch.Tensor) -> torch.Tensor:
+    """uint8 [B, T, H, W, C] → ImageNet-normalised fp32 on the same device.
+    All-zero frames (padding) map to exact 0.0, as the fp32 path pads after
+    normalisation; an all-black real frame is zeroed too."""
+    valid = video.reshape(video.shape[0], video.shape[1], -1).amax(-1) > 0
+    mean = torch.as_tensor(IMAGENET_MEAN, device=video.device)
+    std = torch.as_tensor(IMAGENET_STD, device=video.device)
+    vf = (video.float() / 255.0 - mean) / std
+    return vf * valid[:, :, None, None, None]

@@ -9,7 +9,11 @@ bias of the text, audio and fusion towers) it prints, as one JSON line:
   calls after 3 warm-up), with TFLOP/s and the bound
   (``ops/flash_attention.py::bounds``);
 - the host time of a wrapper call (µs on the host clock over 200 calls
-  queued back to back, before the device is waited for);
+  queued back to back, before the device is waited for), and for the
+  forward also through ``FlashAttention.apply`` without gradients, through
+  the operator ``mme_tpu_torch::flash_fwd`` alone, and through the same
+  wrapper registered as a ``torch.library.custom_op`` instead
+  (:func:`route_host_us`);
 - each kernel a wrapper call starts, in launch order, by its device time in
   a ``torch.profiler`` trace (5 calls, each after a marker kernel;
   :func:`kernel_ms`, which ``time_fused_mlp.py`` uses too);
@@ -36,13 +40,16 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from mme_tpu_torch.device import card_line
+from mme_tpu_torch.ops import flash_attention
 from mme_tpu_torch.ops.attention import additive_mask
-from mme_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+from mme_tpu_torch.ops.flash_attention import (FlashAttention,
+                                               flash_attention_bwd,
                                                flash_attention_fwd)
 
 # (tower, batch, sequence, heads, launches per chunk or step), head_dim 64
@@ -133,6 +140,42 @@ def host_us(fn, calls: int = 200) -> float:
     return us
 
 
+_CUSTOM_OP = []
+
+
+def custom_op_route():
+    """The forward wrapper as a ``torch.library.custom_op`` (the route the
+    port does not take), registered at first use, to time its host cost
+    beside the operator the port registers."""
+    if not _CUSTOM_OP:
+        def fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                bias_k: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+            return flash_attention_fwd(q, k, v, bias_k)
+        op = torch.library.custom_op("time_flash::flash_fwd", fwd,
+                                     mutates_args=())
+        op.register_fake(flash_attention._flash_fwd_fake)
+        _CUSTOM_OP.append(op)
+    return _CUSTOM_OP[0]
+
+
+def route_host_us(q, k, v, bias) -> dict:
+    """Host µs per forward call by route: ``FlashAttention.apply`` without
+    gradients (what a served model calls; every checkout has it), and,
+    where the checkout registers the operator, the operator alone and the
+    same wrapper as a ``custom_op``."""
+    out = {}
+    with torch.no_grad():
+        out["apply_host_us"] = host_us(
+            lambda: FlashAttention.apply(q, k, v, bias))
+        op = getattr(flash_attention, "flash_fwd_op", None)
+        if op is not None:
+            out["op_host_us"] = host_us(lambda: op(q, k, v, bias))
+            custom = custom_op_route()
+            out["custom_op_host_us"] = host_us(lambda: custom(q, k, v, bias))
+    return out
+
+
 def time_tree() -> dict:
     """Times only, through the wrappers that every checkout of the port
     has; the bounds are added by the caller."""
@@ -158,6 +201,7 @@ def time_tree() -> dict:
             row[key] = {"ms": event_ms(call, iters=20),
                         "host_us": host_us(call), "kernels": kernel_ms(call),
                         "sdpa_ms": event_ms(sdpa[key], iters=20)}
+        row["fwd"].update(route_host_us(q, k, v, bias))
         rows.append(row)
         del o_lib, leaves
     return {"flash": rows}

@@ -18,10 +18,11 @@ from torch import nn
 
 from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import factored_views, from_flax, init_params
-from mme_tpu_torch.data.records import IMAGENET_MEAN, IMAGENET_STD
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
-from mme_tpu_torch.ops.video import balanced_keep_mask, uniform_keep_mask
+from mme_tpu_torch.ops.video import (balanced_keep_mask,
+                                     normalize_uint8_video,
+                                     uniform_keep_mask)
 from mme_tpu_torch.train.schedules import cosine_warm_restarts
 from mme_tpu_torch.train.steps import (TrainState, make_eval_step,
                                        make_optimizer, make_train_step)
@@ -50,17 +51,6 @@ def example_tav_batch(spec: TAVSpec, batch_size: int, text_len: int,
             dtype=np.float32),
         "video_keep": keep,
     }
-
-
-def normalize_uint8_video(video: torch.Tensor) -> torch.Tensor:
-    """uint8 [B, T, H, W, C] → ImageNet-normalised fp32 on the same device.
-    All-zero frames (padding) map to exact 0.0, as the fp32 path pads after
-    normalisation; an all-black real frame is zeroed too."""
-    valid = video.reshape(video.shape[0], video.shape[1], -1).amax(-1) > 0
-    mean = torch.as_tensor(IMAGENET_MEAN, device=video.device)
-    std = torch.as_tensor(IMAGENET_STD, device=video.device)
-    vf = (video.float() / 255.0 - mean) / std
-    return vf * valid[:, :, None, None, None]
 
 
 def make_video_keep_transform(spec: TAVSpec, random_mask: bool = True

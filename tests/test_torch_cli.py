@@ -160,8 +160,6 @@ def test_main_prints_reference_keyed_dicts(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("case", [
-    ("env", "MME_PREDICT_OUT", "item 4"), ("env", "MME_EXPORT_BUNDLE",
-                                           "item 4"),
     ("env", "MME_MESH", "item 7"), ("env", "MME_MP", "item 7"),
     ("env", "MME_DP", "item 7"), ("env", "MME_SP", "item 7"),
     ("env", "MME_PP", "item 7"), ("env", "MME_COORDINATOR", "item 7"),

@@ -800,3 +800,125 @@ def test_mlp_module_dispatch_and_autograd_on_cuda(cuda, monkeypatch):
                   torch.zeros(64, device="cuda"),
                   torch.zeros(256, 64, device="cuda"),
                   torch.zeros(256, device="cuda"))
+
+
+# --- the forward kernels as operators, and a bundle exported on the card ---
+# Each operator against its plain version on the card (TOL, or the MLP's
+# share of the largest element) and against its fake implementation
+# (shapes, dtypes, strides: torch.library.opcheck). The bundle: a small
+# encoder classifier exported with both knobs on, served through the three
+# operators, against the live model within SERVE_TOL[bf16] of chip_smoke.py
+# (bf16 differences carried through two layers; measured far below).
+
+def _operator_cases(dtype):
+    from mme_tpu_torch.ops.fused_mlp import (fused_mlp_fwd_op,
+                                             fused_mlp_fwd_plain)
+    from mme_tpu_torch.ops.layer_norm import (fused_layer_norm_fwd_plain,
+                                              layer_norm_fwd_op)
+    from mme_tpu_torch.ops.flash_attention import flash_fwd_op
+    q, k, v, bias = _inputs(2, 70, 70, 3, 64, dtype, [70, 31])
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(1100, 256, generator=g, device="cuda").to(dtype)
+    w = torch.randn(256, generator=g, device="cuda")
+    w1 = (torch.randn(512, 256, generator=g, device="cuda") * 0.05).to(dtype)
+    w2 = (torch.randn(256, 512, generator=g, device="cuda") * 0.05).to(dtype)
+    b1 = torch.randn(512, generator=g, device="cuda")
+    return {
+        "flash_fwd": (flash_fwd_op, (q, k, v, bias),
+                      flash_attention_fwd_plain),
+        "layer_norm_fwd": (layer_norm_fwd_op, (x, w, w * 0.5, 1e-6, dtype),
+                           fused_layer_norm_fwd_plain),
+        "fused_mlp_fwd": (fused_mlp_fwd_op, (x, w1, b1, w2, w, "gelu"),
+                          fused_mlp_fwd_plain)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["flash_fwd", "layer_norm_fwd",
+                                  "fused_mlp_fwd"])
+def test_forward_operator_matches_plain_and_fake(cuda, name, dtype):
+    op, args, plain = _operator_cases(dtype)[name]
+    before = kernels.LAUNCHES[name]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    want = plain(*args)
+    for a, r in zip(*((got, want) if isinstance(got, tuple)
+                      else ((got,), (want,)))):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert a.is_contiguous() and a.device.type == "cuda"
+        if name == "fused_mlp_fwd":
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            assert ((a.float() - r.float()).abs().max()
+                    <= tol * r.float().abs().max())
+        else:
+            atol, rtol = TOL[dtype]
+            torch.testing.assert_close(a.float(), r.float(), atol=atol,
+                                       rtol=rtol)
+    result = torch.library.opcheck(
+        op, args, test_utils=("test_schema", "test_faketensor"))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+class _EncoderClassifier(torch.nn.Module):
+    def __init__(self, spec, device):
+        super().__init__()
+        self.encoder = TransformerEncoder(spec, device=device)
+        self.head = torch.nn.Linear(spec.hidden, 5, device=device)
+
+    def forward(self, batch):
+        keep = batch["mask"]
+        h = self.encoder(batch["x"], additive_mask(keep))
+        pooled = (h.float() * keep[..., None]).sum(1) / keep.sum(1,
+                                                                 keepdim=True)
+        return self.head(pooled)
+
+
+def test_bundle_exported_on_card_serves_through_the_operators(
+        cuda, tmp_path, monkeypatch):
+    """A two-layer bf16 encoder classifier (hidden 256, 4 heads, 4 x 300
+    rows per chunk) exported on the card with MME_FUSED_LN=1
+    MME_FUSED_MLP=1: its program calls the three operators, the bundle
+    serves on the card with K1, K4a and K5a launched per chunk as the live
+    model launches them, and matches the live model."""
+    import numpy as np
+    from mme_tpu_torch.serve import Predictor, export_bundle, load_bundle
+    spec = EncoderSpec(hidden=256, heads=4, layers=2, intermediate=512,
+                       ln_style="pre", dtype=torch.bfloat16)
+    model = _EncoderClassifier(spec, cuda)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * 0.1)
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.standard_normal((6, 300, 256), dtype=np.float32),
+             "mask": (np.arange(300)[None, :]
+                      < np.array([300, 200, 5, 300, 1, 90])[:, None]
+                      ).astype(np.float32)}
+    monkeypatch.setenv("MME_FUSED_LN", "1")
+    monkeypatch.setenv("MME_FUSED_MLP", "1")
+    live = Predictor(model, batch_size=4, device="cuda")
+    names = ("flash_fwd", "layer_norm_fwd", "fused_mlp_fwd")
+    before = {k: kernels.LAUNCHES[k] for k in names}
+    preds, probs = live(batch)
+    live_count = {k: kernels.LAUNCHES[k] - before[k] for k in names}
+    assert live_count["flash_fwd"] == 4 and live_count["fused_mlp_fwd"] == 4
+    # 2 chunks x 2 layers x (ln1, ln2)
+    assert live_count["layer_norm_fwd"] == 8
+    info = export_bundle(model, batch, str(tmp_path / "b"), batch_size=4,
+                         device="cuda")
+    assert info["bytes"] > 0
+    monkeypatch.delenv("MME_FUSED_LN")
+    monkeypatch.delenv("MME_FUSED_MLP")
+    served = load_bundle(str(tmp_path / "b"), device="cuda")
+    assert served.platforms == ("cuda",)
+    before = {k: kernels.LAUNCHES[k] for k in names}
+    b_preds, b_probs = served(batch)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in names} == live_count
+    np.testing.assert_allclose(b_probs, probs, atol=5e-2)
+    margin = np.sort(probs, -1)[:, -1] - np.sort(probs, -1)[:, -2]
+    sure = margin > 5e-2
+    np.testing.assert_array_equal(b_preds[sure], preds[sure])
+    with pytest.raises(ValueError, match="cannot serve on cpu"):
+        load_bundle(str(tmp_path / "b"), device="cpu")
