@@ -125,9 +125,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        this process with 3 uint8-video utterances against the Predictor
        itself. Prints ms per request and request bytes, the phase's time
        and peak memory; the temporary directory is deleted.
+8. The rest of the fusion family at full width and depth: ``TAVFormer``,
+   ``TAVForMAE2Tower``, ``TAVForW2V2`` and the sparse-MoE ``TAVMoE``, each
+   ``TAVSpec(output_dim=7)`` with weights from ``init_params(spec, seed,
+   model=name)``, one after another, each freed before the next:
+   (1) served by ``Predictor(batch_size=8)`` on phase 4's requests in bf16
+       against ``MME_FLASH=0`` (K1 per chunk: 12, 18, 12, 12), then with
+       ``MME_FUSED_LN=1 MME_FUSED_MLP=1`` against the knobs-off
+       probabilities (K5a: 12, 18, 12, 6; K4a from the spec,
+       ``time_layer_norm.ln_sites(model=name)``); a zero-padded partial
+       chunk gives its rows the probabilities of a full chunk. ``TAVMoE``
+       holds both comparisons in fp32, where every token's expert set must
+       agree (a flip is allowed only at a near-tie of the router, and then
+       the run is not held to the fp32 tolerance but says so); its bf16 leg
+       checks finite probabilities and prints how many tokens routed
+       differently;
+   (2) trained: fp32, no dropout, batch 4, loss and gradients with the
+       kernels against ``MME_FLASH=0`` (K1 and K2 as in serving; for
+       ``TAVMoE`` the aux term finite, positive and in the loss, the
+       router's gradient nonzero); then four bf16 steps on one batch of 8
+       with ``MME_OPT_STATE=bf16 MME_FUSED_ADAM=1`` and both knobs on: the
+       eval loss after them below the one before, one K3 launch per step;
+   (3) ``TAVMoE`` only: ``run_classifier(..., has_aux_loss=True)`` for one
+       epoch of 4 steps and one validation (bf16, ``MME_OPT_STATE=bf16
+       MME_FUSED_ADAM=1``) with ``MME_EXPORT_BUNDLE`` set, and the bundle
+       loaded with ``load_bundle(device="cuda")`` against a live
+       ``Predictor`` on its weights (12 K1 per chunk through the operator).
+   Prints one JSON line per model: parameters, ms per batch of 8 served
+   with the knobs off and on, ms per bf16 train step, peak memory, every
+   launch count, the model's seconds and the card.
 
-Then one JSON line of per-kernel results (seven kernels), the card's name
-and power limit, and last the line ``{"ok": true, "device": {...}}``.
+Then one JSON line of per-kernel results (seven kernels; ``launches_<model>``
+gives phase 8's counts: a served chunk with both knobs on for a forward
+kernel, a bf16 train step for the others), the card's name and power limit,
+and last the line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -161,7 +192,9 @@ from mme_tpu_torch.convert import from_flax, init_params
 from mme_tpu_torch.data.dataset import batches
 from mme_tpu_torch.data.synthetic import synthetic_tav_dataset
 from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES, card_line
-from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
+from mme_tpu_torch.models.fusion import (FUSION_MODELS, TAVModel,
+                                         TAVMoEFormer, TAVSpec)
+from mme_tpu_torch.models.moe import MoEMlp, router_gates
 from mme_tpu_torch import time_adam
 from mme_tpu_torch.ops import adam_update, kernels
 from mme_tpu_torch.ops.adam_update import (adam_update_leaf,
@@ -195,8 +228,9 @@ from mme_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
 from mme_tpu_torch.train.losses import cross_entropy
 from mme_tpu_torch.train.optim import AdamWState, global_norm_f32
 from mme_tpu_torch.train.schedules import cosine_warm_restarts
-from mme_tpu_torch.train.steps import (TrainState, make_optimizer,
-                                       make_train_step, to_device)
+from mme_tpu_torch.train.steps import (TrainState, make_eval_step,
+                                       make_optimizer, make_train_step,
+                                       to_device)
 
 SEED = 0
 # tolerances of the flash kernel against its plain version, elementwise
@@ -1913,6 +1947,455 @@ def front_ends(card: str, spec: TAVSpec, front_dir: str,
     return {"flash_fwd": per_chunk["flash_fwd"], "knobs_on": knobs_per_chunk}
 
 
+# phase 8: the fusion family at full width. K1 launches per served chunk
+# and per train step (one per attention layer: the 12-layer trunk, and for
+# the two-tower model the 6-layer text tower), and K5a/K5b per chunk or
+# step with MME_FUSED_MLP=1 (the dense blocks only: TAVMoE's MoE blocks
+# run their experts as einsums, as in JAX)
+FAMILY = ("TAVFormer", "TAVForMAE2Tower", "TAVForW2V2", "TAVMoE")
+FAMILY_FLASH = {"TAVFormer": 12, "TAVForMAE2Tower": 18, "TAVForW2V2": 12,
+                "TAVMoE": 12}
+FAMILY_MLP = {"TAVFormer": 12, "TAVForMAE2Tower": 18, "TAVForW2V2": 12,
+              "TAVMoE": 6}
+# TAVMoE's loop: 4 train steps, one validation batch at the epoch's end and
+# one test batch
+FAMILY_LOOP_SIZES = ((32, 0), (8, 1), (8, 2))
+FAMILY_LOOP_STEPS, FAMILY_LOOP_EVAL_BATCHES = 4, 2
+# a token's expert set may flip between two numerically valid fp32 runs
+# only where the reference's k-th and (k+1)-th router probabilities lie
+# closer than this (the runs' router logits differ by ~1e-6); a run with
+# such a flip is not held to the fp32 tolerances, and says so
+ROUTE_TIE = 1e-4
+# the bf16 legs' learning rate, the benchmark configuration's (phase 5):
+# at 1e-4 the post-LN trunks overshoot from their random initialisation
+FAMILY_LR = 5e-6
+
+
+class RouteLog:
+    """The expert set and the top-k margin (k-th minus (k+1)-th router
+    probability) of every token in every MoE router call of ``model``,
+    in call order, while ``on``."""
+
+    def __init__(self, model):
+        self.calls, self.on = [], False
+        self.top_k = {}
+        self.handles = []
+        for m in model.modules():
+            if isinstance(m, MoEMlp):
+                self.top_k[id(m.router)] = m.moe.top_k
+                self.handles.append(m.router.register_forward_hook(self._hook))
+
+    def _hook(self, mod, args, out):
+        if not self.on:
+            return
+        k = self.top_k[id(mod)]
+        gates, _ = router_gates(out.detach(), k)
+        top = torch.softmax(out.detach().float(), -1).topk(k + 1, -1).values
+        self.calls.append((gates > 0, top[..., k - 1] - top[..., k]))
+
+    @contextlib.contextmanager
+    def record(self):
+        self.calls, self.on = [], True
+        try:
+            yield self
+        finally:
+            self.on = False
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def route_diff(got: list, ref: list) -> Tuple[int, int, int]:
+    """(tokens routed, tokens routed differently, of those the ones whose
+    reference margin is at least ROUTE_TIE) over two RouteLogs' calls."""
+    n = flips = firm = 0
+    for (a, _), (b, margin) in zip(got, ref):
+        moved = (a != b).any(-1)
+        n += moved.numel()
+        flips += int(moved.sum())
+        firm += int((moved & (margin >= ROUTE_TIE)).sum())
+    return n, flips, firm
+
+
+def family_serve(name: str, state, reqs, card: str) -> dict:
+    """Serving: bf16 compute over fp32 weights, batch 8, against
+    MME_FLASH=0 and with both knobs on against both off; TAVMoE holds its
+    kernels against MME_FLASH=0 in an fp32 leg too, with its routes."""
+    base = TAVSpec(output_dim=7)
+    cls = FUSION_MODELS[name]
+    chunks = sum(-(-len(r["input_ids"]) // 8) for r in reqs)
+    n_ln = sum(fused_ln_shapes(base, 8, model=name).values())
+    is_moe = name == "TAVMoE"
+    out = {}
+    for dtype in ((torch.float32, torch.bfloat16) if is_moe
+                  else (torch.bfloat16,)):
+        leg = "fp32" if dtype == torch.float32 else "bf16"
+        tol = SERVE_TOL[dtype]
+        model = cls(base.with_compute_dtype(dtype), device="cuda")
+        model.load_state_dict(state, strict=True)
+        routes = RouteLog(model)
+        pred = Predictor(model, batch_size=8, device="cuda")
+        pred(reqs[0])                                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with routes.record():
+            got = [pred(r) for r in reqs]
+        torch.cuda.synchronize()
+        count = dict(kernels.LAUNCHES)
+        got_routes = routes.calls
+        os.environ["MME_FLASH"] = "0"
+        try:
+            kernels.reset_launches()
+            with routes.record():
+                ref = [pred(r) for r in reqs]
+            plain_count = dict(kernels.LAUNCHES)
+        finally:
+            del os.environ["MME_FLASH"]
+        ref_routes = routes.calls
+        diff, same = served_diff(got, ref, tol)
+        n_tok, flips, firm = route_diff(got_routes, ref_routes)
+        finite = all(np.isfinite(p).all() for _, p in got + ref)
+        shapes_ok = all(p.shape == (len(r["input_ids"]), 7)
+                        for (_, p), r in zip(got, reqs))
+        # a zero-padded partial chunk: the same rows as in a full chunk
+        part = {k: v[:3] for k, v in reqs[0].items()}
+        pad_diff = float(np.abs(pred(part)[1] - got[0][1][:3]).max())
+        res = {"flash_launches_per_chunk": count["flash_fwd"] / chunks,
+               "max_abs_vs_plain": diff, "predictions_agree": same,
+               "padded_chunk_max_abs": pad_diff, "finite": finite,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if is_moe:
+            res.update(router_tokens=n_tok, routed_differently=flips,
+                       routed_differently_past_tie=firm)
+        # fp32 legs (TAVMoE) hold probabilities to SERVE_TOL unless a token
+        # flipped at a near-tie; bf16 legs of TAVMoE report their flips
+        held = not (is_moe and (dtype == torch.bfloat16 or flips))
+        ok = (finite and shapes_ok and pad_diff <= SERVE_TOL[torch.float32]
+              and count["flash_fwd"] == FAMILY_FLASH[name] * chunks
+              and plain_count["flash_fwd"] == 0
+              and (not held or (diff <= tol and same))
+              and not (is_moe and dtype == torch.float32 and firm))
+        print(f"family {name} serve {leg}: {chunks} chunks, launches "
+              f"{count['flash_fwd']} K1 (expected "
+              f"{FAMILY_FLASH[name] * chunks}), {plain_count['flash_fwd']} "
+              f"with MME_FLASH=0; max|probs - probs(MME_FLASH=0)| = "
+              f"{diff:.3e} (tol {tol}{'' if held else ', reported only'}), "
+              f"predictions agree {same}; padded chunk {pad_diff:.1e}"
+              + (f"; tokens routed differently {flips} of {n_tok} "
+                 f"({firm} past a near-tie)" if is_moe else ""), flush=True)
+        if not ok:
+            raise SystemExit(f"phase 8: serving {name} ({leg}) failed")
+
+        # the same requests with MME_FUSED_LN=1 and MME_FUSED_MLP=1
+        with knobs_on():
+            pred(reqs[0])                                   # warm-up
+            kernels.reset_launches()
+            with routes.record():
+                fused = [pred(r) for r in reqs]
+            count_f = dict(kernels.LAUNCHES)
+        diff_f, same_f = served_diff(fused, got, tol)
+        _, flips_f, firm_f = route_diff(routes.calls, got_routes)
+        expect = {"flash_fwd": FAMILY_FLASH[name] * chunks,
+                  "fused_mlp_fwd": FAMILY_MLP[name] * chunks,
+                  "layer_norm_fwd": n_ln * chunks}
+        held_f = not (is_moe and (dtype == torch.bfloat16 or flips_f))
+        finite_f = all(np.isfinite(p).all() for _, p in fused)
+        print(f"family {name} serve {leg}, both knobs on: launches "
+              f"{ {k: v for k, v in count_f.items() if v} } (expected "
+              f"{expect}); max|probs - probs(knobs off)| = {diff_f:.3e}"
+              + (f"; tokens routed differently {flips_f} ({firm_f} past a "
+                 "near-tie)" if is_moe else ""), flush=True)
+        if not (finite_f and {k: v for k, v in count_f.items() if v}
+                == expect and (not held_f or (diff_f <= tol and same_f))
+                and not (is_moe and dtype == torch.float32 and firm_f)):
+            raise SystemExit(f"phase 8: serving {name} ({leg}) with both "
+                             "knobs on failed")
+        res.update(max_abs_knobs_on_vs_off=diff_f,
+                   launches_per_chunk_knobs_on={
+                       k: v // chunks for k, v in count_f.items() if v})
+        if is_moe:
+            res.update(routed_differently_knobs_on=flips_f)
+        if dtype == torch.bfloat16:
+            res["ms_per_batch_of_8"], res["times_ms"] = median_ms(
+                pred, reqs[0])
+            with knobs_on():
+                (res["ms_per_batch_of_8_knobs_on"],
+                 res["times_ms_knobs_on"]) = median_ms(pred, reqs[0])
+        out[leg] = res
+        routes.close()
+        del pred, model, routes
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_train(name: str, params, card: str) -> dict:
+    """Training: (1) fp32, no dropout, batch 4: loss and gradients with the
+    kernels against MME_FLASH=0; (2) bf16, no dropout, four steps on one
+    batch of 8 with MME_OPT_STATE=bf16 and every knob on: the eval loss
+    after them below the one before, one K3 launch per step."""
+    is_moe = name == "TAVMoE"
+    cls = FUSION_MODELS[name]
+    state = from_flax(params)
+    out = {}
+
+    # (1) fp32
+    spec = without_noise(TAVSpec(output_dim=7))
+    model = cls(spec, device="cuda")
+    model.load_state_dict(state, strict=True)
+    routes = RouteLog(model)
+    batch, labels, mask, cw = train_inputs(spec, 4, SEED + 50)
+    batch = to_device(batch, "cuda")
+    labels, mask, cw = (torch.as_tensor(x, device="cuda")
+                        for x in (labels, mask, cw))
+    params_t = list(model.parameters())
+    model.train()
+
+    def loss_and_grads():
+        kernels.reset_launches()
+        with routes.record():
+            logits = model(batch)
+        aux = None
+        if is_moe:
+            logits, aux = logits
+        ce = cross_entropy(logits, labels, cw, mask)
+        loss = ce if aux is None else ce + aux
+        grads = torch.autograd.grad(loss, params_t, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params_t)]
+        torch.cuda.synchronize()
+        extra = {}
+        if is_moe:
+            router = [g for (n, _), g in zip(model.named_parameters(), grads)
+                      if n.endswith("moe_mlp.router.weight")]
+            extra = {"aux": aux.item(), "ce": ce.item(),
+                     "router_grad_norm": global_norm_f32(router).item()}
+        return (loss.item(), global_norm_f32(grads).item(),
+                tower_norms(model, grads), dict(kernels.LAUNCHES),
+                routes.calls, extra)
+
+    loss, norm, towers, count, r_got, extra = loss_and_grads()
+    os.environ["MME_FLASH"] = "0"
+    try:
+        loss0, norm0, towers0, count0, r_ref, _ = loss_and_grads()
+    finally:
+        del os.environ["MME_FLASH"]
+    routes.close()
+    rel = {k: abs(towers[k] - towers0[k]) / max(towers0[k], 1e-12)
+           for k in towers0}
+    _, flips, firm = route_diff(r_got, r_ref)
+    held = not flips
+    ok = (np.isfinite(loss) and np.isfinite(norm)
+          and count["flash_fwd"] == count["flash_bwd"] == FAMILY_FLASH[name]
+          and count0["flash_fwd"] == count0["flash_bwd"] == 0 and not firm
+          and (not held or (abs(loss - loss0) <= TRAIN_LOSS_RTOL * abs(loss0)
+                            and abs(norm - norm0) <= TRAIN_NORM_RTOL * norm0
+                            and max(rel.values()) <= TRAIN_NORM_RTOL)))
+    if is_moe:
+        ok = ok and (np.isfinite(extra["aux"]) and extra["aux"] > 0
+                     and abs(loss - extra["ce"] - extra["aux"])
+                     <= 1e-6 * abs(loss) and extra["router_grad_norm"] > 0)
+    out["fp32"] = {"batch": 4, "loss": loss, "loss_plain": loss0,
+                   "grad_norm": norm, "grad_norm_plain": norm0,
+                   "tower_norm_rel_diff": rel, "launches": count,
+                   "routed_differently": flips, **extra}
+    print(f"family {name} train fp32: {json.dumps(out['fp32'])}", flush=True)
+    if not ok:
+        raise SystemExit(f"phase 8: the fp32 training check of {name} "
+                         "failed")
+    del model, params_t
+    torch.cuda.empty_cache()
+
+    # (2) bf16, four steps, every knob on
+    spec = without_noise(TAVSpec(output_dim=7)).with_compute_dtype(
+        torch.bfloat16)
+    model = cls(spec, device="cuda")
+    model.load_state_dict(state, strict=True)
+    n_ln = sum(fused_ln_shapes(spec, 8, model=name).values())
+    env = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1", **KNOBS}
+    os.environ.update(env)
+    try:
+        tx = make_optimizer(cosine_warm_restarts(FAMILY_LR, 10, 1000), 0.01,
+                            1.0)
+        st = TrainState.create(model.parameters(), tx, use_accum=False,
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(SEED))
+        step = make_train_step(model, tx, num_classes=7,
+                               has_aux_loss=is_moe)
+        ev = make_eval_step(model, num_classes=7, has_aux_loss=is_moe)
+        batch, labels, mask, cw = train_inputs(spec, 8, SEED + 60)
+        batch = to_device(batch, "cuda")
+        before = ev(batch, labels, mask, cw)[0].item()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, counts = [], [], []
+        for _ in range(4):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, l, _, _ = step(st, batch, labels, mask, cw, 1.0, True, SEED)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(l.item())
+            counts.append(dict(kernels.LAUNCHES))
+        after = ev(batch, labels, mask, cw)[0].item()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for k in env:
+            del os.environ[k]
+    expect = {"flash_fwd": FAMILY_FLASH[name], "flash_bwd": FAMILY_FLASH[name],
+              "fused_mlp_fwd": FAMILY_MLP[name],
+              "fused_mlp_bwd": FAMILY_MLP[name], "layer_norm_fwd": n_ln,
+              "layer_norm_bwd": n_ln, "adam_update": 1}
+    per_step = [{k: v for k, v in c.items() if v} for c in counts]
+    out["bf16"] = {"eval_loss_before": before, "eval_loss_after": after,
+                   "losses": losses, "times_ms": times,
+                   "ms_per_step": float(np.median(times[1:])),
+                   "peak_gb": peak, "launches_per_step": per_step[-1],
+                   "expected_launches_per_step": expect}
+    print(f"family {name} train bf16: {json.dumps(out['bf16'])}",
+          flush=True)
+    if not (all(np.isfinite(losses)) and np.isfinite(after)
+            and after < before and all(c == expect for c in per_step)):
+        raise SystemExit(f"phase 8: the bf16 training leg of {name} failed")
+    del model, st, step, ev
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_moe_loop(params, card: str) -> dict:
+    """TAVMoE through ``run_classifier(has_aux_loss=True)`` (bf16 compute,
+    MME_OPT_STATE=bf16 MME_FUSED_ADAM=1, one epoch of 4 steps, one
+    validation) with MME_EXPORT_BUNDLE set; the bundle loaded with
+    ``load_bundle(device="cuda")`` against a live Predictor on its
+    weights."""
+    spec = TAVSpec(output_dim=7, dropout=0.1).with_compute_dtype(
+        torch.bfloat16)
+    directory = tempfile.mkdtemp(prefix="mme_moe_loop_")
+    bundle = os.path.join(directory, "bundle")
+    env = dict(LOOP_ENV, MME_EXPORT_BUNDLE=bundle,
+               MME_RUN_DIR=os.path.join(directory, "run"))
+    try:
+        (n_train, s_train), *evals = FAMILY_LOOP_SIZES
+        train_ds = synthetic_tav_dataset(spec, n_train, 70, 96000,
+                                         seed=s_train)
+        val_ds, test_ds = (synthetic_tav_dataset(spec, n, 70, 96000, seed=s)
+                           for n, s in evals)
+        model = TAVMoEFormer(spec, device="cuda")
+        model.load_state_dict(from_flax(params), strict=True)
+        cfg = ExperimentConfig(**dict(LOOP_CFG, epoch=1, log_val=4),
+                               checkpoint_dir=os.path.join(directory, "ck"),
+                               text_max_len=70, audio_max_samples=96000)
+        os.environ.update(env)
+        try:
+            kernels.reset_launches()
+            t = time.perf_counter()
+            summary = run_classifier(
+                cfg, model, train_ds, val_ds, test_ds,
+                batch_transform=make_video_keep_transform(spec),
+                has_aux_loss=True, device="cuda")
+            loop_s = time.perf_counter() - t
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        finally:
+            for k in env:
+                del os.environ[k]
+        with open(os.path.join(env["MME_RUN_DIR"], "metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f]
+        losses = [d[k] for d in logs for k in ("train/loss", "val/loss",
+                                               "test/loss") if k in d]
+        exported = next(d for d in logs if "export_bundle" in d)
+        del model
+        torch.cuda.empty_cache()
+
+        served = load_bundle(bundle, device="cuda")
+        live_model = TAVMoEFormer(spec, device="cuda")
+        live_model.load_state_dict(
+            {k[len("model."):]: v for k, v in
+             served.module.state_dict().items()}, strict=True)
+        live = Predictor(live_model, batch_size=8, device="cuda")
+        reqs = bundle_requests(spec)
+        chunks = sum(-(-len(r["input_ids"]) // 8) for r in reqs)
+        served(reqs[0])
+        live(reqs[0])                                   # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = [served(r) for r in reqs]
+        torch.cuda.synchronize()
+        count = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = [live(r) for r in reqs]
+        tol = SERVE_TOL[torch.bfloat16]
+        diff, same = served_diff(got, want, tol)
+        with open(os.path.join(bundle, "meta.json")) as f:
+            meta_model = json.load(f)["model"]
+        out = {"loop_s": loop_s, "launches": launches, "losses": losses,
+               "test_loss": summary["test/loss"],
+               "export_s": exported["export_s"], "save_s": exported["save_s"],
+               "bundle_gb": exported["bytes"] / 1e9, "load_s": served.load_s,
+               "bundle_ops": list(served.ops), "bundle_model": meta_model,
+               "bundle_launches_per_chunk": {
+                   k: v // chunks for k, v in count.items()},
+               "bundle_vs_live_max_abs": diff, "predictions_agree": same}
+        (out["bundle_ms_per_batch_of_8"],
+         out["bundle_times_ms"]) = median_ms(served, reqs[0])
+        del served, live, live_model
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        torch.cuda.empty_cache()
+    want_loop = {"flash_fwd": 12 * (FAMILY_LOOP_STEPS
+                                    + FAMILY_LOOP_EVAL_BATCHES),
+                 "flash_bwd": 12 * FAMILY_LOOP_STEPS,
+                 "adam_update": FAMILY_LOOP_STEPS}
+    out["expected_launches"] = want_loop
+    print(f"family TAVMoE loop and bundle: {json.dumps(out)}", flush=True)
+    if not (all(np.isfinite(losses)) and launches == want_loop
+            and count == {"flash_fwd": 12 * chunks}
+            and out["bundle_ops"] == ["flash_fwd"]
+            and meta_model == "TAVMoEFormer" and same and diff <= tol):
+        raise SystemExit("phase 8: TAVMoE through run_classifier and its "
+                         "bundle failed")
+    return out
+
+
+def fusion_family(card: str) -> dict:
+    """Phase 8. Returns per model the launches of one served chunk with
+    both knobs on and of one bf16 train step with every knob on."""
+    t0 = time.perf_counter()
+    reqs = requests(TAVSpec(output_dim=7))
+    launches = {}
+    for name in FAMILY:
+        t = time.perf_counter()
+        params = init_params(TAVSpec(output_dim=7), SEED, model=name)
+        state = from_flax(params)
+        n_params = sum(v.numel() for v in state.values())
+        res = {"parameters": n_params,
+               "weights_s": time.perf_counter() - t}
+        res["serve"] = family_serve(name, state, reqs, card)
+        res["train"] = family_train(name, params, card)
+        if name == "TAVMoE":
+            res["loop"] = family_moe_loop(params, card)
+        del params, state
+        torch.cuda.empty_cache()
+        res["phase_s"] = time.perf_counter() - t
+        bf16 = res["serve"]["bf16"]
+        print(json.dumps({"fusion_family": {
+            "model": name, "parameters": n_params,
+            "serve_ms_per_batch_of_8": bf16["ms_per_batch_of_8"],
+            "serve_ms_per_batch_of_8_knobs_on":
+                bf16["ms_per_batch_of_8_knobs_on"],
+            "train_bf16_ms_per_step": res["train"]["bf16"]["ms_per_step"],
+            "peak_gb": max(bf16["peak_gb"],
+                           res["train"]["bf16"]["peak_gb"]),
+            "launches_serve_chunk_knobs_on":
+                bf16["launches_per_chunk_knobs_on"],
+            "launches_train_step": res["train"]["bf16"]["launches_per_step"],
+            "model_s": res["phase_s"], "detail": res, "card": card}}),
+            flush=True)
+        launches[name] = {"serve": bf16["launches_per_chunk_knobs_on"],
+                          "step": res["train"]["bf16"]["launches_per_step"]}
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1961,6 +2444,16 @@ def main() -> int:
         bundle = front_ends(card, loop_spec, front_dir, exports)
     finally:
         shutil.rmtree(front_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    family = fusion_family(card)
+
+    def family_launches(name):
+        """launches_<model> of phase 8: one served chunk with both knobs on
+        for a forward kernel, one bf16 train step with every knob on for
+        the others."""
+        leg = "serve" if name.endswith("_fwd") else "step"
+        return {f"launches_{m}": family[m][leg].get(name, 0)
+                for m in FAMILY}
 
     def entry(name, route, source, replaces, result):
         """A kernel of this slice: launches of one training step with both
@@ -1971,7 +2464,7 @@ def main() -> int:
         if name.endswith("_fwd"):
             out["launches_serve_chunk"] = served_knobs[name]
             out["launches_bundle_chunk"] = bundle["knobs_on"][name]
-        return out
+        return {**out, **family_launches(name)}
 
     def flash_entry(name, source, replaces, shapes, per, err, launches):
         total = {k: sum(r[k] * r[per] for r in shapes)
@@ -1985,7 +2478,8 @@ def main() -> int:
                 "bound_ms": max(flops / PEAK_BF16_FLOPS,
                                 nbytes / PEAK_BYTES) * 1e3,
                 "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
-                             >= nbytes / PEAK_BYTES else "bytes")}
+                             >= nbytes / PEAK_BYTES else "bytes"),
+                **family_launches(name)}
 
     print(json.dumps({"kernels": [
         flash_entry("flash_fwd", "mme_tpu_torch/csrc/flash_fwd.cu",
@@ -2011,7 +2505,8 @@ def main() -> int:
          "bound_by": adam["all"]["bound_by"],
          "kernel_ms": adam["all"]["kernels_ms"],
          "host_us": adam["all"]["host_us"], "leaves": adam["all"]["leaves"],
-         "big_leaves_ms": adam["big"]["ms"]},
+         "big_leaves_ms": adam["big"]["ms"],
+         **family_launches("adam_update")},
         entry("layer_norm_fwd", "cuda", "mme_tpu_torch/csrc/layer_norm.cu",
               "mme_tpu/ops/layer_norm.py:63", ln_fwd),
         entry("layer_norm_bwd", "cuda", "mme_tpu_torch/csrc/layer_norm.cu",

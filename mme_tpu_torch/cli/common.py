@@ -139,6 +139,7 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
                    batch_iter=None,
                    id2label: Optional[Dict[int, str]] = None,
                    checkpoints: Optional[CheckpointManager] = None,
+                   has_aux_loss: bool = False,
                    device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Train ``model`` with the full policy stack, evaluate it on
     ``test_ds`` and return the test summary.
@@ -147,7 +148,9 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
     ``device``. ``trainable_mask``: one bool per parameter. ``id2label``:
     the dataset's id→name map (default: :func:`label_names`).
     ``checkpoints``: a manager to use instead of one on
-    ``cfg.checkpoint_dir``. Environment: ``MME_OPT_STATE``,
+    ``cfg.checkpoint_dir``. ``has_aux_loss``: the model returns
+    ``(logits, aux)`` (``TAVMoEFormer``); aux joins the training loss and
+    not the eval loss. Environment: ``MME_OPT_STATE``,
     ``MME_LOG_NORMS``, ``MME_LOG_HISTS``, ``MME_RUN_DIR``,
     ``MME_EVAL_ONLY`` (restore the best checkpoint and only evaluate),
     ``MME_RESUME``, ``MME_DUMP_PREDICTIONS``, ``MME_PREDICT_OUT``,
@@ -181,9 +184,10 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
     train_step = make_train_step(
         model, tx, num_classes=num_classes, loss_fn=loss_fn,
         log_module_norms=os.environ.get("MME_LOG_NORMS") == "1",
-        log_histograms=os.environ.get("MME_LOG_HISTS") == "1")
+        log_histograms=os.environ.get("MME_LOG_HISTS") == "1",
+        has_aux_loss=has_aux_loss)
     eval_step = make_eval_step(model, num_classes=num_classes,
-                               loss_fn=loss_fn)
+                               loss_fn=loss_fn, has_aux_loss=has_aux_loss)
 
     # a JSONL metrics trail next to the checkpoints (MME_RUN_DIR moves it)
     run_dir = os.environ.get("MME_RUN_DIR", cfg.checkpoint_dir)

@@ -13,11 +13,12 @@ Knobs: ``--mask`` off gives no SpecAugment and the fixed visual keep-mask;
 ``MME_DTYPE=bf16`` computes in bf16 over fp32 parameters;
 ``MME_SHARE_FRONTEND=1`` shares one conv audio frontend between the
 PreFormer and the audio tower; ``MME_SCAN_LAYERS=1`` has no eager
-counterpart and changes nothing. An unknown ``-m`` gives ``TAVModel``, as
-in JAX. What the port lacks raises ``NotImplementedError``: the other
-fusion models (ROADMAP Queue 1 item 5), a pickle dataset (item 3),
-``MME_SP`` / ``MME_PP`` above 1 (item 7) and ``MME_PRETRAINED`` (item 6).
-A missing pickle raises ``FileNotFoundError``.
+counterpart and changes nothing. ``-m`` picks the fusion model from
+``models/fusion.py::FUSION_MODELS`` (an unknown name gives ``TAVModel``, as
+in JAX); ``-m TAVMoE`` trains with the MoE aux loss in the objective. What
+the port lacks raises ``NotImplementedError``: a pickle dataset (ROADMAP
+Queue 1 item 3), ``MME_SP`` / ``MME_PP`` above 1 (item 7) and
+``MME_PRETRAINED`` (item 6). A missing pickle raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -35,20 +36,12 @@ from mme_tpu_torch.config import arg_parse, config_from_args
 from mme_tpu_torch.convert import from_flax, init_params
 from mme_tpu_torch.data.synthetic import synthetic_tav_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
-from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
+from mme_tpu_torch.models.fusion import FUSION_MODELS, TAVSpec
 from mme_tpu_torch.train.build_tav import (make_video_keep_transform,
                                            modality_embedding_trainable_mask)
 
-# the fusion models of ``mme_tpu/models/fusion.py::FUSION_MODELS`` that the
-# port does not have yet
-UNPORTED_MODELS = ("TAVFormer", "TAVForMAE2Tower", "TAVForW2V2", "TAVMoE")
 
-
-def _refuse_unported(model_name: str) -> None:
-    if model_name in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"-m {model_name}: the fusion model is not ported yet (ROADMAP "
-            "Queue 1 item 5)")
+def _refuse_unported() -> None:
     for var in ("MME_SP", "MME_PP"):
         if int(os.environ.get(var, "0") or 0) > 1:
             raise NotImplementedError(
@@ -63,7 +56,7 @@ def main(argv: Optional[Sequence[str]] = None,
     dev = resolve_device(device)
     args = arg_parse("tav_nn", argv)
     cfg = config_from_args(args)
-    _refuse_unported(cfg.model)
+    _refuse_unported()
     np.random.seed(cfg.seed)
 
     spec = TAVSpec(output_dim=cfg.output_dim, dropout=cfg.dropout,
@@ -96,10 +89,12 @@ def main(argv: Optional[Sequence[str]] = None,
         num_classes=cfg.output_dim, seed=s)
     train_ds, val_ds, test_ds = mk(64, 0), mk(16, 1), mk(16, 2)
 
-    # -m: the names the port lacks raised above; any other name falls back
-    # to TAVModel, as JAX's FUSION_MODELS.get(name, TAVModel) does
-    model = TAVModel(spec, device=dev)
-    model.load_state_dict(from_flax(init_params(spec, cfg.seed)), strict=True)
+    # -m selects the fusion architecture; an unknown name falls back to
+    # TAVModel, as JAX's FUSION_MODELS.get(name, TAVModel) does
+    model_cls = FUSION_MODELS.get(cfg.model, FUSION_MODELS["MAE_encoder"])
+    model = model_cls(spec, device=dev)
+    model.load_state_dict(
+        from_flax(init_params(spec, cfg.seed, model=cfg.model)), strict=True)
     if os.environ.get("MME_SCAN_LAYERS") == "1":
         print("MME_SCAN_LAYERS: no eager counterpart; layers run one by one "
               "with the same numbers", flush=True)
@@ -109,7 +104,8 @@ def main(argv: Optional[Sequence[str]] = None,
         cfg, model, train_ds, val_ds, test_ds, batch_transform=transform,
         trainable_mask=modality_embedding_trainable_mask(
             model, spec.learn_pos_embeddings),
-        batch_iter=batch_iter, device=dev)
+        batch_iter=batch_iter, has_aux_loss=cfg.model == "TAVMoE",
+        device=dev)
 
 
 if __name__ == "__main__":

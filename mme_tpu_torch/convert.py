@@ -8,7 +8,8 @@ The port's module tree mirrors the flax tree name for name, so a flax leaf
 - ``Conv`` kernel [k, in/groups, out] → [out, in/groups, k] (the grouped
   positional conv included);
 - LayerNorm ``scale`` → ``weight``; ``Embed`` ``embedding`` → ``weight``;
-- everything else (biases, ``qkv_bias`` [3, H, D], ``masked_spec_embed``)
+- everything else (biases, ``qkv_bias`` [3, H, D], ``masked_spec_embed``,
+  the MoE expert stacks ``w1`` [E, H, I], ``b1``, ``w2`` [E, I, H], ``b2``)
   keeps its name and shape.
 
 :func:`from_flax` reads the flax tree as nested dicts of numpy arrays;
@@ -31,8 +32,9 @@ import torch
 from torch import nn
 
 from mme_tpu_torch.models.audio import Conv1d
-from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
+from mme_tpu_torch.models.fusion import FUSION_MODELS, TAVSpec
 from mme_tpu_torch.models.layers import Dense, Embed, MultiHeadAttention
+from mme_tpu_torch.models.moe import MoEMlp
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
 from mme_tpu_torch.train import optim
 
@@ -95,6 +97,8 @@ def _leaves(model: nn.Module):
                     kind, leaf = "ones", "scale"
             elif pname == "masked_spec_embed":
                 kind = "uniform"
+            elif isinstance(mod, MoEMlp) and pname in ("w1", "w2"):
+                kind = "experts"
             heads = None
             if kind == "qkv":
                 m = attn[name.rpartition(".")[0]]
@@ -188,16 +192,21 @@ def factored_views(model: nn.Module, min_size: Optional[int] = None):
     return views
 
 
-def init_params(spec: TAVSpec, seed: int = 0) -> Dict[str, Any]:
-    """A flax-layout ``TAVModel`` param tree drawn with numpy at flax's
+def init_params(spec: TAVSpec, seed: int = 0,
+                model: str = "TAVModel") -> Dict[str, Any]:
+    """A flax-layout param tree of ``FUSION_MODELS[model]`` (``TAVModel``
+    for the class name or an unknown name) drawn with numpy at flax's
     default scales: kernels lecun-normal (truncated at ±2σ, fan-in = the
-    kernel's input size), embeddings normal with std 1/√features, LayerNorm
-    scales 1, biases 0, ``masked_spec_embed`` uniform in [0, 1)."""
+    kernel's input size; for the [E, H, I] expert stacks flax counts E as a
+    receptive field, so E·H, and E·I for ``w2``), embeddings normal with
+    std 1/√features, LayerNorm scales 1, biases 0, ``masked_spec_embed``
+    uniform in [0, 1)."""
+    cls = FUSION_MODELS.get(model, FUSION_MODELS["MAE_encoder"])
     rng = np.random.default_rng(seed)
     tree: Dict[str, Any] = {}
-    for path, p, kind, heads in _leaves(TAVModel(spec, device="meta")):
+    for path, p, kind, heads in _leaves(cls(spec, device="meta")):
         shape = _flax_shape(p.shape, kind, heads)
-        if kind in ("dense", "conv", "qkv"):
+        if kind in ("dense", "conv", "qkv", "experts"):
             fan_in = shape[0] if kind == "qkv" else int(np.prod(shape[:-1]))
             a = rng.standard_normal(shape, dtype=np.float32)
             out = np.abs(a) > 2.0

@@ -1,10 +1,11 @@
 """TAV triple-modal fusion: embedding fuser + four-tower classifier.
 
-Port of ``mme_tpu/models/fusion.py`` (``TAVSpec``, ``PreFormer``,
-``TAVForMAE``, ``TAVModel`` with ``share_audio_frontend``), training-mode
-sites included (SpecAugment in the PreFormer, head dropout). The other fusion
-variants (``TAVFormer``, the two-tower and wav2vec2-trunk models, the MoE
-trunk) are not ported yet.
+Port of ``mme_tpu/models/fusion.py``: ``TAVSpec``, ``PreFormer``,
+``TAVForMAE``, ``TAVModel`` with ``share_audio_frontend``, and the other
+fusion trunks over the PreFormer's sequence, ``TAVFormer``,
+``TAVForMAETwoTower``, ``TAVForW2V2`` and the sparse-MoE ``TAVMoEFormer``;
+``FUSION_MODELS`` maps the CLI's ``-m`` names onto them. Training-mode sites
+are included (SpecAugment in the PreFormer, head dropout).
 
 The module tree and its parameter names follow the flax tree, so
 ``convert.from_flax`` maps one onto the other leaf by leaf.
@@ -27,6 +28,7 @@ from mme_tpu_torch.models.audio import (ConvFeatureExtractor,
 from mme_tpu_torch.models.layers import (Dense, Embed, EncoderSpec,
                                          TransformerEncoder, dropout,
                                          empty_param)
+from mme_tpu_torch.models.moe import MoESpec, MoETransformerEncoder
 from mme_tpu_torch.models.text import (TextEmbeddings, TextEncoder,
                                        TextEncoderSpec)
 from mme_tpu_torch.models.video import VideoMAEModel, VideoMAESpec
@@ -243,3 +245,138 @@ class TAVModel(nn.Module):
             batch["audio_mask"], batch["video"], batch["video_keep"],
             fused, type_ids, fused_keep, audio_features=feats, rng=rng)
         return logits.float()
+
+
+class _FusionTrunk(nn.Module):
+    """The variants' common shape: the PreFormer's fused sequence plus a
+    learned 3-way modality embedding through ``encoder``, masked-mean
+    pooled and normalised (flax's default eps 1e-6) into ``norm_name``,
+    then the head. The variants pass ``audio_features`` to nothing, so the
+    PreFormer keeps its own conv stack whatever ``share_audio_frontend``
+    says, as JAX's does."""
+
+    def __init__(self, spec: TAVSpec, trunk: EncoderSpec, norm_name: str,
+                 device: DeviceLike):
+        super().__init__()
+        self.spec = spec
+        self.norm_name = norm_name
+        self.preformer = PreFormer(
+            dataclasses.replace(spec, share_audio_frontend=False),
+            device=device)
+        self.modality_embedding = Embed(3, spec.hidden, trunk.dtype,
+                                        device=device)
+        self.add_module(norm_name, FusedLayerNorm(spec.hidden, 1e-6,
+                                                  trunk.dtype, device=device))
+
+    def pooled(self, batch: Dict[str, torch.Tensor],
+               rng: Optional[torch.Generator], encoder: nn.Module):
+        """(pooled trunk output [B, hidden], what ``encoder`` returned
+        besides its sequence, or None)."""
+        fused, type_ids, keep = self.preformer(
+            batch["input_ids"], batch["text_mask"], batch["waveform"],
+            batch["audio_mask"], batch["video"], batch["video_keep"],
+            rng=rng)
+        out = encoder(fused + self.modality_embedding(type_ids),
+                      additive_mask(keep), rng)
+        x, extra = out if isinstance(out, tuple) else (out, None)
+        return getattr(self, self.norm_name)(masked_mean_pool(x, keep)), extra
+
+
+class TAVFormer(_FusionTrunk):
+    """Scratch fusion trunk: the fused sequence through a post-LN encoder
+    without q/k/v biases (``early_div`` folded into the 1/√d scaling),
+    mean-pool → LN → Linear(hidden, C); no head dropout."""
+
+    def __init__(self, spec: TAVSpec, device: DeviceLike = "cuda"):
+        dev = resolve_device(device)
+        trunk = dataclasses.replace(spec.fusion, ln_style="post",
+                                    qkv_bias="none")
+        super().__init__(spec, trunk, "norm", dev)
+        self.encoder = TransformerEncoder(trunk, device=dev)
+        self.classifier = Dense(spec.hidden, spec.output_dim,
+                                dtype=trunk.dtype, device=dev)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x, _ = self.pooled(batch, rng, self.encoder)
+        return self.classifier(x).float()
+
+
+class TAVForMAETwoTower(_FusionTrunk):
+    """The older two-tower TAVForMAE: the fused sequence through the
+    fusion encoder → mean → LN, concatenated after the text tower's pooled
+    output ([text, fused], 2·hidden) → dropout → Linear(·, C)."""
+
+    def __init__(self, spec: TAVSpec, device: DeviceLike = "cuda"):
+        dev = resolve_device(device)
+        f = spec.fusion
+        super().__init__(spec, f, "fc_norm", dev)
+        self.text_encoder = TextEncoder(spec.text, device=dev)
+        self.fusion_encoder = TransformerEncoder(f, device=dev)
+        self.classifier = Dense(spec.text.encoder.hidden + spec.hidden,
+                                spec.output_dim, dtype=f.dtype, device=dev)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        av, _ = self.pooled(batch, rng, self.fusion_encoder)
+        _, t = self.text_encoder(batch["input_ids"], batch["text_mask"],
+                                 rng=rng)
+        x = torch.cat([t, av.to(t.dtype)], dim=1)
+        x = dropout(x, self.spec.dropout, self.training, rng)
+        return self.classifier(x).float()
+
+
+class TAVForW2V2(_FusionTrunk):
+    """wav2vec2-base-shaped fusion trunk, randomly initialised: post-LN
+    encoder layers with full q/k/v biases and no conv positional
+    embedding, mean → LN → dropout → Linear(hidden, C)."""
+
+    def __init__(self, spec: TAVSpec, device: DeviceLike = "cuda"):
+        dev = resolve_device(device)
+        trunk = dataclasses.replace(spec.fusion, ln_style="post",
+                                    qkv_bias="full")
+        super().__init__(spec, trunk, "fc_norm", dev)
+        self.encoder = TransformerEncoder(trunk, device=dev)
+        self.classifier = Dense(spec.hidden, spec.output_dim,
+                                dtype=trunk.dtype, device=dev)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x, _ = self.pooled(batch, rng, self.encoder)
+        x = dropout(x, self.spec.dropout, self.training, rng)
+        return self.classifier(x).float()
+
+
+class TAVMoEFormer(_FusionTrunk):
+    """Sparse-MoE fusion trunk: the fused sequence through a
+    ``MoETransformerEncoder`` (``moe``, default ``MoESpec()``: every second
+    block's MLP a top-2 mixture of 4 experts), mean → LN → dropout →
+    Linear(hidden, C). Returns ``(logits, aux)``, aux the blocks' weighted
+    load-balancing terms: train with ``make_train_step(...,
+    has_aux_loss=True)``."""
+
+    def __init__(self, spec: TAVSpec, moe: Optional[MoESpec] = None,
+                 device: DeviceLike = "cuda"):
+        dev = resolve_device(device)
+        super().__init__(spec, spec.fusion, "norm", dev)
+        self.encoder = MoETransformerEncoder(
+            spec.fusion, moe if moe is not None else MoESpec(), device=dev)
+        self.classifier = Dense(spec.hidden, spec.output_dim,
+                                dtype=spec.fusion.dtype, device=dev)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, aux = self.pooled(batch, rng, self.encoder)
+        x = dropout(x, self.spec.dropout, self.training, rng)
+        return self.classifier(x).float(), aux
+
+
+FUSION_MODELS = {
+    "MAE_encoder": TAVModel,        # the reference's default -m
+    "TAVForMAE": TAVModel,
+    "TAVFormer": TAVFormer,
+    "TAVForMAE2Tower": TAVForMAETwoTower,
+    "TAVForW2V2": TAVForW2V2,
+    "TAVMoE": TAVMoEFormer,
+}

@@ -56,6 +56,10 @@ class EncoderSpec:
     dropout: float = 0.0
     attention_dropout: float = 0.0
     final_ln: bool = False            # pre-LN stacks end with a LayerNorm
+    # the scratch MHA's choice of scaling q before or the scores after the
+    # softmax's product; the two are the same function, so both fold into
+    # the one 1/sqrt(d) scaling, as in JAX
+    early_div: bool = False
     dtype: torch.dtype = torch.float32
     remat: bool = False               # recompute each block in the backward
 

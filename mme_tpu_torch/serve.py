@@ -9,10 +9,11 @@ padding is masked back out of the response. uint8 video is normalised on
 the device. Mesh serving (``Predictor(mesh=...)``) is not ported yet; it
 comes with the parallel axes (ROADMAP Queue 1 item 7).
 
-A bundle is the deterministic forward ``(argmax, fp32 softmax)`` exported by
-``torch.export`` on the device it will serve on, written as ``forward.pt2``
-(program and weights) beside ``meta.json``. :func:`load_bundle` serves it
-with no model code: it imports the port's ops (which register the
+A bundle is the deterministic forward ``(argmax, fp32 softmax)`` of the
+logits (a model's aux output is dropped) exported by ``torch.export`` on the
+device it will serve on, written as ``forward.pt2`` (program and weights)
+beside ``meta.json`` (which names the model's class). :func:`load_bundle`
+serves it with no model code: it imports the port's ops (which register the
 operators ``mme_tpu_torch::flash_fwd``, ``::layer_norm_fwd`` and
 ``::fused_mlp_fwd`` that the program calls by name), never
 ``mme_tpu_torch.models``. The fused knobs (``MME_FUSED_LN``,
@@ -85,7 +86,8 @@ def _to_device(chunk: Dict[str, np.ndarray], device: torch.device
 
 class _Forward(nn.Module):
     """The deterministic serving forward: ``(argmax, fp32 softmax)`` of
-    ``model(batch)``."""
+    ``model(batch)``'s logits; a ``(logits, aux)`` output (the MoE trunk's)
+    serves its logits."""
 
     def __init__(self, model: nn.Module):
         super().__init__()
@@ -94,13 +96,16 @@ class _Forward(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         logits = self.model(batch)
+        if isinstance(logits, tuple):
+            logits = logits[0]
         return (torch.argmax(logits, dim=-1),
                 torch.softmax(logits.float(), dim=-1))
 
 
 class Predictor:
     """Fixed-shape batched predictor around a classifier ``model``
-    (``model(batch) -> logits``, e.g. ``TAVModel``).
+    (``model(batch) -> logits`` or ``-> (logits, aux)``, e.g.
+    ``TAVModel`` or ``TAVMoEFormer``).
 
     ``device``: where the model runs; ``cuda`` unless the caller asks for
     the CPU. ``param_dtype=torch.bfloat16`` stores the weights in bf16 —
@@ -228,6 +233,7 @@ def export_bundle(model: nn.Module, example_batch: Dict[str, Any],
     torch.export.save(program, forward_path)
     save_s = time.perf_counter() - t0
     meta = {
+        "model": type(model).__name__,
         "batch_size": batch_size,
         "platforms": [dev.type],
         "id2label": ({str(k): v for k, v in id2label.items()}

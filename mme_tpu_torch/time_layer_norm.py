@@ -51,9 +51,15 @@ EPS = 1e-5
 
 
 def ln_sites(spec: TAVSpec, batch: int, text_len: int = 70,
-             samples: int = 96000):
-    """(rows, features) of every FusedLayerNorm call of one forward of the
-    TAV model, from the spec alone."""
+             samples: int = 96000, model: str = "TAVModel"):
+    """(rows, features) of every FusedLayerNorm call of one forward of
+    ``FUSION_MODELS[model]`` (``TAVModel`` for any name it lacks), from the
+    spec alone. The PreFormer and a fusion trunk of ``spec.fusion``'s depth
+    are in every model (the variants' trunks differ in LN placement, not in
+    count); ``TAVModel`` adds its audio, video and text towers and four
+    pooled norms, ``TAVForMAE2Tower`` the text tower and one pooled norm,
+    the other variants one pooled norm. The variants' PreFormer keeps its
+    own conv stack whatever ``share_audio_frontend`` says."""
     a = spec.audio
     frames, conv = samples, []
     for k, st, d in zip(a.conv_kernels, a.conv_strides, a.conv_dims):
@@ -63,24 +69,34 @@ def ln_sites(spec: TAVSpec, batch: int, text_len: int = 70,
     def encoder(e, rows):
         return [(rows, e.hidden)] * (2 * e.layers + int(e.final_ln))
 
-    sites = conv * (1 if spec.share_audio_frontend else 2)
-    # the two feature projections (PreFormer, audio tower) and audio_ln
-    sites += [(batch * frames, a.conv_dims[-1])] * 2
-    sites += [(batch * frames, a.encoder.hidden)]
+    text = ([(batch * text_len, spec.text.encoder.hidden)]    # embeddings
+            + encoder(spec.text.encoder, batch * text_len))
+    # the PreFormer's conv stack, feature projection, audio_ln and text
+    # embeddings, then the fusion trunk
+    sites = conv + [(batch * frames, a.conv_dims[-1]),
+                    (batch * frames, a.encoder.hidden),
+                    (batch * text_len, spec.text.encoder.hidden)]
+    sites += encoder(spec.fusion,
+                     batch * (text_len + frames + spec.video_keep_k))
+    if model in ("TAVFormer", "TAVForW2V2", "TAVMoE"):
+        return sites + [(batch, spec.hidden)]
+    if model == "TAVForMAE2Tower":
+        return sites + text + [(batch, spec.hidden)]
+    if spec.share_audio_frontend:
+        sites = sites[len(conv):]     # one conv stack, outside the PreFormer
+    # the audio tower's conv stack and feature projection and encoder, the
+    # video and text towers and the four pooled norms
+    sites += conv + [(batch * frames, a.conv_dims[-1])]
     sites += encoder(a.encoder, batch * frames)
     sites += encoder(spec.video.encoder,
                      batch * (spec.video.num_patches - spec.video_keep_k))
-    sites += encoder(spec.fusion,
-                     batch * (text_len + frames + spec.video_keep_k))
-    sites += [(batch * text_len, spec.text.encoder.hidden)]      # embeddings
-    sites += encoder(spec.text.encoder, batch * text_len)
-    sites += [(batch, spec.hidden)] * 4                          # pooled
-    return sites
+    return sites + text + [(batch, spec.hidden)] * 4
 
 
-def fused_ln_shapes(spec: TAVSpec, batch: int) -> Counter:
+def fused_ln_shapes(spec: TAVSpec, batch: int,
+                    model: str = "TAVModel") -> Counter:
     """The sites that MME_FUSED_LN=1 sends to the kernels, by shape."""
-    return Counter((n, h) for n, h in ln_sites(spec, batch)
+    return Counter((n, h) for n, h in ln_sites(spec, batch, model=model)
                    if n >= MIN_FUSED_ROWS and h % 8 == 0)
 
 

@@ -153,8 +153,12 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
                     loss_fn: Optional[Callable] = None,
                     grads_dtype: Optional[torch.dtype] = None,
                     log_module_norms: bool = False,
-                    log_histograms: bool = False) -> Callable:
-    """Build the train step around ``model(batch, rng) -> logits``:
+                    log_histograms: bool = False,
+                    has_aux_loss: bool = False) -> Callable:
+    """Build the train step around ``model(batch, rng) -> logits``, or
+    ``-> (logits, aux_loss)`` with ``has_aux_loss`` (the MoE
+    load-balancing term, added to the loss before it is scaled; the loss
+    returned is that sum):
 
         state, loss, cm, grad_norm = step(
             state, batch, labels, sample_mask, class_weights, loss_scale,
@@ -190,9 +194,12 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
         class_weights = torch.as_tensor(class_weights, device=device)
 
         model.train()
-        logits = model(batch, rng=gen)
-        scaled_loss = loss_fn(logits, labels, class_weights,
-                              sample_mask) * loss_scale
+        out = model(batch, rng=gen)
+        logits, aux = out if has_aux_loss else (out, None)
+        loss = loss_fn(logits, labels, class_weights, sample_mask)
+        if aux is not None:
+            loss = loss + aux
+        scaled_loss = loss * loss_scale
         grads = torch.autograd.grad(scaled_loss, params, allow_unused=True)
         # a parameter the forward did not reach (SpecAugment's embedding
         # with its probability at 0) has a zero gradient, as in JAX
@@ -244,11 +251,14 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
 
 
 def make_eval_step(model: nn.Module, num_classes: int,
-                   loss_fn: Optional[Callable] = None) -> Callable:
+                   loss_fn: Optional[Callable] = None,
+                   has_aux_loss: bool = False) -> Callable:
     """Eval: ``loss, cm, preds = step(batch, labels, sample_mask,
     class_weights)`` with the deterministic forward and no gradients. The
     parameters are the model's, so the JAX step's ``params`` and
-    ``batch_stats`` arguments have no counterpart."""
+    ``batch_stats`` arguments have no counterpart. ``has_aux_loss``: the
+    model returns ``(logits, aux)``; aux is a training regulariser and
+    stays out of the eval (selection) loss."""
     if loss_fn is None:
         loss_fn = cross_entropy
 
@@ -262,6 +272,8 @@ def make_eval_step(model: nn.Module, num_classes: int,
         model.eval()
         with torch.no_grad():
             logits = model(batch)
+            if has_aux_loss:
+                logits = logits[0]
             loss = loss_fn(logits, labels, class_weights, sample_mask)
             preds = logits.argmax(dim=-1)
             cm = confusion_matrix(preds, labels, num_classes, sample_mask)

@@ -165,9 +165,6 @@ def test_main_prints_reference_keyed_dicts(tmp_path, monkeypatch, capsys):
     ("env", "MME_PP", "item 7"), ("env", "MME_COORDINATOR", "item 7"),
     ("env", "MME_NUM_PROCESSES", "item 7"),
     ("env", "MME_PRETRAINED", "item 6"),
-    ("model", "TAVFormer", "item 5"), ("model", "TAVForMAE2Tower",
-                                       "item 5"),
-    ("model", "TAVForW2V2", "item 5"), ("model", "TAVMoE", "item 5"),
     ("pickle", "exists", "item 3")])
 def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch):
     kind, what, item = case
@@ -175,8 +172,6 @@ def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch):
     argv = ["--dataset", "synthetic", "-e", "1", "-b", "8"]
     if kind == "env":
         monkeypatch.setenv(what, {"MME_MESH": "on"}.get(what, "2"))
-    elif kind == "model":
-        argv += ["-m", what]
     else:
         open(tmp_path / "meld.pkl", "wb").close()
         argv[1] = str(tmp_path / "meld")

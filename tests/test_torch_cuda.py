@@ -922,3 +922,75 @@ def test_bundle_exported_on_card_serves_through_the_operators(
     np.testing.assert_array_equal(b_preds[sure], preds[sure])
     with pytest.raises(ValueError, match="cannot serve on cpu"):
         load_bundle(str(tmp_path / "b"), device="cpu")
+
+
+# --- the fusion family: the MoE FFN and the four trunks at full width ------
+
+def test_moe_mlp_on_card_matches_cpu(cuda):
+    """``MoEMlp`` at the fusion trunk's shape [8, 473, 768], E = 4, top-2,
+    in fp32 on the card against the same module on the CPU: every token
+    whose CPU router margin (k-th minus (k+1)-th probability) is 1e-4 or
+    more routes alike (the two routers' logits differ by fp32 rounding, so
+    only a near-tie may flip), and the tokens routed alike agree within
+    1e-4 relative (fp32 products summed in other orders)."""
+    import copy
+    from mme_tpu_torch.models.moe import MoEMlp, MoESpec, router_gates
+    spec = EncoderSpec(hidden=768, intermediate=3072)
+    moe = MoEMlp(spec, MoESpec(), device="cpu")
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p, fan_in in ((moe.router.weight, 768), (moe.w1, 4 * 768),
+                          (moe.w2, 4 * 3072), (moe.b1, 50), (moe.b2, 50)):
+            p.copy_(torch.randn(p.shape, generator=g) * fan_in ** -0.5)
+        x = torch.randn(8, 473, 768, generator=g)
+        card = copy.deepcopy(moe).to(cuda)
+        want, want_aux = moe(x)
+        got, aux = card(x.to(cuda))
+        logits = moe.router(x)
+        routes = router_gates(logits, 2)[0] > 0
+        card_routes = router_gates(card.router(x.to(cuda)), 2)[0].cpu() > 0
+    top = torch.softmax(logits, -1).topk(3, -1).values
+    margin = top[..., 1] - top[..., 2]
+    same = (routes == card_routes).all(-1)
+    assert same[margin >= 1e-4].all()
+    assert same.float().mean().item() > 0.999
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.cpu()[same], want[same], rtol=1e-4,
+                               atol=1e-4 * scale)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("name,flash", [("TAVFormer", 12),
+                                        ("TAVForMAE2Tower", 18),
+                                        ("TAVForW2V2", 12), ("TAVMoE", 12)])
+def test_fusion_model_full_width_flash_matches_plain(cuda, name, flash,
+                                                     monkeypatch):
+    """One fp32 forward of each fusion trunk at full width (70 tokens,
+    96 000 samples, a 16x224x224 clip, batch 2, weights from
+    ``init_params(model=name)``): one K1 launch per attention layer, and
+    the logits within 1e-4 of the same model's with MME_FLASH=0."""
+    from mme_tpu_torch.convert import from_flax, init_params
+    from mme_tpu_torch.models.fusion import FUSION_MODELS, TAVSpec
+    from mme_tpu_torch.train.build_tav import example_tav_batch
+    spec = TAVSpec(output_dim=7)
+    model = FUSION_MODELS[name](spec, device=cuda)
+    model.load_state_dict(from_flax(init_params(spec, 0, model=name)))
+    b = example_tav_batch(spec, 2, 70, 96000, seed=1)
+    b["text_mask"][1, 40:] = 0
+    b["audio_mask"][1, 60000:] = 0
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+    model.eval()
+
+    def logits():
+        before = kernels.LAUNCHES["flash_fwd"]
+        with torch.no_grad():
+            out = model(batch)
+        out = out[0] if isinstance(out, tuple) else out
+        return out.cpu(), kernels.LAUNCHES["flash_fwd"] - before
+
+    got, count = logits()
+    monkeypatch.setenv("MME_FLASH", "0")
+    want, count_plain = logits()
+    assert count == flash and count_plain == 0
+    assert got.shape == (2, 7) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
