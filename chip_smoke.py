@@ -18,7 +18,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    memory is printed per shape in phase 3) and of the Adam kernel's.
 3. Kernels against their plain PyTorch versions on the card:
    - the flash forward (K1) and backward (K2), q/k/v as strided views of a
-     fused QKV tensor, at the four model shapes in bf16 and fp32, a ragged
+     fused QKV tensor, at the four model shapes and wav2vec2-base's
+     [8, 299, 12 heads] in bf16 and fp32, a ragged
      key length with head_dim 128, rows whose every key is masked by bias
      and, for K2, a sentinel row (every score -inf). Times each kernel, its
      plain version and ``scaled_dot_product_attention`` forward / backward
@@ -35,7 +36,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ones, the per-leaf kernel's old set): wrapper by CUDA events, kernel
      alone in a profiler trace, host µs per call, the plain version once;
    - the fused LayerNorm forward (K4a) and backward (K4b) at [2 392, 1024],
-     [11 712, 768], [3 784, 768], [153 592, 512], a ragged [3 001, 768] and
+     [11 712, 768], [3 784, 768], [153 592, 512], wav2vec2-base's
+     [2 392, 768] and [2 392, 512], a ragged [3 001, 768] and
      the widest row [1 024, 8 192] in bf16 and fp32, fp32 in / bf16 out, and
      x as a row-offset view: y, dx, dscale, dbias, two runs bit-equal. Times
      them at every shape a training step launches, beside ``F.layer_norm``
@@ -45,9 +47,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (``gemm_bf16``) against an fp32 product at the four operand orders,
      ragged extents and the video tower's product shapes;
    - the fused MLP forward (K5a) and backward (K5b) at the four full-width
-     tower shapes in bf16, a small shape in fp32 and bf16 with each of the
-     four activations, N = 1, 17 and 129 at H = 256 to 1024 in bf16, and a
-     wide fp32 shape: out, dx, dW1, dW2, db1, db2, two runs bit-equal.
+     tower shapes and wav2vec2-base's (2 392, 768, 3072) in bf16, a small
+     shape in fp32 and bf16 with each of the four activations, N = 1, 17
+     and 129 at H = 256 to 1024 in bf16, and a wide fp32 shape: out, dx,
+     dW1, dW2, db1, db2, two runs bit-equal.
      Times them at the tower shapes beside the unfused
      ``F.linear → gelu → F.linear`` and its autograd backward.
 4. Serving at full width: ``init_params(TAVSpec(output_dim=7))`` →
@@ -155,10 +158,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the knobs off and on, ms per bf16 train step, peak memory, every
    launch count, the model's seconds and the card.
 
-Then one JSON line of per-kernel results (seven kernels; ``launches_<model>``
-gives phase 8's counts: a served chunk with both knobs on for a forward
-kernel, a bf16 train step for the others), the card's name and power limit,
-and last the line ``{"ok": true, "device": {...}}``.
+9. The audio classifier and the BatchNorm models at full width, each freed
+   before the next:
+   (1) ``Wav2Vec2Classifier(Wav2Vec2Spec.base(), output_dim=7)`` with
+       weights from ``init_variables``, through ``BatchModel``: served by
+       ``Predictor(batch_size=8)`` in bf16 on 8, 5 and 11 utterances of
+       96 000 samples with ragged keep-masks (``synthetic_audio_dataset``)
+       against ``MME_FLASH=0`` (12 K1 per chunk), then with both knobs on
+       against both off (12 K5a, 26 K4a per chunk); fp32 loss and gradient
+       norm of a batch of 8 with K1/K2 against ``MME_FLASH=0``; four bf16
+       steps on one batch with ``MME_OPT_STATE=bf16 MME_FUSED_ADAM=1`` and
+       both knobs (12 K1, K2, K5a, K5b, 26 K4a, K4b and one K3 per step),
+       the eval loss after them below the one before; ``run_classifier``
+       for one epoch of 4 steps with ``MME_EXPORT_BUNDLE``, the bundle
+       against a live ``Predictor`` (12 K1 per chunk through the operator);
+   (2) ``SlowR50(output_dim=7)`` at ``visual_nn``'s full size (stages
+       (3, 4, 6, 3), batch 8 of 16x224x224 clips, fp32): one train step
+       whose stem BatchNorm statistics are held against
+       0.9 · init + 0.1 · (mean, ``var(unbiased=False)``) of the stem's
+       output, three more steps with the eval loss falling, a checkpoint
+       round trip restoring parameters and statistics bit for bit after a
+       step moved them, a bundle against the live ``Predictor``;
+   (3) ``ResnetClassifier(output_dim=2)`` at 224x224 through
+       ``run_classifier`` for one epoch with ``images_nn``'s frozen-backbone
+       mask: every backbone parameter but ``backbone.fc`` unchanged bit for
+       bit, the running statistics moved, the head moved;
+   (4) ``Conv3DClassifier`` and ``ConvNetClassifier`` at their CLIs' full
+       sizes: a forward and two train steps each.
+   Prints one JSON line per model: parameters, ms per served batch or train
+   step, peak memory, launch counts, the model's seconds and the card.
+
+Then one JSON line of per-kernel results (seven kernels;
+``launches_<model>`` gives phase 8's and phase 9's counts: a served chunk
+with both knobs on for a forward kernel, a bf16 train step for the
+others), the card's name and power limit, and last the line
+``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -186,15 +220,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mme_tpu_torch.cli.common import run_classifier
+from mme_tpu_torch.cli import images_nn, visual_nn
+from mme_tpu_torch.cli.common import BatchModel, run_classifier
 from mme_tpu_torch.config import ExperimentConfig
-from mme_tpu_torch.convert import from_flax, init_params
+from mme_tpu_torch.convert import from_flax, init_params, init_variables
 from mme_tpu_torch.data.dataset import batches
-from mme_tpu_torch.data.synthetic import synthetic_tav_dataset
+from mme_tpu_torch.data.synthetic import (synthetic_audio_dataset,
+                                          synthetic_image_dataset,
+                                          synthetic_tav_dataset)
 from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES, card_line
+from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
 from mme_tpu_torch.models.fusion import (FUSION_MODELS, TAVModel,
                                          TAVMoEFormer, TAVSpec)
+from mme_tpu_torch.models.image import ConvNetClassifier, ResnetClassifier
 from mme_tpu_torch.models.moe import MoEMlp, router_gates
+from mme_tpu_torch.models.video import Conv3DClassifier, SlowR50
 from mme_tpu_torch import time_adam
 from mme_tpu_torch.ops import adam_update, kernels
 from mme_tpu_torch.ops.adam_update import (adam_update_leaf,
@@ -230,7 +270,7 @@ from mme_tpu_torch.train.optim import AdamWState, global_norm_f32
 from mme_tpu_torch.train.schedules import cosine_warm_restarts
 from mme_tpu_torch.train.steps import (TrainState, make_eval_step,
                                        make_optimizer, make_train_step,
-                                       to_device)
+                                       model_buffers, to_device)
 
 SEED = 0
 # tolerances of the flash kernel against its plain version, elementwise
@@ -374,6 +414,7 @@ def check_flash(card: str):
             masked = 0 if name == "video" else 1
             cases.append((name, B, S, S, H, 64, dtype, masked,
                           name != "video"))
+        cases.append(("audio_base", 8, 299, 299, 12, 64, dtype, 1, True))
         cases.append(("ragged_d128", 3, 100, 333, 4, 128, dtype, 1, True))
     max_err = 0.0
     for i, (name, B, Sq, Sk, H, D, dtype, masked, has_bias) in enumerate(
@@ -448,6 +489,8 @@ def check_flash_bwd(card: str):
             masked = 0 if name == "video" else 1
             cases.append((name, B, S, S, H, 64, dtype, masked,
                           name != "video", False))
+        cases.append(("audio_base", 8, 299, 299, 12, 64, dtype, 1, True,
+                      False))
         cases.append(("ragged_d128", 3, 100, 333, 4, 128, dtype, 1, True,
                       False))
         cases.append(("sentinel", 3, 130, 130, 4, 64, dtype, 1, True, True))
@@ -717,6 +760,7 @@ def check_layer_norm(spec: TAVSpec, card: str):
     training step of the bf16 bench configuration."""
     eps = 1e-5
     shapes = [(2392, 1024), (11712, 768), (3784, 768), (153592, 512),
+              (2392, 768), (2392, 512),                      # wav2vec2-base
               (3001, 768),                                   # one ragged N
               (1024, 8192)]                                  # the widest row
     cases = [(n, h, dt, dt, 0) for dt in (torch.bfloat16, torch.float32)
@@ -872,6 +916,7 @@ def check_fused_mlp(spec: TAVSpec, card: str):
         raise SystemExit("a full-width MLP is outside the kernels' shape rule")
     cases = [(name, n, h, f, torch.bfloat16, "gelu")
              for name, n, h, f, _ in towers]
+    cases.append(("wav2vec2_base", 2392, 768, 3072, torch.bfloat16, "gelu"))
     cases += [("small", 300, 256, 512, dt, act)
               for dt in (torch.float32, torch.bfloat16) for act in ACTS]
     cases += [("ragged", n, h, f, torch.bfloat16, act)
@@ -2396,6 +2441,558 @@ def fusion_family(card: str) -> dict:
     return launches
 
 
+# phase 9: the audio classifier and the BatchNorm vision models at full
+# width. wav2vec2-base at batch 8 over 96 000-sample waveforms: 299 frames,
+# 2 392 rows; per served chunk or train step K1 and K5a (K2 and K5b) once
+# per encoder layer, K4a (K4b) on the feature projection's LayerNorm, the
+# post-LN encoder's `ln` and two per layer
+W2V_LEN = 96000
+W2V_FLASH, W2V_MLP, W2V_LN = 12, 12, 26
+W2V_REQUESTS = ((8, 70), (5, 71), (11, 72))       # (utterances, seed)
+# its loop: 4 train steps, one validation batch at the epoch's end and one
+# test batch
+W2V_LOOP_SIZES = ((32, 80), (8, 81), (8, 82))
+W2V_LOOP_STEPS, W2V_LOOP_EVAL_BATCHES = 4, 2
+# SlowR50 at visual_nn's full size: stages (3, 4, 6, 3), 16x224x224 clips,
+# batch 8, fp32; Adam's learning rate for its steps
+SLOW_BATCH, SLOW_FRAMES, SLOW_SIZE, SLOW_LR = 8, 16, 224, 1e-4
+# the first BatchNorm's running statistics after one step against their
+# recomputation from the stem's output: both fp32 means over 1.6 M values
+# per channel, summed in other orders (the module takes E[x²] - E[x]², the
+# recomputation the two-pass variance)
+BN_STAT_TOL = dict(rtol=1e-4, atol=1e-6)
+# images_nn's ResnetClassifier at 224x224 through run_classifier: one epoch
+# of 4 steps of 8 images, one validation and one test batch
+RESNET_SIZES = ((32, 90), (8, 91), (8, 92))
+
+
+def w2v_spec(dtype: torch.dtype, quiet: bool = False) -> Wav2Vec2Spec:
+    """wav2vec2-base computing in ``dtype``; ``quiet``: every dropout rate
+    and SpecAugment probability 0."""
+    s = Wav2Vec2Spec.base()
+    enc = dataclasses.replace(s.encoder, dtype=dtype)
+    if quiet:
+        enc = dataclasses.replace(enc, dropout=0.0, attention_dropout=0.0)
+        s = dataclasses.replace(s, mask_time_prob=0.0, mask_feature_prob=0.0)
+    return dataclasses.replace(s, encoder=enc)
+
+
+def w2v_model(params, dtype: torch.dtype, quiet: bool = False) -> BatchModel:
+    net = Wav2Vec2Classifier(w2v_spec(dtype, quiet), 7,
+                             0.0 if quiet else 0.5, device="cuda")
+    net.load_state_dict(from_flax(params), strict=True)
+    return BatchModel(net, ("waveform", "audio_mask"))
+
+
+def w2v_inputs(n: int, seed: int):
+    """n utterances drawn as ``synthetic_audio_dataset`` draws them (ragged
+    keep-masks from 48 000 to 96 000 samples): features on the card,
+    labels, an all-ones sample mask and class weights."""
+    ds = synthetic_audio_dataset(n, W2V_LEN, 7, seed)
+    return (to_device(ds.features, "cuda"),
+            torch.as_tensor(ds.labels, device="cuda"),
+            torch.ones(n, dtype=torch.int32, device="cuda"),
+            torch.ones(7, device="cuda"))
+
+
+def w2v_serve(params, card: str) -> dict:
+    """bf16 compute over fp32 weights, batch 8: K1 against MME_FLASH=0,
+    then both knobs on against both off."""
+    reqs = [synthetic_audio_dataset(n, W2V_LEN, 7, seed).features
+            for n, seed in W2V_REQUESTS]
+    chunks = sum(-(-n // 8) for n, _ in W2V_REQUESTS)
+    tol = SERVE_TOL[torch.bfloat16]
+    model = w2v_model(params, torch.bfloat16)
+    pred = Predictor(model, batch_size=8, device="cuda")
+    pred(reqs[0])                                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    got = [pred(r) for r in reqs]
+    torch.cuda.synchronize()
+    count = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    os.environ["MME_FLASH"] = "0"
+    try:
+        kernels.reset_launches()
+        ref = [pred(r) for r in reqs]
+        plain = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        del os.environ["MME_FLASH"]
+    diff, same = served_diff(got, ref, tol)
+    part = {k: v[:3] for k, v in reqs[0].items()}
+    pad_diff = float(np.abs(pred(part)[1] - got[0][1][:3]).max())
+    finite = all(np.isfinite(p).all() for _, p in got + ref)
+    shapes_ok = all(p.shape == (len(r["waveform"]), 7)
+                    for (_, p), r in zip(got, reqs))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with knobs_on():
+        pred(reqs[0])                                   # warm-up
+        kernels.reset_launches()
+        fused = [pred(r) for r in reqs]
+        count_f = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    diff_f, same_f = served_diff(fused, got, tol)
+    expect = {"flash_fwd": W2V_FLASH * chunks}
+    expect_f = {"flash_fwd": W2V_FLASH * chunks,
+                "fused_mlp_fwd": W2V_MLP * chunks,
+                "layer_norm_fwd": W2V_LN * chunks}
+    res = {"chunks": chunks, "launches": count, "launches_plain": plain,
+           "max_abs_vs_plain": diff, "predictions_agree": same,
+           "padded_chunk_max_abs": pad_diff, "peak_gb": peak,
+           "launches_knobs_on": count_f, "max_abs_knobs_on_vs_off": diff_f,
+           "predictions_agree_knobs_on": same_f,
+           "launches_per_chunk_knobs_on": {k: v // chunks
+                                           for k, v in count_f.items()}}
+    res["ms_per_batch_of_8"], res["times_ms"] = median_ms(pred, reqs[0])
+    with knobs_on():
+        (res["ms_per_batch_of_8_knobs_on"],
+         res["times_ms_knobs_on"]) = median_ms(pred, reqs[0])
+    print(f"wav2vec2_base serve bf16: {json.dumps(res)}", flush=True)
+    if not (finite and shapes_ok and count == expect and not plain
+            and diff <= tol and same and pad_diff <= SERVE_TOL[torch.float32]
+            and count_f == expect_f and diff_f <= tol and same_f):
+        raise SystemExit("phase 9: serving wav2vec2-base failed")
+    del pred, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def w2v_train(params, card: str) -> dict:
+    """(1) fp32, no dropout or SpecAugment, batch 8: loss and gradients
+    with the kernels against MME_FLASH=0; (2) bf16, four steps on one batch
+    of 8 with MME_OPT_STATE=bf16 and every knob on: the eval loss after
+    them below the one before, the launches of every step."""
+    out = {}
+    model = w2v_model(params, torch.float32, quiet=True)
+    model.train()
+    batch, labels, mask, cw = w2v_inputs(8, SEED + 73)
+    params_t = list(model.parameters())
+
+    def loss_and_grads():
+        kernels.reset_launches()
+        loss = cross_entropy(model(batch), labels, cw, mask)
+        grads = torch.autograd.grad(loss, params_t, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params_t)]
+        torch.cuda.synchronize()
+        return (loss.item(), global_norm_f32(grads).item(),
+                {k: v for k, v in kernels.LAUNCHES.items() if v})
+
+    loss, norm, count = loss_and_grads()
+    os.environ["MME_FLASH"] = "0"
+    try:
+        loss0, norm0, count0 = loss_and_grads()
+    finally:
+        del os.environ["MME_FLASH"]
+    out["fp32"] = {"batch": 8, "loss": loss, "loss_plain": loss0,
+                   "grad_norm": norm, "grad_norm_plain": norm0,
+                   "launches": count, "launches_plain": count0}
+    print(f"wav2vec2_base train fp32: {json.dumps(out['fp32'])}", flush=True)
+    if not (np.isfinite(loss) and np.isfinite(norm)
+            and count == {"flash_fwd": W2V_FLASH, "flash_bwd": W2V_FLASH}
+            and not count0
+            and abs(loss - loss0) <= TRAIN_LOSS_RTOL * abs(loss0)
+            and abs(norm - norm0) <= TRAIN_NORM_RTOL * norm0):
+        raise SystemExit("phase 9: the fp32 training check of wav2vec2-base "
+                         "failed")
+    del model, params_t
+    torch.cuda.empty_cache()
+
+    model = w2v_model(params, torch.bfloat16, quiet=True)
+    env = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1", **KNOBS}
+    os.environ.update(env)
+    try:
+        tx = make_optimizer(cosine_warm_restarts(FAMILY_LR, 10, 1000), 0.01,
+                            1.0)
+        st = TrainState.create(model.parameters(), tx, use_accum=False,
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(SEED))
+        step = make_train_step(model, tx, num_classes=7)
+        ev = make_eval_step(model, num_classes=7)
+        batch, labels, mask, cw = w2v_inputs(8, SEED + 74)
+        before = ev(batch, labels, mask, cw)[0].item()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, counts = [], [], []
+        for _ in range(4):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, l, _, _ = step(st, batch, labels, mask, cw, 1.0, True, SEED)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(l.item())
+            counts.append({k: v for k, v in kernels.LAUNCHES.items() if v})
+        after = ev(batch, labels, mask, cw)[0].item()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for k in env:
+            del os.environ[k]
+    expect = {"flash_fwd": W2V_FLASH, "flash_bwd": W2V_FLASH,
+              "fused_mlp_fwd": W2V_MLP, "fused_mlp_bwd": W2V_MLP,
+              "layer_norm_fwd": W2V_LN, "layer_norm_bwd": W2V_LN,
+              "adam_update": 1}
+    out["bf16"] = {"eval_loss_before": before, "eval_loss_after": after,
+                   "losses": losses, "times_ms": times,
+                   "ms_per_step": float(np.median(times[1:])),
+                   "peak_gb": peak, "launches_per_step": counts[-1],
+                   "expected_launches_per_step": expect}
+    print(f"wav2vec2_base train bf16: {json.dumps(out['bf16'])}", flush=True)
+    if not (all(np.isfinite(losses)) and np.isfinite(after)
+            and after < before and all(c == expect for c in counts)):
+        raise SystemExit("phase 9: the bf16 training leg of wav2vec2-base "
+                         "failed")
+    del model, st, step, ev
+    torch.cuda.empty_cache()
+    return out
+
+
+def w2v_loop(params, card: str) -> dict:
+    """``run_classifier`` for one epoch of 4 steps (bf16 compute,
+    MME_OPT_STATE=bf16 MME_FUSED_ADAM=1, dropout and SpecAugment on) with
+    MME_EXPORT_BUNDLE set; the bundle loaded with ``load_bundle`` against a
+    live Predictor on its weights."""
+    directory = tempfile.mkdtemp(prefix="mme_w2v_loop_")
+    bundle = os.path.join(directory, "bundle")
+    env = dict(LOOP_ENV, MME_EXPORT_BUNDLE=bundle,
+               MME_RUN_DIR=os.path.join(directory, "run"))
+    try:
+        train_ds, val_ds, test_ds = (synthetic_audio_dataset(n, W2V_LEN, 7, s)
+                                     for n, s in W2V_LOOP_SIZES)
+        model = w2v_model(params, torch.bfloat16)
+        cfg = ExperimentConfig(**dict(LOOP_CFG, epoch=1, log_val=4),
+                               checkpoint_dir=os.path.join(directory, "ck"),
+                               audio_max_samples=W2V_LEN)
+        os.environ.update(env)
+        try:
+            kernels.reset_launches()
+            t = time.perf_counter()
+            summary = run_classifier(cfg, model, train_ds, val_ds, test_ds,
+                                     device="cuda")
+            loop_s = time.perf_counter() - t
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        finally:
+            for k in env:
+                del os.environ[k]
+        with open(os.path.join(env["MME_RUN_DIR"], "metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f]
+        losses = [d[k] for d in logs for k in ("train/loss", "val/loss",
+                                               "test/loss") if k in d]
+        exported = next(d for d in logs if "export_bundle" in d)
+        del model
+        torch.cuda.empty_cache()
+
+        served = load_bundle(bundle, device="cuda")
+        live_model = w2v_model(params, torch.bfloat16)
+        live_model.load_state_dict(
+            {k[len("model."):]: v for k, v in
+             served.module.state_dict().items()}, strict=True)
+        live = Predictor(live_model, batch_size=8, device="cuda")
+        reqs = [synthetic_audio_dataset(n, W2V_LEN, 7, seed).features
+                for n, seed in W2V_REQUESTS]
+        chunks = sum(-(-n // 8) for n, _ in W2V_REQUESTS)
+        served(reqs[0])
+        live(reqs[0])                                   # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = [served(r) for r in reqs]
+        torch.cuda.synchronize()
+        count = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = [live(r) for r in reqs]
+        tol = SERVE_TOL[torch.bfloat16]
+        diff, same = served_diff(got, want, tol)
+        with open(os.path.join(bundle, "meta.json")) as f:
+            meta_model = json.load(f)["model"]
+        out = {"loop_s": loop_s, "launches": launches, "losses": losses,
+               "test_loss": summary["test/loss"],
+               "export_s": exported["export_s"], "save_s": exported["save_s"],
+               "bundle_gb": exported["bytes"] / 1e9, "load_s": served.load_s,
+               "bundle_ops": list(served.ops), "bundle_model": meta_model,
+               "bundle_launches_per_chunk": {
+                   k: v // chunks for k, v in count.items()},
+               "bundle_vs_live_max_abs": diff, "predictions_agree": same}
+        (out["bundle_ms_per_batch_of_8"],
+         out["bundle_times_ms"]) = median_ms(served, reqs[0])
+        del served, live, live_model
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        torch.cuda.empty_cache()
+    want_loop = {"flash_fwd": W2V_FLASH * (W2V_LOOP_STEPS
+                                           + W2V_LOOP_EVAL_BATCHES),
+                 "flash_bwd": W2V_FLASH * W2V_LOOP_STEPS,
+                 "adam_update": W2V_LOOP_STEPS}
+    out["expected_launches"] = want_loop
+    print(f"wav2vec2_base loop and bundle: {json.dumps(out)}", flush=True)
+    if not (all(np.isfinite(losses)) and launches == want_loop
+            and count == {"flash_fwd": W2V_FLASH * chunks}
+            and out["bundle_ops"] == ["flash_fwd"]
+            and meta_model == "BatchModel" and same and diff <= tol):
+        raise SystemExit("phase 9: wav2vec2-base through run_classifier and "
+                         "its bundle failed")
+    return out
+
+
+def wav2vec2_base(card: str) -> dict:
+    t = time.perf_counter()
+    meta = Wav2Vec2Classifier(Wav2Vec2Spec.base(), 7, device="meta")
+    params = init_variables(meta, SEED)["params"]
+    n_params = sum(p.numel() for p in meta.parameters())
+    res = {"parameters": n_params, "weights_s": time.perf_counter() - t}
+    res["serve"] = w2v_serve(params, card)
+    res["train"] = w2v_train(params, card)
+    res["loop"] = w2v_loop(params, card)
+    res["model_s"] = time.perf_counter() - t
+    serve, bf16 = res["serve"], res["train"]["bf16"]
+    print(json.dumps({"slice_model": {
+        "model": "wav2vec2_base", "parameters": n_params,
+        "serve_ms_per_batch_of_8": serve["ms_per_batch_of_8"],
+        "serve_ms_per_batch_of_8_knobs_on":
+            serve["ms_per_batch_of_8_knobs_on"],
+        "train_bf16_ms_per_step": bf16["ms_per_step"],
+        "peak_gb": max(serve["peak_gb"], bf16["peak_gb"]),
+        "launches_serve_chunk_knobs_on":
+            serve["launches_per_chunk_knobs_on"],
+        "launches_train_step": bf16["launches_per_step"],
+        "model_s": res["model_s"], "detail": res, "card": card}}),
+        flush=True)
+    return {"serve": serve["launches_per_chunk_knobs_on"],
+            "step": bf16["launches_per_step"]}
+
+
+def load_drawn(net):
+    """``net`` with weights and statistics from ``init_variables`` (drawn
+    on the host), and its parameter count."""
+    net.load_state_dict(from_flax(**init_variables(net, SEED)), strict=True)
+    return net, sum(p.numel() for p in net.parameters())
+
+
+def steps_of(model, tx, batch, labels, mask, cw, n: int):
+    """n train steps on one batch: losses and ms per step."""
+    st = TrainState.create(model.parameters(), tx, use_accum=False,
+                           buffers=model_buffers(model))
+    step = make_train_step(model, tx, num_classes=cw.shape[0])
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, l, _, _ = step(st, batch, labels, mask, cw, 1.0, True, SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(l.item())
+    return st, step, losses, times
+
+
+def slow_r50(card: str) -> dict:
+    """SlowR50(output_dim=7) at visual_nn's full size in fp32: one train
+    step whose stem statistics are held against a biased-variance
+    recomputation, three more with a falling eval loss, a checkpoint round
+    trip of parameters and statistics, a bundle against the live model."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    net, n_params = load_drawn(SlowR50(7, device="cuda"))
+    model = BatchModel(net, ("video",))
+    ds = visual_nn.synthetic_video(SLOW_BATCH, SLOW_FRAMES, SLOW_SIZE, 7,
+                                   SEED + 100)
+    batch = to_device(ds.features, "cuda")
+    labels = torch.as_tensor(ds.labels, device="cuda")
+    mask = torch.ones(SLOW_BATCH, dtype=torch.int32, device="cuda")
+    cw = torch.ones(7, device="cuda")
+    ev = make_eval_step(model, num_classes=7)
+    before = ev(batch, labels, mask, cw)[0].item()
+
+    stem = []
+    hook = net.stem_conv.register_forward_hook(
+        lambda m, a, out: stem.append(out.detach()))
+    tx = make_optimizer(lambda s: SLOW_LR, 0.01, 1.0)
+    mean0, var0 = net.stem_bn.mean.clone(), net.stem_bn.var.clone()
+    st, step, losses, times = steps_of(model, tx, batch, labels, mask, cw, 1)
+    hook.remove()
+    y = stem[0]
+    dims = (0, 2, 3, 4)
+    want_mean = 0.9 * mean0 + 0.1 * y.mean(dims)
+    want_var = 0.9 * var0 + 0.1 * y.var(dims, unbiased=False)
+    unbiased = 0.9 * var0 + 0.1 * y.var(dims, unbiased=True)
+    err_mean = (net.stem_bn.mean - want_mean).abs().max().item()
+    err_var = (net.stem_bn.var - want_var).abs().max().item()
+    stats_ok = (torch.allclose(net.stem_bn.mean, want_mean, **BN_STAT_TOL)
+                and torch.allclose(net.stem_bn.var, want_var, **BN_STAT_TOL))
+    unbiased_gap = (unbiased - want_var).abs().max().item()
+    del stem, y
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, l, _, _ = step(st, batch, labels, mask, cw, 1.0, True, SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(l.item())
+    after = ev(batch, labels, mask, cw)[0].item()
+
+    directory = tempfile.mkdtemp(prefix="mme_slow_r50_")
+    try:
+        ck = CheckpointManager(os.path.join(directory, "ck"), use_async=False)
+        ck.save_best(st, {"val_loss": after})
+        saved_p = [p.detach().clone() for p in st.params]
+        saved_b = {k: b.clone() for k, b in st.buffers.items()}
+        step(st, batch, labels, mask, cw, 1.0, True, SEED)   # moves both
+        moved = not all(torch.equal(a, b) for a, b in zip(st.params, saved_p))
+        t = time.perf_counter()
+        ck.restore_best(st)
+        restore_s = time.perf_counter() - t
+        restored = (all(torch.equal(a, b) for a, b in zip(st.params, saved_p))
+                    and all(torch.equal(st.buffers[k], b)
+                            for k, b in saved_b.items()))
+
+        bundle = os.path.join(directory, "bundle")
+        info = export_bundle(model, ds.features, bundle, batch_size=8,
+                             device="cuda")
+        served = load_bundle(bundle, device="cuda")
+        live = Predictor(model, batch_size=8, device="cuda")
+        reqs = [ds.features, {k: v[:5] for k, v in ds.features.items()}]
+        want = [live(r) for r in reqs]
+        got = [served(r) for r in reqs]
+        diff, same = served_diff(got, want, SERVE_TOL[torch.float32])
+        live_ms, _ = median_ms(live, reqs[0], n=3)
+        bundle_ms, _ = median_ms(served, reqs[0], n=3)
+        del served, live
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    res = {"parameters": n_params, "batch": SLOW_BATCH,
+           "clip": [SLOW_FRAMES, SLOW_SIZE, SLOW_SIZE],
+           "stem_stats_max_abs": [err_mean, err_var],
+           "stem_var_unbiased_gap": unbiased_gap,
+           "losses": losses, "eval_loss_before": before,
+           "eval_loss_after": after, "times_ms": times,
+           "ms_per_step": float(np.median(times[1:])),
+           "checkpoint_moved_then_restored": [moved, restored],
+           "restore_s": restore_s, "bundle_export_s": info["export_s"],
+           "bundle_gb": info["bytes"] / 1e9, "bundle_vs_live_max_abs": diff,
+           "predictions_agree": same, "live_ms_per_batch_of_8": live_ms,
+           "bundle_ms_per_batch_of_8": bundle_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "model_s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"slice_model": {"model": "SlowR50", **res}}),
+          flush=True)
+    if not (stats_ok and all(np.isfinite(losses)) and after < before
+            and moved and restored and same
+            and diff <= SERVE_TOL[torch.float32]):
+        raise SystemExit("phase 9: SlowR50 failed")
+    del model, net, st, step, ev
+    torch.cuda.empty_cache()
+    return res
+
+
+def resnet_frozen(card: str) -> dict:
+    """ResnetClassifier(output_dim=2) at 224x224 through run_classifier for
+    one epoch with images_nn's frozen-backbone mask: every backbone
+    parameter but ``backbone.fc`` unchanged bit for bit, the running
+    statistics moved, the head moved, ``backbone.fc``'s kernel moved by
+    AdamW's weight decay."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    net, n_params = load_drawn(ResnetClassifier(2, device="cuda"))
+    model = BatchModel(net, ("image",))
+    mask = images_nn.fc_trainable_mask(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {k: b.clone() for k, b in model_buffers(model).items()}
+    train_ds, val_ds, test_ds = (synthetic_image_dataset(n, 224, 2, s)
+                                 for n, s in RESNET_SIZES)
+    directory = tempfile.mkdtemp(prefix="mme_resnet_")
+    env = {"MME_RUN_DIR": os.path.join(directory, "run")}
+    os.environ.update(env)
+    try:
+        cfg = ExperimentConfig(batch_size=8, epoch=1, log_val=4,
+                               patience=10, learning_rate=1e-3, output_dim=2,
+                               dataset="synthetic", seed=SEED,
+                               checkpoint_dir=os.path.join(directory, "ck"))
+        t = time.perf_counter()
+        summary = run_classifier(cfg, model, train_ds, val_ds, test_ds,
+                                 trainable_mask=mask, device="cuda")
+        loop_s = time.perf_counter() - t
+    finally:
+        del os.environ["MME_RUN_DIR"]
+        shutil.rmtree(directory, ignore_errors=True)
+    moved = {n: not torch.equal(p, before[n])
+             for n, p in model.named_parameters()}
+    frozen_still = all(not moved[n] for (n, _), m in
+                       zip(model.named_parameters(), mask) if not m)
+    trainable = [n for (n, _), m in zip(model.named_parameters(), mask) if m]
+    stats_moved = any(not torch.equal(b, stats[k])
+                      for k, b in model_buffers(model).items())
+    # the head trains; the backbone's unused fc moves by weight decay alone
+    # (its zero bias stays zero)
+    head_moved = all(moved[n] for n in trainable if n.startswith("net.fc."))
+    res = {"parameters": n_params, "trainable": trainable,
+           "trainable_moved": {n: moved[n] for n in trainable},
+           "frozen_unchanged": frozen_still, "statistics_moved": stats_moved,
+           "test_loss": summary["test/loss"], "loop_s": loop_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "model_s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"slice_model": {"model": "ResnetClassifier", **res}}),
+          flush=True)
+    if not (frozen_still and stats_moved and head_moved
+            and moved["net.backbone.fc.weight"]
+            and np.isfinite(summary["test/loss"])
+            and len(trainable) == 4):
+        raise SystemExit("phase 9: ResnetClassifier with the frozen "
+                         "backbone failed")
+    del model, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def conv_nets(card: str) -> list:
+    """Conv3DClassifier at visual_nn's full size (16x224x224 clips) and
+    ConvNetClassifier at images_nn's (224x224, hidden (32, 32), the binary
+    sigmoid head): a forward and two train steps each, batch 8, fp32."""
+    out = []
+    for name, net, key, shape, classes in (
+            ("Conv3DClassifier", Conv3DClassifier(7, device="cuda"), "video",
+             (8, 16, 224, 224, 3), 7),
+            ("ConvNetClassifier", ConvNetClassifier((32, 32), 1, 224,
+                                                    device="cuda"),
+             "image", (8, 224, 224, 3), 2)):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        net, n_params = load_drawn(net)
+        model = BatchModel(net, (key,))
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        batch = {key: torch.rand(shape, generator=g, device="cuda")}
+        labels = torch.arange(8, device="cuda") % classes
+        mask = torch.ones(8, dtype=torch.int32, device="cuda")
+        cw = torch.ones(classes, device="cuda")
+        model.eval()
+        with torch.no_grad():
+            logits = model(batch)
+        tx = make_optimizer(lambda s: 1e-4, 0.01, 1.0)
+        _, _, losses, times = steps_of(model, tx, batch, labels, mask, cw, 2)
+        res = {"model": name, "parameters": n_params,
+               "logits_shape": list(logits.shape), "losses": losses,
+               "ms_per_step": times[-1], "times_ms": times,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "model_s": time.perf_counter() - t0, "card": card}
+        print(json.dumps({"slice_model": res}), flush=True)
+        if not (tuple(logits.shape) == (8, classes)
+                and bool(torch.isfinite(logits).all())
+                and all(np.isfinite(losses))):
+            raise SystemExit(f"phase 9: {name} failed")
+        out.append(res)
+        del model, net
+        torch.cuda.empty_cache()
+    return out
+
+
+def slice_models(card: str) -> dict:
+    """Phase 9. Returns wav2vec2-base's launches of one served chunk with
+    both knobs on and of one bf16 train step with every knob on."""
+    t0 = time.perf_counter()
+    launches = wav2vec2_base(card)
+    torch.cuda.empty_cache()
+    slow_r50(card)
+    resnet_frozen(card)
+    conv_nets(card)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2446,14 +3043,17 @@ def main() -> int:
         shutil.rmtree(front_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     family = fusion_family(card)
+    torch.cuda.empty_cache()
+    w2v = slice_models(card)
 
     def family_launches(name):
-        """launches_<model> of phase 8: one served chunk with both knobs on
-        for a forward kernel, one bf16 train step with every knob on for
-        the others."""
+        """launches_<model> of phases 8 and 9: one served chunk with both
+        knobs on for a forward kernel, one bf16 train step with every knob
+        on for the others."""
         leg = "serve" if name.endswith("_fwd") else "step"
-        return {f"launches_{m}": family[m][leg].get(name, 0)
-                for m in FAMILY}
+        out = {f"launches_{m}": family[m][leg].get(name, 0) for m in FAMILY}
+        out["launches_wav2vec2_base"] = w2v[leg].get(name, 0)
+        return out
 
     def entry(name, route, source, replaces, result):
         """A kernel of this slice: launches of one training step with both

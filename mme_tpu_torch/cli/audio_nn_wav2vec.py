@@ -1,0 +1,82 @@
+"""Audio classifier entry point: wav2vec2 on raw waveforms → mean-pool →
+classifier.
+
+Port of ``mme_tpu/cli/audio_nn_wav2vec.py``: ``Wav2Vec2Classifier`` on
+``Wav2Vec2Spec.base()`` (wav2vec2-base), trained through
+``cli/common.py::run_classifier`` with length buckets
+(``make_bucket_iter``, ``MME_BUCKETS``). ``--dataset synthetic`` (or
+``MME_TINY``) shrinks the tower to JAX's tiny spec (three 32-wide convs, a
+2-layer 64-wide encoder) over 4 000-sample waveforms. Runs on the card::
+
+    python -m mme_tpu_torch.cli.audio_nn_wav2vec --dataset synthetic -e 1 -b 8
+
+and on the CPU only through ``main(argv, device="cpu")``. Weights are drawn
+from ``--seed`` (``convert.init_variables``). What the port lacks raises
+``NotImplementedError`` before any work: ``MME_PRETRAINED`` with the
+full-size tower (JAX loads the pretrained tower there; ROADMAP Queue 1
+item 6) and a pickle dataset (item 3). A missing pickle raises
+``FileNotFoundError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+
+from mme_tpu_torch.cli.common import (BatchModel, make_bucket_iter,
+                                      resolve_pickle, run_classifier)
+from mme_tpu_torch.config import arg_parse, config_from_args
+from mme_tpu_torch.convert import from_flax, init_variables
+from mme_tpu_torch.data.synthetic import synthetic_audio_dataset
+from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
+
+
+def tiny_spec(spec: Wav2Vec2Spec) -> Wav2Vec2Spec:
+    """The CLI's synthetic-data tower."""
+    return dataclasses.replace(
+        spec, conv_dims=(32, 32, 32), conv_kernels=(10, 3, 3),
+        conv_strides=(5, 2, 2),
+        encoder=dataclasses.replace(spec.encoder, hidden=64, heads=4,
+                                    layers=2, intermediate=128))
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         device: DeviceLike = "cuda") -> Dict[str, Any]:
+    dev = resolve_device(device)
+    args = arg_parse("audio_nn_wav2vec", argv)
+    cfg = config_from_args(args)
+    np.random.seed(cfg.seed)
+
+    spec = Wav2Vec2Spec.base()
+    audio_len = cfg.audio_max_samples
+    if cfg.dataset == "synthetic" or os.environ.get("MME_TINY"):
+        spec = tiny_spec(spec)
+        audio_len = 4000
+    full_size = tuple(spec.conv_dims) == (512,) * 7
+    if os.environ.get("MME_PRETRAINED") and full_size:
+        raise NotImplementedError("MME_PRETRAINED needs the pretrained-weight "
+                                  "import (ROADMAP Queue 1 item 6)")
+    pkl = resolve_pickle(cfg.dataset)
+    if pkl is not None:
+        raise NotImplementedError(
+            f"dataset pickle {pkl!r}: reading records (data/records.py) is "
+            "not ported yet (ROADMAP Queue 1 item 3); use --dataset "
+            "synthetic")
+    mk = lambda n, s: synthetic_audio_dataset(
+        n, audio_len=audio_len, num_classes=cfg.output_dim, seed=s)
+    train_ds, val_ds, test_ds = mk(128, 0), mk(32, 1), mk(32, 2)
+
+    net = Wav2Vec2Classifier(spec, cfg.output_dim, cfg.dropout, device=dev)
+    net.load_state_dict(from_flax(**init_variables(net, cfg.seed)),
+                        strict=True)
+    return run_classifier(
+        cfg, BatchModel(net, ("waveform", "audio_mask")), train_ds, val_ds,
+        test_ds, batch_iter=make_bucket_iter(audio_len), device=dev)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,10 +3,11 @@ evaluated run.
 
 Port of ``mme_tpu/cli/common.py``: ``label_names``, ``invert_label_map``,
 ``resolve_pickle``, ``print_log``, ``make_bucket_iter`` and
-``run_classifier``. ``run_classifier`` takes the port's ``nn.Module`` with
-its weights loaded (JAX's takes ``apply_fn`` and a parameter tree) and
-builds the rest as JAX does: class and sample weights, AdamW over cosine
-warm restarts with the trainable mask, the state without an accumulation
+``run_classifier``; and ``BatchModel``, the counterpart of the single-model
+CLIs' ``apply_fn``. ``run_classifier`` takes the port's ``nn.Module`` with
+its weights (and running statistics) loaded (JAX's takes ``apply_fn``, a
+parameter tree and ``batch_stats``) and builds the rest as JAX does: class
+and sample weights, AdamW over cosine warm restarts with the trainable mask, the state without an accumulation
 buffer, the loss of ``--loss``, the train and eval steps, a ``RunLogger``,
 then the loop and the test pass, and after it the serving exports:
 ``MME_PREDICT_OUT`` (a JSONL prediction log of the test split) and
@@ -42,7 +43,7 @@ from mme_tpu_torch.train.policies import sample_weights_from_labels
 from mme_tpu_torch.train.schedules import cosine_warm_restarts
 from mme_tpu_torch.train.steps import (TrainState, make_eval_step,
                                        make_optimizer, make_train_step,
-                                       to_device)
+                                       model_buffers, to_device)
 from mme_tpu_torch.utils.profiling import RunLogger
 
 MELD_EMOTIONS = ["neutral", "joy", "sadness", "anger", "surprise",
@@ -120,6 +121,26 @@ def make_bucket_iter(audio_len: int, default_on: bool = True
     return BucketedBatchIter(bounds)
 
 
+class BatchModel(nn.Module):
+    """``model(batch, rng) -> logits`` over a classifier that takes arrays,
+    ``net(*[batch[k] for k in inputs], rng=rng)``: what the single-model
+    CLIs' ``apply_fn`` does in JAX. A 1-D output (the ConvNet's binary
+    sigmoid head) becomes the two-class ``[1 - p, p]``; logits come out in
+    fp32. The parameters are ``net``'s, named ``net.<flax path>``."""
+
+    def __init__(self, net: nn.Module, inputs: Sequence[str]):
+        super().__init__()
+        self.net = net
+        self.inputs = tuple(inputs)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self.net(*(batch[k] for k in self.inputs), rng=rng)
+        if out.dim() == 1:
+            out = torch.stack([1.0 - out, out], dim=-1)
+        return out.float()
+
+
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     if os.environ.get("MME_MESH", "off") != "off":
         raise NotImplementedError("MME_MESH needs the parallel axes, "
@@ -145,8 +166,9 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
     ``test_ds`` and return the test summary.
 
     ``model(batch, rng) -> logits`` holds its weights; it is moved to
-    ``device``. ``trainable_mask``: one bool per parameter. ``id2label``:
-    the dataset's id→name map (default: :func:`label_names`).
+    ``device``. Its persistent buffers (BatchNorm statistics) ride in the
+    state and its checkpoints. ``trainable_mask``: one bool per parameter.
+    ``id2label``: the dataset's id→name map (default: :func:`label_names`).
     ``checkpoints``: a manager to use instead of one on
     ``cfg.checkpoint_dir``. ``has_aux_loss``: the model returns
     ``(logits, aux)`` (``TAVMoEFormer``); aux joins the training loss and
@@ -179,7 +201,7 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
     state = TrainState.create(
         model.parameters(), tx, use_accum=False,
         generator=torch.Generator(device=dev).manual_seed(cfg.seed),
-        names=names)
+        names=names, buffers=model_buffers(model))
     loss_fn = make_loss_fn(cfg.loss, cfg.beta)
     train_step = make_train_step(
         model, tx, num_classes=num_classes, loss_fn=loss_fn,

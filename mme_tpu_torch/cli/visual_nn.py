@@ -1,0 +1,79 @@
+"""Video classifier entry point: ``-m ResNet`` → the slow-pathway 3-D
+ResNet-50 with its proj→768 head; any other name → the scratch Conv3D
+classifier.
+
+Port of ``mme_tpu/cli/visual_nn.py``. ``--dataset synthetic`` (or
+``MME_TINY``) runs 8×64×64 clips and a (1, 1, 1, 1)-block SlowR50; else
+16×224×224 and (3, 4, 6, 3). SlowR50 trains its BatchNorms' running
+statistics through ``run_classifier`` (they ride in the train state and its
+checkpoints). Runs on the card::
+
+    python -m mme_tpu_torch.cli.visual_nn --dataset synthetic -m ResNet -e 1 -b 8
+
+and on the CPU only through ``main(argv, device="cpu")``. Weights are drawn
+from ``--seed`` (``convert.init_variables``). What the port lacks raises
+``NotImplementedError``: a pickle dataset (ROADMAP Queue 1 item 3) and, for
+``-m ResNet``, ``MME_PRETRAINED`` (the slow_r50 import, item 6). A missing
+pickle raises ``FileNotFoundError``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+
+from mme_tpu_torch.cli.common import BatchModel, resolve_pickle, run_classifier
+from mme_tpu_torch.config import arg_parse, config_from_args
+from mme_tpu_torch.convert import from_flax, init_variables
+from mme_tpu_torch.data.dataset import ArrayDataset
+from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.models.video import Conv3DClassifier, SlowR50
+
+
+def synthetic_video(n: int, frames: int, size: int, num_classes: int,
+                    seed: int) -> ArrayDataset:
+    """Clips [n, frames, size, size, 3] in [0, 1) shifted by label /
+    classes (JAX's ``_synthetic_video``, the same arrays)."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, num_classes, n)
+    video = rng.rand(n, frames, size, size, 3).astype(np.float32)
+    video += (labels / num_classes)[:, None, None, None, None]
+    return ArrayDataset({"video": video}, labels.astype(np.int64))
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         device: DeviceLike = "cuda") -> Dict[str, Any]:
+    dev = resolve_device(device)
+    args = arg_parse("visual_nn", argv)
+    cfg = config_from_args(args)
+    np.random.seed(cfg.seed)
+
+    tiny = cfg.dataset == "synthetic" or bool(os.environ.get("MME_TINY"))
+    frames, size = (8, 64) if tiny else (16, 224)
+    stages = (1, 1, 1, 1) if tiny else (3, 4, 6, 3)
+    resnet = cfg.model.lower() == "resnet"
+
+    pkl = resolve_pickle(cfg.dataset)
+    if pkl is not None:
+        raise NotImplementedError(
+            f"dataset pickle {pkl!r}: reading records (data/records.py) is "
+            "not ported yet (ROADMAP Queue 1 item 3); use --dataset "
+            "synthetic")
+    if resnet and os.environ.get("MME_PRETRAINED"):
+        raise NotImplementedError("MME_PRETRAINED needs the slow_r50 weight "
+                                  "import (ROADMAP Queue 1 item 6)")
+    mk = lambda n, s: synthetic_video(n, frames, size, cfg.output_dim, s)
+    train_ds, val_ds, test_ds = mk(64, 0), mk(16, 1), mk(16, 2)
+
+    net = (SlowR50(cfg.output_dim, stage_sizes=stages, device=dev) if resnet
+           else Conv3DClassifier(cfg.output_dim, device=dev))
+    net.load_state_dict(from_flax(**init_variables(net, cfg.seed)),
+                        strict=True)
+    return run_classifier(cfg, BatchModel(net, ("video",)), train_ds, val_ds,
+                          test_ds, device=dev)
+
+
+if __name__ == "__main__":
+    main()

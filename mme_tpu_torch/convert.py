@@ -5,21 +5,29 @@ The port's module tree mirrors the flax tree name for name, so a flax leaf
 
 - ``Dense`` kernel [in, out] → ``weight`` [out, in];
 - the fused attention ``qkv`` kernel [hidden, 3, H, D] → [3·H·D, hidden];
-- ``Conv`` kernel [k, in/groups, out] → [out, in/groups, k] (the grouped
-  positional conv included);
-- LayerNorm ``scale`` → ``weight``; ``Embed`` ``embedding`` → ``weight``;
+- ``Conv`` kernel [*k, in/groups, out] → [out, in/groups, *k] for 1-, 2-
+  and 3-D convolutions (the grouped positional conv included). A rank-4
+  kernel is the attention's when its module is named ``qkv`` and a 2-D
+  conv's otherwise;
+- LayerNorm, GroupNorm and BatchNorm ``scale`` → ``weight``; ``Embed``
+  ``embedding`` → ``weight``;
 - everything else (biases, ``qkv_bias`` [3, H, D], ``masked_spec_embed``,
   the MoE expert stacks ``w1`` [E, H, I], ``b1``, ``w2`` [E, I, H], ``b2``)
   keeps its name and shape.
 
-:func:`from_flax` reads the flax tree as nested dicts of numpy arrays;
+A BatchNorm's ``batch_stats`` (``mean``, ``var``) are the module's buffers
+of the same names.
+
+:func:`from_flax` reads the flax trees as nested dicts of numpy arrays;
 :func:`to_flax` goes back from a port model, with its parameters or with any
-tensors aligned with them (gradients: :func:`grads_to_flax`), so a test can
-hold them against JAX's leaf by leaf; :func:`factored_views` gives the
-factored optimizer the flax layout's rows and columns of every leaf;
-:func:`init_params` draws a
-flax-layout tree with numpy at flax's default initializer scales, for runs
-without JAX and without pretrained weights.
+tensors aligned with them (gradients: :func:`grads_to_flax`), and
+:func:`stats_to_flax` gives its running statistics, so a test can hold them
+against JAX's leaf by leaf; :func:`factored_views` gives the factored
+optimizer the flax layout's rows and columns of every leaf;
+:func:`init_variables` draws a flax-layout ``params`` (and
+``batch_stats``) tree of any port model with numpy at flax's default
+initializer scales, for runs without JAX and without pretrained weights;
+:func:`init_params` does it for a ``FUSION_MODELS`` entry.
 """
 
 from __future__ import annotations
@@ -33,8 +41,10 @@ from torch import nn
 
 from mme_tpu_torch.models.audio import Conv1d
 from mme_tpu_torch.models.fusion import FUSION_MODELS, TAVSpec
-from mme_tpu_torch.models.layers import Dense, Embed, MultiHeadAttention
+from mme_tpu_torch.models.layers import (Conv, Dense, Embed,
+                                         MultiHeadAttention)
 from mme_tpu_torch.models.moe import MoEMlp
+from mme_tpu_torch.models.norm import BatchNorm, GroupNorm
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
 from mme_tpu_torch.train import optim
 
@@ -50,9 +60,20 @@ def _flatten(tree: Any, prefix: Tuple[str, ...] = ()
         yield prefix, np.asarray(tree)
 
 
-def from_flax(params: Any) -> "OrderedDict[str, torch.Tensor]":
-    """Flax param tree (nested mappings of arrays) → the port's state dict
-    (fp32 CPU tensors)."""
+def _to_port(flax_perm: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(int(i) for i in np.argsort(flax_perm))
+
+
+def _conv_perm(rank: int) -> Tuple[int, ...]:
+    """Port conv weight [out, in, *k] → flax kernel [*k, in, out]."""
+    return tuple(range(2, rank)) + (1, 0)
+
+
+def from_flax(params: Any, batch_stats: Any = None
+              ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``params`` tree (nested mappings of arrays), and a
+    ``batch_stats`` tree for a model with BatchNorms, → the port's state
+    dict (fp32 CPU tensors)."""
     state = OrderedDict()
     for path, a in _flatten(params):
         leaf = path[-1]
@@ -60,10 +81,10 @@ def from_flax(params: Any) -> "OrderedDict[str, torch.Tensor]":
         if leaf == "kernel":
             if a.ndim == 2:
                 a = a.T
-            elif a.ndim == 3:
-                a = a.transpose(2, 1, 0)
-            elif a.ndim == 4:
+            elif a.ndim == 4 and len(path) > 1 and path[-2] == "qkv":
                 a = a.reshape(a.shape[0], -1).T
+            elif a.ndim in (3, 4, 5):
+                a = a.transpose(_to_port(_conv_perm(a.ndim)))
             else:
                 raise ValueError(f"{'/'.join(path)}: kernel of rank {a.ndim}")
             leaf = "weight"
@@ -71,6 +92,9 @@ def from_flax(params: Any) -> "OrderedDict[str, torch.Tensor]":
             leaf = "weight"
         state[".".join(path[:-1] + (leaf,))] = torch.from_numpy(
             np.ascontiguousarray(a))
+    for path, a in _flatten(batch_stats or {}):
+        state[".".join(path)] = torch.from_numpy(
+            np.ascontiguousarray(a.astype(np.float32)))
     return state
 
 
@@ -89,11 +113,11 @@ def _leaves(model: nn.Module):
                     kind = ("qkv" if name.endswith(".qkv") and parent in attn
                             else "dense")
                     leaf = "kernel"
-                elif isinstance(mod, Conv1d):
+                elif isinstance(mod, (Conv1d, Conv)):
                     kind, leaf = "conv", "kernel"
                 elif isinstance(mod, Embed):
                     kind, leaf = "embed", "embedding"
-                elif isinstance(mod, FusedLayerNorm):
+                elif isinstance(mod, (FusedLayerNorm, GroupNorm, BatchNorm)):
                     kind, leaf = "ones", "scale"
             elif pname == "masked_spec_embed":
                 kind = "uniform"
@@ -106,11 +130,19 @@ def _leaves(model: nn.Module):
             yield path + (leaf,), p, kind, heads
 
 
+def _stats(model: nn.Module):
+    """(flax path, buffer) of every BatchNorm's running statistics."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            for leaf in ("mean", "var"):
+                yield tuple(name.split(".")) + (leaf,), getattr(mod, leaf)
+
+
 def _flax_shape(shape, kind, heads):
     if kind == "dense":
         return (shape[1], shape[0])
     if kind == "conv":
-        return (shape[2], shape[1], shape[0])
+        return tuple(shape[i] for i in _conv_perm(len(shape)))
     if kind == "qkv":
         return (shape[1], 3) + heads
     return tuple(shape)
@@ -137,10 +169,19 @@ def to_flax(model: nn.Module,
         if kind == "dense":
             a = a.T
         elif kind == "conv":
-            a = a.transpose(2, 1, 0)
+            a = a.transpose(_conv_perm(a.ndim))
         elif kind == "qkv":
             a = a.T.reshape(_flax_shape(p.shape, kind, heads))
         _set(tree, path, np.ascontiguousarray(a))
+    return tree
+
+
+def stats_to_flax(model: nn.Module) -> Dict[str, Any]:
+    """The model's BatchNorm running statistics as a flax ``batch_stats``
+    tree of numpy arrays (empty for a model without BatchNorms)."""
+    tree: Dict[str, Any] = {}
+    for path, b in _stats(model):
+        _set(tree, path, b.detach().float().cpu().numpy().copy())
     return tree
 
 
@@ -177,10 +218,11 @@ def factored_views(model: nn.Module, min_size: Optional[int] = None):
         elif kind == "dense":
             views.append((lambda t: t.t(), lambda v: v.t()))
         elif kind == "conv":
+            perm = _conv_perm(len(shape))
             views.append((
-                lambda t, s=shape: t.permute(2, 1, 0).reshape(-1, s[0]),
-                lambda v, s=shape: v.reshape(s[2], s[1], s[0]
-                                             ).permute(2, 1, 0)))
+                lambda t, p=perm, s=shape: t.permute(p).reshape(-1, s[0]),
+                lambda v, p=perm, f=flax: v.reshape(f).permute(
+                    _to_port(p))))
         elif kind == "qkv":
             d = heads[1]
             views.append((
@@ -192,19 +234,19 @@ def factored_views(model: nn.Module, min_size: Optional[int] = None):
     return views
 
 
-def init_params(spec: TAVSpec, seed: int = 0,
-                model: str = "TAVModel") -> Dict[str, Any]:
-    """A flax-layout param tree of ``FUSION_MODELS[model]`` (``TAVModel``
-    for the class name or an unknown name) drawn with numpy at flax's
-    default scales: kernels lecun-normal (truncated at ±2σ, fan-in = the
-    kernel's input size; for the [E, H, I] expert stacks flax counts E as a
-    receptive field, so E·H, and E·I for ``w2``), embeddings normal with
-    std 1/√features, LayerNorm scales 1, biases 0, ``masked_spec_embed``
-    uniform in [0, 1)."""
-    cls = FUSION_MODELS.get(model, FUSION_MODELS["MAE_encoder"])
+def init_variables(model: nn.Module, seed: int = 0) -> Dict[str, Any]:
+    """Flax-layout variables of ``model`` (built on any device, ``meta``
+    included) drawn with numpy at flax's default scales: ``{"params": ...}``
+    and, for a model with BatchNorms, ``"batch_stats"``. Kernels are
+    lecun-normal (truncated at ±2σ, fan-in = the kernel's input size: for a
+    conv the receptive field times the input channels; for the [E, H, I]
+    expert stacks flax counts E as a receptive field, so E·H, and E·I for
+    ``w2``), embeddings normal with std 1/√features, norm scales 1, biases
+    0, ``masked_spec_embed`` uniform in [0, 1); running means 0 and
+    variances 1."""
     rng = np.random.default_rng(seed)
     tree: Dict[str, Any] = {}
-    for path, p, kind, heads in _leaves(cls(spec, device="meta")):
+    for path, p, kind, heads in _leaves(model):
         shape = _flax_shape(p.shape, kind, heads)
         if kind in ("dense", "conv", "qkv", "experts"):
             fan_in = shape[0] if kind == "qkv" else int(np.prod(shape[:-1]))
@@ -224,4 +266,19 @@ def init_params(spec: TAVSpec, seed: int = 0,
         else:
             a = np.zeros(shape, np.float32)
         _set(tree, path, a)
-    return tree
+    variables = {"params": tree}
+    stats: Dict[str, Any] = {}
+    for path, b in _stats(model):
+        _set(stats, path, (np.zeros if path[-1] == "mean" else np.ones)(
+            tuple(b.shape), np.float32))
+    if stats:
+        variables["batch_stats"] = stats
+    return variables
+
+
+def init_params(spec: TAVSpec, seed: int = 0,
+                model: str = "TAVModel") -> Dict[str, Any]:
+    """:func:`init_variables`' ``params`` of ``FUSION_MODELS[model]``
+    (``TAVModel`` for the class name or an unknown name) at ``spec``."""
+    cls = FUSION_MODELS.get(model, FUSION_MODELS["MAE_encoder"])
+    return init_variables(cls(spec, device="meta"), seed)["params"]

@@ -1,12 +1,13 @@
-"""Audio tower: wav2vec2-large (layer-norm conv extractor, stable-LN encoder).
+"""Audio towers: wav2vec2-base and -large, and the mean-pool classifier.
 
-Port of ``mme_tpu/models/audio.py`` for the path the TAV model serves:
-``Wav2Vec2Spec``, ``ConvFeatureExtractor`` (layer-norm variant),
-``FeatureProjection``, ``PositionalConvEmbedding``, ``Wav2Vec2Encoder``
-(stable-LN) and ``Wav2Vec2Model``, with their training-mode sites (dropout
-after the feature projection and on the encoder input, SpecAugment). The
-base variant (group-norm extractor, post-LN encoder) and
-``Wav2Vec2Classifier`` are not ported yet.
+Port of ``mme_tpu/models/audio.py``: ``Wav2Vec2Spec`` (the bare spec and
+``.base()`` are wav2vec2-base: group-norm extractor, no conv bias, post-LN
+768x12 encoder; ``.large()`` is the layer-norm extractor with conv bias and
+the stable-LN 1024x24 encoder), ``ConvFeatureExtractor``,
+``FeatureProjection``, ``PositionalConvEmbedding``, ``Wav2Vec2Encoder``,
+``Wav2Vec2Model`` and ``Wav2Vec2Classifier``, with their training-mode
+sites (dropout after the feature projection, on the encoder input and on
+the pooled vector; SpecAugment).
 
 Public tensors keep the JAX layout: waveforms [B, T], features and hidden
 states [B, F, C]. The convolutions run through ``F.conv1d`` (JAX leaves
@@ -27,8 +28,10 @@ from mme_tpu_torch.models.layers import (Dense, EncoderSpec,
                                          TransformerEncoder, activation,
                                          dropout, empty_param, remat_call)
 from mme_tpu_torch.ops.attention import additive_mask
+from mme_tpu_torch.models.norm import GroupNorm
 from mme_tpu_torch.ops.audio import (apply_spec_augment,
-                                     feature_vector_attention_mask)
+                                     feature_vector_attention_mask,
+                                     masked_mean_pool)
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
 
 
@@ -37,6 +40,9 @@ class Wav2Vec2Spec:
     conv_dims: Sequence[int] = (512,) * 7
     conv_kernels: Sequence[int] = (10, 3, 3, 3, 3, 2, 2)
     conv_strides: Sequence[int] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"      # "group" (base) | "layer" (large)
+    do_stable_layer_norm: bool = False
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     # SpecAugment (training only)
@@ -48,22 +54,33 @@ class Wav2Vec2Spec:
     mask_feature_min_masks: int = 0
     remat_conv: bool = False  # remat the conv stack independently of encoders
     encoder: EncoderSpec = dataclasses.field(default_factory=lambda: EncoderSpec(
-        hidden=1024, heads=16, layers=24, intermediate=4096, ln_style="pre",
-        ln_eps=1e-5, final_ln=True, dropout=0.1))
+        hidden=768, heads=12, layers=12, intermediate=3072,
+        ln_style="post", ln_eps=1e-5, dropout=0.1))
+
+    @staticmethod
+    def base(**kw) -> "Wav2Vec2Spec":
+        """'superb/wav2vec2-base-superb-er'-shaped."""
+        return Wav2Vec2Spec(**kw)
 
     @staticmethod
     def large(**kw) -> "Wav2Vec2Spec":
         """'ehcalabres/wav2vec2-lg-xlsr-en-speech-emotion-recognition'-shaped."""
-        return Wav2Vec2Spec(**kw)
+        return Wav2Vec2Spec(
+            conv_bias=True, feat_extract_norm="layer",
+            do_stable_layer_norm=True,
+            encoder=EncoderSpec(hidden=1024, heads=16, layers=24,
+                                intermediate=4096, ln_style="pre",
+                                ln_eps=1e-5, final_ln=True, dropout=0.1),
+            **kw)
 
 
 class Conv1d(nn.Module):
-    """Channels-last 1-D convolution with bias: [B, T, C_in] → [B, T', C_out]
-    in ``dtype``. ``weight`` is [out, in/groups, k] (flax's [k, in/groups,
-    out] kernel permuted)."""
+    """Channels-last 1-D convolution: [B, T, C_in] → [B, T', C_out] in
+    ``dtype``. ``weight`` is [out, in/groups, k] (flax's [k, in/groups,
+    out] kernel permuted); ``bias`` is optional."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int = 1,
-                 padding: int = 0, groups: int = 1,
+                 padding: int = 0, groups: int = 1, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32,
                  device: DeviceLike = "cuda"):
         super().__init__()
@@ -71,45 +88,60 @@ class Conv1d(nn.Module):
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype = dtype
         self.weight = empty_param((out_dim, in_dim // groups, kernel), dev)
-        self.bias = empty_param(out_dim, dev)
+        self.bias = empty_param(out_dim, dev) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).transpose(1, 2)
-        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        w = self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         if x.device.type == "cpu" and self.dtype != torch.float32:
             # torch's CPU conv sums bf16 products in bf16 (the grouped k=128
             # positional conv loses whole units); convolve the same bf16
             # operands in fp32, as XLA and cuDNN do, and round once
-            x, w, b = x.float(), w.float(), b.float()
+            x, w = x.float(), w.float()
+            b = None if b is None else b.float()
         y = F.conv1d(x, w, b, self.stride, self.padding, 1, self.groups)
         return y.to(self.dtype).transpose(1, 2)
 
 
 class ConvFeatureExtractor(nn.Module):
-    """The strided conv stack over raw waveforms, each conv (with bias)
-    followed by a LayerNorm over channels and exact gelu: [B, T] →
-    [B, F, C_last]."""
+    """The strided conv stack over raw waveforms, each conv followed by
+    exact gelu: [B, T] → [B, F, C_last]. ``feat_extract_norm="layer"``
+    puts a LayerNorm over channels (``ln_{i}``) before every gelu;
+    ``"group"`` puts one GroupNorm with a group per channel
+    (``group_norm``, statistics over time) after ``conv_0`` only."""
 
     def __init__(self, spec: Wav2Vec2Spec, device: DeviceLike = "cuda"):
         super().__init__()
         e = spec.encoder
         self.n_convs = len(spec.conv_dims)
         self.remat = e.remat or spec.remat_conv
+        self.norm = spec.feat_extract_norm
         in_dim = 1
         for i, (dim, k, st) in enumerate(zip(spec.conv_dims, spec.conv_kernels,
                                              spec.conv_strides)):
             self.add_module(f"conv_{i}", Conv1d(
-                in_dim, dim, k, st, dtype=e.dtype, device=device))
-            self.add_module(f"ln_{i}", FusedLayerNorm(dim, 1e-5, e.dtype,
-                                                      device=device))
+                in_dim, dim, k, st, use_bias=spec.conv_bias, dtype=e.dtype,
+                device=device))
+            if self.norm == "layer":
+                self.add_module(f"ln_{i}", FusedLayerNorm(
+                    dim, 1e-5, e.dtype, device=device))
             in_dim = dim
+        if self.norm == "group":
+            self.group_norm = GroupNorm(spec.conv_dims[0],
+                                        spec.conv_dims[0], 1e-5, e.dtype,
+                                        device=device)
         self.gelu = activation("gelu")
 
     def _stack(self, waveform: torch.Tensor, rng=None) -> torch.Tensor:
         x = waveform[..., None]
         for i in range(self.n_convs):
             x = getattr(self, f"conv_{i}")(x)
-            x = self.gelu(getattr(self, f"ln_{i}")(x))
+            if self.norm == "layer":
+                x = getattr(self, f"ln_{i}")(x)
+            elif self.norm == "group" and i == 0:
+                x = self.group_norm(x)
+            x = self.gelu(x)
         return x
 
     def forward(self, waveform: torch.Tensor) -> torch.Tensor:
@@ -162,14 +194,18 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class Wav2Vec2Encoder(nn.Module):
-    """Conv positional embedding then the stable-LN transformer stack (its
+    """Conv positional embedding, then for the post-LN (base) variant a
+    LayerNorm ``ln``, then the transformer stack (the stable-LN variant's
     trailing LayerNorm is ``EncoderSpec.final_ln``)."""
 
     def __init__(self, spec: Wav2Vec2Spec, device: DeviceLike = "cuda"):
         super().__init__()
+        e = spec.encoder
         self.pos_conv = PositionalConvEmbedding(spec, device=device)
-        self.layers = TransformerEncoder(spec.encoder, device=device)
-        self.dropout = spec.encoder.dropout
+        self.ln = (None if spec.do_stable_layer_norm else
+                   FusedLayerNorm(e.hidden, e.ln_eps, e.dtype, device=device))
+        self.layers = TransformerEncoder(e, device=device)
+        self.dropout = e.dropout
 
     def forward(self, hidden: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -177,6 +213,8 @@ class Wav2Vec2Encoder(nn.Module):
         if attention_mask is not None:
             hidden = hidden * attention_mask[..., None].to(hidden.dtype)
         hidden = hidden + self.pos_conv(hidden)
+        if self.ln is not None:
+            hidden = self.ln(hidden)
         hidden = dropout(hidden, self.dropout, self.training, rng)
         bias = None if attention_mask is None else additive_mask(
             attention_mask)
@@ -238,3 +276,26 @@ class Wav2Vec2Model(nn.Module):
                                   feat_mask)
         hidden = self.encoder(hidden, feat_mask, rng)
         return hidden, norm_features, feat_mask
+
+
+class Wav2Vec2Classifier(nn.Module):
+    """Mean-pool classifier: ``wav2vec2`` → mean over the real frames
+    (``masked_mean_pool``) → dropout → ``classifier``. Waveform [B, T] and
+    its keep-mask → logits [B, output_dim] in the compute dtype. Dropout
+    and SpecAugment draw from ``rng`` in training mode."""
+
+    def __init__(self, spec: Wav2Vec2Spec, output_dim: int,
+                 dropout: float = 0.5, device: DeviceLike = "cuda"):
+        super().__init__()
+        self.dropout = dropout
+        self.wav2vec2 = Wav2Vec2Model(spec, device=device)
+        self.classifier = Dense(spec.encoder.hidden, output_dim,
+                                dtype=spec.encoder.dtype, device=device)
+
+    def forward(self, waveform: torch.Tensor, attention_mask: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        hidden, _, feat_mask = self.wav2vec2(waveform, attention_mask,
+                                             rng=rng)
+        pooled = dropout(masked_mean_pool(hidden, feat_mask), self.dropout,
+                         self.training, rng)
+        return self.classifier(pooled)

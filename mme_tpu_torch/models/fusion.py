@@ -120,14 +120,17 @@ class PreFormer(nn.Module):
         self.video = VideoMAEModel(s.video, with_encoder=False, device=device)
         self.masked_spec_embed = empty_param(a.hidden, resolve_device(device))
 
-    def forward(self, input_ids: torch.Tensor, text_mask: torch.Tensor,
+    def forward(self, input_ids: Optional[torch.Tensor],
+                text_mask: Optional[torch.Tensor],
                 waveform: torch.Tensor, audio_mask: torch.Tensor,
                 video: torch.Tensor, video_keep: torch.Tensor,
                 audio_features: Optional[torch.Tensor] = None,
                 rng: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         s = self.spec
-        t = self.text_embeddings(input_ids, rng=rng)
+        # input_ids=None fuses audio and video only
+        t = (None if input_ids is None
+             else self.text_embeddings(input_ids, rng=rng))
         feats = (audio_features if audio_features is not None
                  else self.feature_extractor(waveform))
         feat_mask = feature_vector_attention_mask(
@@ -145,17 +148,20 @@ class PreFormer(nn.Module):
         v = self.video.embed(video, video_keep, s.video_keep_k)
 
         B, dev = a.shape[0], a.device
-        fused = torch.cat([t, a, v], dim=1)
-        type_ids = torch.cat([
-            torch.zeros((B, t.shape[1]), dtype=torch.int32, device=dev),
+        parts = [a, v]
+        type_parts = [
             torch.ones((B, a.shape[1]), dtype=torch.int32, device=dev),
-            torch.full((B, v.shape[1]), 2, dtype=torch.int32, device=dev)],
-            dim=1)
-        keep = torch.cat([
-            text_mask.to(torch.int32), feat_mask,
-            torch.ones((B, v.shape[1]), dtype=torch.int32, device=dev)],
-            dim=1)
-        return fused, type_ids, keep
+            torch.full((B, v.shape[1]), 2, dtype=torch.int32, device=dev)]
+        keep_parts = [
+            feat_mask, torch.ones((B, v.shape[1]), dtype=torch.int32,
+                                  device=dev)]
+        if t is not None:          # text first, as in JAX
+            parts.insert(0, t)
+            type_parts.insert(0, torch.zeros((B, t.shape[1]),
+                                             dtype=torch.int32, device=dev))
+            keep_parts.insert(0, text_mask.to(torch.int32))
+        return (torch.cat(parts, dim=1), torch.cat(type_parts, dim=1),
+                torch.cat(keep_parts, dim=1))
 
 
 class TAVForMAE(nn.Module):

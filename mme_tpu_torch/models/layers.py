@@ -2,8 +2,9 @@
 
 Port of ``mme_tpu/models/layers.py``: ``EncoderSpec``, ``activation``,
 ``MultiHeadAttention`` (one fused QKV projection), ``Mlp``, pre- and
-post-LN ``EncoderBlock`` and ``TransformerEncoder``; plus ``Dense`` and
-``Embed``, the port's counterparts of flax's ``nn.Dense`` and ``nn.Embed``.
+post-LN ``EncoderBlock`` and ``TransformerEncoder``; plus ``Dense``,
+``Embed`` and ``Conv``, the port's counterparts of flax's ``nn.Dense``,
+``nn.Embed`` and ``nn.Conv``.
 ``Mlp`` takes the fused kernel of ``ops/fused_mlp.py`` where ``MME_FUSED_MLP``
 opts in. The sequence/pipeline-parallel and scan-over-layers branches of the
 JAX module are not ported yet.
@@ -28,7 +29,7 @@ through ``mme_tpu_torch/convert.py``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -128,6 +129,61 @@ class Embed(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.weight).to(self.dtype)
+
+
+Padding = Union[str, Sequence[Tuple[int, int]]]
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """Flax's ``"SAME"`` pair for one axis: ``ceil(size / stride)`` outputs,
+    the odd pad unit at the end (a stride-2 k=3 conv over an even side
+    pads (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """N-d convolution (N = 1, 2, 3) of a channels-first tensor
+    [B, C, *spatial] in ``dtype``, with flax's padding: ``"VALID"``,
+    ``"SAME"`` or one (low, high) pair per spatial axis. ``weight`` is
+    [out, in, *kernel] (flax's [*kernel, in, out] permuted); ``bias`` is
+    optional."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel: Sequence[int],
+                 strides: Optional[Sequence[int]] = None,
+                 padding: Padding = "VALID", use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.kernel = tuple(kernel)
+        self.strides = tuple(strides) if strides else (1,) * len(kernel)
+        self.padding, self.dtype = padding, dtype
+        self.weight = empty_param((out_dim, in_dim) + self.kernel, dev)
+        self.bias = empty_param(out_dim, dev) if use_bias else None
+        self.conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[len(kernel)]
+
+    def _pairs(self, spatial: Sequence[int]) -> Sequence[Tuple[int, int]]:
+        if self.padding == "VALID":
+            return [(0, 0)] * len(spatial)
+        if self.padding == "SAME":
+            return [same_padding(n, k, s) for n, k, s in
+                    zip(spatial, self.kernel, self.strides)]
+        return self.padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        pairs = self._pairs(x.shape[2:])
+        if all(lo == hi for lo, hi in pairs):
+            pad = tuple(lo for lo, _ in pairs)
+        else:
+            # F.pad takes the last axis first
+            x = F.pad(x, [p for pair in reversed(pairs) for p in pair])
+            pad = 0
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return self.conv(x, self.weight.to(self.dtype), b, self.strides,
+                         pad)
 
 
 _QKV_BIAS_MODES = {"full": (1.0, 1.0, 1.0), "qv": (1.0, 0.0, 1.0),

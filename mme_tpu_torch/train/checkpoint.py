@@ -10,9 +10,11 @@ mid-write leaves the previous best whole; ``latest`` is the preemption slot
 A directory holds one ``state.pt``, the ``TrainState`` as plain dicts,
 lists, ints and tensors (:func:`state_payload`): ``step``, the parameters
 by name, ``AdamWState``'s ``count``, ``seed``, ``mu``, ``nu``, ``nu_row``
-and ``nu_col`` (entries may be None), ``accum_grads`` and ``accum_count``.
-It is read with ``torch.load(weights_only=True)``. Reading a JAX (orbax)
-checkpoint is not supported.
+and ``nu_col`` (entries may be None), ``accum_grads`` and ``accum_count``;
+and for a state with ``buffers`` (a BatchNorm model's running statistics)
+the buffers by name, so a restore pairs the weights with the statistics of
+the same step. It is read with ``torch.load(weights_only=True)``. Reading
+a JAX (orbax) checkpoint is not supported.
 
 The port's state is updated in place: the optimizer writes the model's own
 parameters and the moments. So a save first copies every tensor on its
@@ -80,9 +82,10 @@ def _opt_list(x: Optional[List[Any]]) -> Optional[List[Any]]:
 
 
 def state_payload(state: TrainState) -> Dict[str, Any]:
-    """The state as plain dicts, lists, ints and its own tensors."""
+    """The state as plain dicts, lists, ints and its own tensors; the
+    ``buffers`` entry only for a state that has buffers."""
     o = state.opt_state
-    return {
+    payload = {
         "step": int(state.step),
         "params": dict(zip(_names(state),
                            (p.detach() for p in state.params))),
@@ -93,6 +96,9 @@ def state_payload(state: TrainState) -> Dict[str, Any]:
         "accum_grads": _opt_list(state.accum_grads),
         "accum_count": int(state.accum_count),
     }
+    if state.buffers is not None:
+        payload["buffers"] = {k: b.detach() for k, b in state.buffers.items()}
+    return payload
 
 
 def _map_tensors(obj: Any, fn: Callable[[torch.Tensor], torch.Tensor]
@@ -143,10 +149,16 @@ def load_payload(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     if list(saved) != names:
         raise ValueError("checkpoint parameters differ from the target's: "
                          f"{len(saved)} saved, {len(names)} in the target")
+    buffers = payload.get("buffers")
+    if (buffers is None) != (state.buffers is None) or (
+            buffers is not None and list(buffers) != list(state.buffers)):
+        raise ValueError("checkpoint buffers differ from the target's")
     o, so = state.opt_state, payload["opt_state"]
     with torch.no_grad():
         for p, name in zip(state.params, names):
             _copy_into(p, saved[name], f"parameter {name}")
+        for name, b in (state.buffers or {}).items():
+            _copy_into(b, buffers[name], f"buffer {name}")
         for key in ("mu", "nu", "nu_row", "nu_col"):
             _copy_list(getattr(o, key), so[key], key)
         accum = payload["accum_grads"]

@@ -13,6 +13,13 @@ mutates: the parameters are the model's own ``nn.Parameter``s, updated in
 place, and the step returns the state object it was given. PyTorch runs
 eagerly, so there is nothing to jit and the accumulate/apply branch is a
 Python ``if`` on a host boolean.
+
+Batch statistics (JAX's ``has_batch_stats``): the train step runs the model
+in training mode, so its BatchNorms normalise with the batch's statistics
+and update their running ones in place; the eval step runs it in eval mode
+on the running ones. ``TrainState.buffers`` holds the model's persistent
+buffers by name (:func:`model_buffers`), as JAX's state holds
+``batch_stats``, so checkpoints carry them beside the parameters.
 """
 
 from __future__ import annotations
@@ -39,7 +46,10 @@ class TrainState:
     """``params`` are the model's parameters themselves (the step updates
     them in place); ``accum_grads`` is None when accumulation is off.
     ``names``, one per parameter, key the parameters in a checkpoint
-    (``train/checkpoint.py``); without them a parameter's index does."""
+    (``train/checkpoint.py``); without them a parameter's index does.
+    ``buffers``: the model's own persistent buffers by name (a BatchNorm's
+    running statistics, which the forward updates in place), or None for a
+    model without any."""
 
     step: int
     params: List[nn.Parameter]
@@ -47,12 +57,15 @@ class TrainState:
     accum_grads: Optional[List[torch.Tensor]]
     accum_count: int = 0
     names: Optional[List[str]] = None
+    buffers: Optional[Dict[str, torch.Tensor]] = None
 
     @classmethod
     def create(cls, params: Sequence[nn.Parameter], tx: Optimizer,
                use_accum: bool = True,
                generator: Optional[torch.Generator] = None,
-               names: Optional[Sequence[str]] = None) -> "TrainState":
+               names: Optional[Sequence[str]] = None,
+               buffers: Optional[Dict[str, torch.Tensor]] = None
+               ) -> "TrainState":
         """``use_accum=False`` drops the gradient-accumulation buffer, a
         whole fp32 copy of the parameters; every step then applies."""
         params = list(params)
@@ -60,7 +73,17 @@ class TrainState:
                  else None)
         return cls(step=0, params=params,
                    opt_state=tx.init(params, generator), accum_grads=zeros,
-                   names=None if names is None else list(names))
+                   names=None if names is None else list(names),
+                   buffers=buffers)
+
+
+def model_buffers(model: nn.Module) -> Optional[Dict[str, torch.Tensor]]:
+    """The model's persistent buffers (those of its state dict) by name,
+    the tensors themselves; None if it has none."""
+    params = {id(p) for p in model.parameters()}
+    found = {k: v for k, v in model.state_dict(keep_vars=True).items()
+             if id(v) not in params}
+    return found or None
 
 
 HIST_BUCKETS = 17  # bucket 0: exact zeros; 1..16: |x| exponent ranges
@@ -254,8 +277,9 @@ def make_eval_step(model: nn.Module, num_classes: int,
                    loss_fn: Optional[Callable] = None,
                    has_aux_loss: bool = False) -> Callable:
     """Eval: ``loss, cm, preds = step(batch, labels, sample_mask,
-    class_weights)`` with the deterministic forward and no gradients. The
-    parameters are the model's, so the JAX step's ``params`` and
+    class_weights)`` with the deterministic forward (eval mode: BatchNorms
+    on their running statistics) and no gradients. The parameters and
+    statistics are the model's, so the JAX step's ``params`` and
     ``batch_stats`` arguments have no counterpart. ``has_aux_loss``: the
     model returns ``(logits, aux)``; aux is a training regulariser and
     stays out of the eval (selection) loss."""

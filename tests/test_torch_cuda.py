@@ -994,3 +994,143 @@ def test_fusion_model_full_width_flash_matches_plain(cuda, name, flash,
     assert count == flash and count_plain == 0
     assert got.shape == (2, 7) and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# --- the audio classifier and the BatchNorm models -------------------------
+
+def test_wav2vec2_base_full_width_kernels_match_plain(cuda, monkeypatch):
+    """``Wav2Vec2Classifier(Wav2Vec2Spec.base(), 7)`` at full width in fp32
+    (batch 4 over 96 000-sample waveforms with ragged keep-masks, weights
+    from ``init_variables``): eval logits with K1 (12 launches) within 1e-4
+    of MME_FLASH=0's; with MME_FUSED_LN=1 MME_FUSED_MLP=1, 26 K4a and 12
+    K5a launches and the logits within 1e-4 of the knobs-off ones; the
+    training-mode loss and gradient norm with K1/K2 and the knobs (12 K2,
+    26 K4b, 12 K5b) within 1e-5 and 1e-3 relative of the plain path's."""
+    from mme_tpu_torch.convert import from_flax, init_variables
+    from mme_tpu_torch.data.synthetic import synthetic_audio_dataset
+    from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
+    from mme_tpu_torch.train.losses import cross_entropy
+    from mme_tpu_torch.train.optim import global_norm_f32
+    spec = Wav2Vec2Spec.base()
+    spec = dataclasses.replace(spec, mask_time_prob=0.0,
+                               encoder=dataclasses.replace(spec.encoder,
+                                                           dropout=0.0))
+    model = Wav2Vec2Classifier(spec, 7, 0.0, device=cuda)
+    model.load_state_dict(from_flax(**init_variables(model, 0)))
+    ds = synthetic_audio_dataset(4, 96000, 7, seed=3)
+    wave, mask = (torch.from_numpy(ds.features[k]).to(cuda)
+                  for k in ("waveform", "audio_mask"))
+    labels = torch.from_numpy(ds.labels).to(cuda)
+    names = ("flash_fwd", "flash_bwd", "layer_norm_fwd", "layer_norm_bwd",
+             "fused_mlp_fwd", "fused_mlp_bwd")
+
+    def run(train):
+        before = {k: kernels.LAUNCHES[k] for k in names}
+        model.train(train)
+        with torch.set_grad_enabled(train):
+            logits = model(wave, mask)
+        out = logits
+        if train:
+            loss = cross_entropy(logits, labels, torch.ones(7, device=cuda),
+                                 torch.ones(4, dtype=torch.int32,
+                                            device=cuda))
+            grads = torch.autograd.grad(loss, list(model.parameters()),
+                                        allow_unused=True)
+            out = (loss.item(), global_norm_f32(
+                [g for g in grads if g is not None]).item())
+        torch.cuda.synchronize()
+        return out, {k: kernels.LAUNCHES[k] - before[k] for k in names
+                     if kernels.LAUNCHES[k] != before[k]}
+
+    got, count = run(False)
+    monkeypatch.setenv("MME_FLASH", "0")
+    want, count_plain = run(False)
+    (loss0, norm0), _ = run(True)
+    monkeypatch.delenv("MME_FLASH")
+    assert count == {"flash_fwd": 12} and not count_plain
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    monkeypatch.setenv("MME_FUSED_LN", "1")
+    monkeypatch.setenv("MME_FUSED_MLP", "1")
+    fused, count_f = run(False)
+    assert count_f == {"flash_fwd": 12, "layer_norm_fwd": 26,
+                       "fused_mlp_fwd": 12}
+    torch.testing.assert_close(fused, got, atol=1e-4, rtol=0)
+    (loss, norm), count_t = run(True)
+    assert count_t == {k: 26 if k.startswith("layer_norm") else 12
+                       for k in names}
+    assert abs(loss - loss0) <= 1e-5 * abs(loss0)
+    assert abs(norm - norm0) <= 1e-3 * norm0
+
+
+def test_batchnorm_update_on_card_matches_biased_recomputation(cuda):
+    """``models/norm.py::BatchNorm`` in training mode on a
+    [8, 64, 16, 28, 28] fp32 tensor: outputs as ``F.batch_norm``'s
+    (which also normalises by the biased variance) within 1e-5, running
+    mean and variance as 0.9 · init + 0.1 · (mean, ``var(unbiased=False)``)
+    within 1e-6 + 1e-5 relative; ``torch.nn.BatchNorm3d``'s running
+    variance, the unbiased one, differs. Eval mode normalises with the
+    buffers."""
+    import torch.nn.functional as F
+    from mme_tpu_torch.models.norm import BatchNorm
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8, 64, 16, 28, 28, generator=g, device="cuda") * 3 + 1
+    bn = BatchNorm(64, device=cuda)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(64, generator=g, device="cuda") + 0.5)
+        bn.bias.copy_(torch.randn(64, generator=g, device="cuda"))
+        bn.train()
+        y = bn(x)
+    dims = (0, 2, 3, 4)
+    want_y = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
+                          eps=1e-5)
+    torch.testing.assert_close(y, want_y, atol=1e-5, rtol=0)
+    torch.testing.assert_close(bn.mean, 0.1 * x.mean(dims), atol=1e-6,
+                               rtol=1e-5)
+    torch.testing.assert_close(bn.var, 0.9 + 0.1 * x.var(dims,
+                                                          unbiased=False),
+                               atol=1e-6, rtol=1e-5)
+    ref = torch.nn.BatchNorm3d(64, momentum=0.1, device=cuda)
+    ref(x[:2, :, :1, :2, :2])              # 8 values per channel
+    small = BatchNorm(64, device=cuda)
+    small(x[:2, :, :1, :2, :2])
+    assert (ref.running_var - small.var).abs().max().item() > 1e-3
+    bn.eval()
+    with torch.no_grad():
+        y = bn(x)
+    want = F.batch_norm(x, bn.mean, bn.var, bn.weight, bn.bias,
+                        training=False, eps=1e-5)
+    torch.testing.assert_close(y, want, atol=1e-5, rtol=0)
+
+
+def test_batchnorm_bundle_round_trip_on_card(cuda, tmp_path):
+    """A (1, 1, 1, 1)-block SlowR50 with random running statistics, exported
+    on the card: the bundle holds the statistics and serves the live
+    Predictor's probabilities within 1e-5 (fp32, the same cuDNN
+    convolutions)."""
+    import numpy as np
+    from mme_tpu_torch.cli.common import BatchModel
+    from mme_tpu_torch.convert import from_flax, init_variables
+    from mme_tpu_torch.models.norm import BatchNorm
+    from mme_tpu_torch.models.video import SlowR50
+    from mme_tpu_torch.serve import Predictor, export_bundle, load_bundle
+    net = SlowR50(5, stage_sizes=(1, 1, 1, 1), device=cuda)
+    v = init_variables(net, 1)
+    rng = np.random.RandomState(0)
+    for bn in v["batch_stats"].values():
+        for stats in (bn.values() if "mean" not in bn else [bn]):
+            stats["mean"] = rng.rand(*stats["mean"].shape).astype("f") - 0.5
+            stats["var"] = rng.rand(*stats["var"].shape).astype("f") + 0.5
+    net.load_state_dict(from_flax(**v))
+    model = BatchModel(net, ("video",))
+    x = {"video": rng.rand(6, 4, 64, 64, 3).astype(np.float32)}
+    preds, probs = Predictor(model, batch_size=4, device="cuda")(x)
+    export_bundle(model, x, str(tmp_path / "b"), batch_size=4, device="cuda")
+    served = load_bundle(str(tmp_path / "b"), device="cuda")
+    b_preds, b_probs = served(x)
+    np.testing.assert_allclose(b_probs, probs, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(b_preds, preds)
+    held = {k for k in served.module.state_dict()
+            if k.endswith((".mean", ".var"))}
+    assert len(held) == 2 * sum(isinstance(m, BatchNorm)
+                                for m in net.modules())

@@ -150,15 +150,33 @@ assert np.isfinite(eval_step(batch, labels, mask, cw)[0].item())
 from mme_tpu_torch.cli.tav_nn import main
 summary = main(["--dataset", "synthetic", "-e", "1", "-b", "8"], device="cpu")
 assert np.array(summary["test/confusion_matrix"]).sum() == 16
-assert len(mods) >= 48, mods
+from mme_tpu_torch.cli import audio_nn_wav2vec, images_nn, visual_nn
+from mme_tpu_torch.convert import init_variables
+from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
+from mme_tpu_torch.models.video import SlowR50
+w2v = Wav2Vec2Classifier(audio_nn_wav2vec.tiny_spec(Wav2Vec2Spec.base()), 4,
+                         device="cpu")
+w2v.load_state_dict(from_flax(**init_variables(w2v)))
+w2v.eval()
+wave = torch.randn(2, 4000)
+assert w2v(wave, torch.ones(2, 4000, dtype=torch.int32)).shape == (2, 4)
+slow = SlowR50(3, stage_sizes=(1, 1, 1, 1), device="cpu")
+slow.load_state_dict(from_flax(**init_variables(slow)))
+assert slow(torch.rand(2, 2, 32, 32, 3)).shape == (2, 3)
+summary = images_nn.main(["--dataset", "synthetic", "-e", "1", "-b", "16"],
+                         device="cpu")
+assert np.array(summary["test/confusion_matrix"]).sum() == 16
+assert len(mods) >= 52, mods
 print(len(mods), "modules")
 """
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """Every port module imports, and serving, the train step and a
-    one-epoch synthetic run of the CLI work, with JAX, flax, optax, orbax
-    and mme_tpu blocked (the CLI writes its checkpoints under tmp_path)."""
+    """Every port module imports, and serving, the train step, a
+    one-epoch synthetic run of the TAV CLI and of ``images_nn``, and the
+    audio classifier and SlowR50 on drawn weights work, with JAX, flax,
+    optax, orbax and mme_tpu blocked (the CLIs write their checkpoints
+    under tmp_path)."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
                          cwd=str(tmp_path),
