@@ -18,8 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    memory is printed per shape in phase 3) and of the Adam kernel's.
 3. Kernels against their plain PyTorch versions on the card:
    - the flash forward (K1) and backward (K2), q/k/v as strided views of a
-     fused QKV tensor, at the four model shapes and wav2vec2-base's
-     [8, 299, 12 heads] in bf16 and fp32, a ragged
+     fused QKV tensor, at the four model shapes, wav2vec2-base's
+     [8, 299, 12 heads] and phase 10's [8, 499], [8, 1 568] (no key mask)
+     and [8, 71] at 12 heads in bf16 and fp32, a ragged
      key length with head_dim 128, rows whose every key is masked by bias
      and, for K2, a sentinel row (every score -inf). Times each kernel, its
      plain version and ``scaled_dot_product_attention`` forward / backward
@@ -37,7 +38,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      alone in a profiler trace, host µs per call, the plain version once;
    - the fused LayerNorm forward (K4a) and backward (K4b) at [2 392, 1024],
      [11 712, 768], [3 784, 768], [153 592, 512], wav2vec2-base's
-     [2 392, 768] and [2 392, 512], a ragged [3 001, 768] and
+     [2 392, 768] and [2 392, 512], phase 10's [3 992, 768], [3 992, 512]
+     and [12 544, 768], a ragged [3 001, 768] and
      the widest row [1 024, 8 192] in bf16 and fp32, fp32 in / bf16 out, and
      x as a row-offset view: y, dx, dscale, dbias, two runs bit-equal. Times
      them at every shape a training step launches, beside ``F.layer_norm``
@@ -47,7 +49,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (``gemm_bf16``) against an fp32 product at the four operand orders,
      ragged extents and the video tower's product shapes;
    - the fused MLP forward (K5a) and backward (K5b) at the four full-width
-     tower shapes and wav2vec2-base's (2 392, 768, 3072) in bf16, a small
+     tower shapes and wav2vec2-base's (2 392, 768, 3072) in bf16, phase
+     10's (3 992 | 12 544 | 568, 768, 3072) in bf16 and fp32, a small
      shape in fp32 and bf16 with each of the four activations, N = 1, 17
      and 129 at H = 256 to 1024 in bf16, and a wide fp32 shape: out, dx,
      dW1, dW2, db1, db2, two runs bit-equal.
@@ -161,7 +164,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 9. The audio classifier and the BatchNorm models at full width, each freed
    before the next:
    (1) ``Wav2Vec2Classifier(Wav2Vec2Spec.base(), output_dim=7)`` with
-       weights from ``init_variables``, through ``BatchModel``: served by
+       weights from ``init_variables``, through ``BatchModel`` and phase
+       10's legs: served by
        ``Predictor(batch_size=8)`` in bf16 on 8, 5 and 11 utterances of
        96 000 samples with ragged keep-masks (``synthetic_audio_dataset``)
        against ``MME_FLASH=0`` (12 K1 per chunk), then with both knobs on
@@ -187,11 +191,48 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        sizes: a forward and two train steps each.
    Prints one JSON line per model: parameters, ms per served batch or train
    step, peak memory, launch counts, the model's seconds and the card.
+10. The text and two-modality classifiers at full width, each with weights
+   from ``init_variables`` behind ``cli/common.BatchModel`` and freed
+   before the next: ``BertClassifier`` (DistilRoBERTa, 70 tokens),
+   ``BertAudioClassifier`` (+ wav2vec2-base over 160 000 samples with
+   ragged keep-masks), ``BertVideoMAELateFusion`` and
+   ``BertVideoMAEMTLShared`` (+ VideoMAE over 16x224x224 clips),
+   ``VBertClassifier`` (70 tokens and one 1 024-d visual vector, 2
+   classes) and ``VideoMAEClassifier``:
+   (1) served by ``Predictor(batch_size=8)`` in bf16 on 8, 5 and 11 rows
+       drawn as their CLIs draw them (the MTL with a per-row task) against
+       ``MME_FLASH=0`` (K1 per chunk: 6, 18, 18, 18, 12, 12), then with
+       both knobs on against both off (K5a as many, K4a from
+       ``time_layer_norm.classifier_ln_sites``: 0, 26, 24, 24, 0, 24);
+       ``VBertClassifier``'s decoder is the word table's own tensor;
+   (2) but ``VideoMAEClassifier``: fp32, no dropout, batch 8, loss and
+       gradient norm with K1/K2 against ``MME_FLASH=0``; the MTL once with
+       task 0 and once with task 1, the other tower's gradients exactly
+       zero and the chosen tower's, ``shared_layer``'s and the head's not;
+   (3) ``BertClassifier``, ``BertAudioClassifier``, the late fusion and
+       ``VBertClassifier``: four bf16 steps on one batch of 8 with
+       ``MME_OPT_STATE=bf16 MME_FUSED_ADAM=1`` and both knobs, every
+       step's launches as served plus K2, K5b, K4b and one K3, the eval
+       loss after them below the one before;
+   (4) ``BertAudioClassifier`` through ``run_classifier`` for one epoch of
+       4 steps with ``MME_EXPORT_BUNDLE``, the bundle against a live
+       ``Predictor`` (18 K1 per chunk through the operator);
+   (5) ``LSTMClassifier`` at ``text_nn``'s size (vocabulary 5 000,
+       300-wide, one layer) over 8 x 70 tokens: a forward and two steps
+       launching no kernel of the port;
+   (6) ``text_nn`` (BERT and LSTM), ``text_audio_nn``, ``text_video_nn -m
+       1MTL`` and ``visual_bert_nn`` for one synthetic epoch at batch 8 on
+       the card, at their tiny specs.
+   Prints one JSON line per model: parameters, ms per served batch of 8
+   with the knobs off and on, ms per bf16 step, peak memory serving and
+   training, launches per chunk and per step, the largest probability gap
+   against ``MME_FLASH=0``, the model's seconds and the card.
 
 Then one JSON line of per-kernel results (seven kernels;
-``launches_<model>`` gives phase 8's and phase 9's counts: a served chunk
+``launches_<model>`` gives phases 8, 9 and 10's counts: a served chunk
 with both knobs on for a forward kernel, a bf16 train step for the
-others), the card's name and power limit, and last the line
+others, the MTL's fp32 step, 0 for a model without a train leg), the
+card's name and power limit, and last the line
 ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it,
@@ -202,6 +243,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -214,27 +256,37 @@ import tempfile
 import threading
 import time
 import urllib.request
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mme_tpu_torch.cli import images_nn, visual_nn
+from mme_tpu_torch.cli import (images_nn, text_audio_nn, text_nn,
+                               text_video_nn, visual_bert_nn, visual_nn)
 from mme_tpu_torch.cli.common import BatchModel, run_classifier
 from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import from_flax, init_params, init_variables
 from mme_tpu_torch.data.dataset import batches
 from mme_tpu_torch.data.synthetic import (synthetic_audio_dataset,
                                           synthetic_image_dataset,
-                                          synthetic_tav_dataset)
+                                          synthetic_tav_dataset,
+                                          synthetic_text_dataset)
 from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES, card_line
 from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
 from mme_tpu_torch.models.fusion import (FUSION_MODELS, TAVModel,
                                          TAVMoEFormer, TAVSpec)
 from mme_tpu_torch.models.image import ConvNetClassifier, ResnetClassifier
 from mme_tpu_torch.models.moe import MoEMlp, router_gates
-from mme_tpu_torch.models.video import Conv3DClassifier, SlowR50
+from mme_tpu_torch.models.text import (BertClassifier, LSTMClassifier,
+                                       TextEncoderSpec)
+from mme_tpu_torch.models.text_audio import BertAudioClassifier, TextAudioSpec
+from mme_tpu_torch.models.text_video import (BertVideoMAELateFusion,
+                                             BertVideoMAEMTLShared,
+                                             TextVideoSpec)
+from mme_tpu_torch.models.video import (Conv3DClassifier, SlowR50,
+                                        VideoMAEClassifier, VideoMAESpec)
+from mme_tpu_torch.models.visualbert import VBertClassifier, VisualBertSpec
 from mme_tpu_torch import time_adam
 from mme_tpu_torch.ops import adam_update, kernels
 from mme_tpu_torch.ops.adam_update import (adam_update_leaf,
@@ -261,7 +313,8 @@ from mme_tpu_torch.ops.flash_attention import (bounds as flash_bounds,
 from mme_tpu_torch.ops.video import normalize_uint8_video
 from mme_tpu_torch.serve import Predictor, export_bundle, load_bundle
 from mme_tpu_torch.serve_http import PredictionService, make_server
-from mme_tpu_torch.time_layer_norm import fused_ln_shapes
+from mme_tpu_torch.time_layer_norm import (classifier_ln_sites,
+                                           fused_ln_shapes, fused_ln_sites)
 from mme_tpu_torch.train.build_tav import (build_tav, example_tav_batch,
                                            make_video_keep_transform)
 from mme_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
@@ -290,7 +343,7 @@ SERVE_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # gradients of the flash backward against its plain version, as a share of
 # each gradient's largest element (a gradient that is zero but for
 # cancellation is held to a twentieth of the largest of the three): fp32 —
-# sums of up to 1464 fp32 products in another order; bf16 — P and dS are
+# sums of up to 1568 fp32 products in another order; bf16 — P and dS are
 # rounded to bf16 on both sides at fp32 values that differ in the last
 # place, and the result is rounded to bf16 once more. The kernel has no
 # atomics: two runs give the same bits.
@@ -328,6 +381,11 @@ KNOBS = {"MME_FUSED_LN": "1", "MME_FUSED_MLP": "1"}
 SERVED = (("text", 8, 70, 12, 6), ("audio", 8, 299, 16, 24),
           ("video", 8, 1464, 12, 12), ("fusion", 8, 473, 12, 12))
 LAUNCHES_PER_CHUNK = sum(n for *_, n in SERVED)   # 54
+# (name, seq, key mask) of phase 10's attention calls beyond SERVED's, batch
+# 8, 12 heads of 64: wav2vec2-base over 160 000 samples, VideoMAE over
+# 16x224x224 clips (no key mask), VisualBERT's 70 tokens and 1 visual
+SLICE_ATTENTION = (("audio_base_160k", 499, True), ("videomae", 1568, False),
+                   ("visualbert", 71, True))
 
 
 def ptxas_summary(log: str) -> dict:
@@ -415,6 +473,8 @@ def check_flash(card: str):
             cases.append((name, B, S, S, H, 64, dtype, masked,
                           name != "video"))
         cases.append(("audio_base", 8, 299, 299, 12, 64, dtype, 1, True))
+        cases += [(name, 8, s, s, 12, 64, dtype, int(bias), bias)
+                  for name, s, bias in SLICE_ATTENTION]
         cases.append(("ragged_d128", 3, 100, 333, 4, 128, dtype, 1, True))
     max_err = 0.0
     for i, (name, B, Sq, Sk, H, D, dtype, masked, has_bias) in enumerate(
@@ -491,6 +551,8 @@ def check_flash_bwd(card: str):
                           name != "video", False))
         cases.append(("audio_base", 8, 299, 299, 12, 64, dtype, 1, True,
                       False))
+        cases += [(name, 8, s, s, 12, 64, dtype, int(bias), bias, False)
+                  for name, s, bias in SLICE_ATTENTION]
         cases.append(("ragged_d128", 3, 100, 333, 4, 128, dtype, 1, True,
                       False))
         cases.append(("sentinel", 3, 130, 130, 4, 64, dtype, 1, True, True))
@@ -761,6 +823,8 @@ def check_layer_norm(spec: TAVSpec, card: str):
     eps = 1e-5
     shapes = [(2392, 1024), (11712, 768), (3784, 768), (153592, 512),
               (2392, 768), (2392, 512),                      # wav2vec2-base
+              (3992, 768), (3992, 512),           # at 160 000 samples
+              (12544, 768),                                  # VideoMAE
               (3001, 768),                                   # one ragged N
               (1024, 8192)]                                  # the widest row
     cases = [(n, h, dt, dt, 0) for dt in (torch.bfloat16, torch.float32)
@@ -917,6 +981,11 @@ def check_fused_mlp(spec: TAVSpec, card: str):
     cases = [(name, n, h, f, torch.bfloat16, "gelu")
              for name, n, h, f, _ in towers]
     cases.append(("wav2vec2_base", 2392, 768, 3072, torch.bfloat16, "gelu"))
+    # phase 10's: wav2vec2-base at 160 000 samples, VideoMAE, VisualBERT
+    cases += [(name, n, 768, 3072, dt, "gelu")
+              for dt in (torch.bfloat16, torch.float32)
+              for name, n in (("w2v_base_160k", 3992), ("videomae", 12544),
+                              ("visualbert", 568))]
     cases += [("small", 300, 256, 512, dt, act)
               for dt in (torch.float32, torch.bfloat16) for act in ACTS]
     cases += [("ragged", n, h, f, torch.bfloat16, act)
@@ -2442,17 +2511,12 @@ def fusion_family(card: str) -> dict:
 
 
 # phase 9: the audio classifier and the BatchNorm vision models at full
-# width. wav2vec2-base at batch 8 over 96 000-sample waveforms: 299 frames,
+# width. wav2vec2-base's Wav2Vec2Classifier goes through phase 10's legs
+# (`zoo_model_legs`) at batch 8 over 96 000-sample waveforms: 299 frames,
 # 2 392 rows; per served chunk or train step K1 and K5a (K2 and K5b) once
 # per encoder layer, K4a (K4b) on the feature projection's LayerNorm, the
 # post-LN encoder's `ln` and two per layer
 W2V_LEN = 96000
-W2V_FLASH, W2V_MLP, W2V_LN = 12, 12, 26
-W2V_REQUESTS = ((8, 70), (5, 71), (11, 72))       # (utterances, seed)
-# its loop: 4 train steps, one validation batch at the epoch's end and one
-# test batch
-W2V_LOOP_SIZES = ((32, 80), (8, 81), (8, 82))
-W2V_LOOP_STEPS, W2V_LOOP_EVAL_BATCHES = 4, 2
 # SlowR50 at visual_nn's full size: stages (3, 4, 6, 3), 16x224x224 clips,
 # batch 8, fp32; Adam's learning rate for its steps
 SLOW_BATCH, SLOW_FRAMES, SLOW_SIZE, SLOW_LR = 8, 16, 224, 1e-4
@@ -2464,297 +2528,6 @@ BN_STAT_TOL = dict(rtol=1e-4, atol=1e-6)
 # images_nn's ResnetClassifier at 224x224 through run_classifier: one epoch
 # of 4 steps of 8 images, one validation and one test batch
 RESNET_SIZES = ((32, 90), (8, 91), (8, 92))
-
-
-def w2v_spec(dtype: torch.dtype, quiet: bool = False) -> Wav2Vec2Spec:
-    """wav2vec2-base computing in ``dtype``; ``quiet``: every dropout rate
-    and SpecAugment probability 0."""
-    s = Wav2Vec2Spec.base()
-    enc = dataclasses.replace(s.encoder, dtype=dtype)
-    if quiet:
-        enc = dataclasses.replace(enc, dropout=0.0, attention_dropout=0.0)
-        s = dataclasses.replace(s, mask_time_prob=0.0, mask_feature_prob=0.0)
-    return dataclasses.replace(s, encoder=enc)
-
-
-def w2v_model(params, dtype: torch.dtype, quiet: bool = False) -> BatchModel:
-    net = Wav2Vec2Classifier(w2v_spec(dtype, quiet), 7,
-                             0.0 if quiet else 0.5, device="cuda")
-    net.load_state_dict(from_flax(params), strict=True)
-    return BatchModel(net, ("waveform", "audio_mask"))
-
-
-def w2v_inputs(n: int, seed: int):
-    """n utterances drawn as ``synthetic_audio_dataset`` draws them (ragged
-    keep-masks from 48 000 to 96 000 samples): features on the card,
-    labels, an all-ones sample mask and class weights."""
-    ds = synthetic_audio_dataset(n, W2V_LEN, 7, seed)
-    return (to_device(ds.features, "cuda"),
-            torch.as_tensor(ds.labels, device="cuda"),
-            torch.ones(n, dtype=torch.int32, device="cuda"),
-            torch.ones(7, device="cuda"))
-
-
-def w2v_serve(params, card: str) -> dict:
-    """bf16 compute over fp32 weights, batch 8: K1 against MME_FLASH=0,
-    then both knobs on against both off."""
-    reqs = [synthetic_audio_dataset(n, W2V_LEN, 7, seed).features
-            for n, seed in W2V_REQUESTS]
-    chunks = sum(-(-n // 8) for n, _ in W2V_REQUESTS)
-    tol = SERVE_TOL[torch.bfloat16]
-    model = w2v_model(params, torch.bfloat16)
-    pred = Predictor(model, batch_size=8, device="cuda")
-    pred(reqs[0])                                       # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    got = [pred(r) for r in reqs]
-    torch.cuda.synchronize()
-    count = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    os.environ["MME_FLASH"] = "0"
-    try:
-        kernels.reset_launches()
-        ref = [pred(r) for r in reqs]
-        plain = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    finally:
-        del os.environ["MME_FLASH"]
-    diff, same = served_diff(got, ref, tol)
-    part = {k: v[:3] for k, v in reqs[0].items()}
-    pad_diff = float(np.abs(pred(part)[1] - got[0][1][:3]).max())
-    finite = all(np.isfinite(p).all() for _, p in got + ref)
-    shapes_ok = all(p.shape == (len(r["waveform"]), 7)
-                    for (_, p), r in zip(got, reqs))
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    with knobs_on():
-        pred(reqs[0])                                   # warm-up
-        kernels.reset_launches()
-        fused = [pred(r) for r in reqs]
-        count_f = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    diff_f, same_f = served_diff(fused, got, tol)
-    expect = {"flash_fwd": W2V_FLASH * chunks}
-    expect_f = {"flash_fwd": W2V_FLASH * chunks,
-                "fused_mlp_fwd": W2V_MLP * chunks,
-                "layer_norm_fwd": W2V_LN * chunks}
-    res = {"chunks": chunks, "launches": count, "launches_plain": plain,
-           "max_abs_vs_plain": diff, "predictions_agree": same,
-           "padded_chunk_max_abs": pad_diff, "peak_gb": peak,
-           "launches_knobs_on": count_f, "max_abs_knobs_on_vs_off": diff_f,
-           "predictions_agree_knobs_on": same_f,
-           "launches_per_chunk_knobs_on": {k: v // chunks
-                                           for k, v in count_f.items()}}
-    res["ms_per_batch_of_8"], res["times_ms"] = median_ms(pred, reqs[0])
-    with knobs_on():
-        (res["ms_per_batch_of_8_knobs_on"],
-         res["times_ms_knobs_on"]) = median_ms(pred, reqs[0])
-    print(f"wav2vec2_base serve bf16: {json.dumps(res)}", flush=True)
-    if not (finite and shapes_ok and count == expect and not plain
-            and diff <= tol and same and pad_diff <= SERVE_TOL[torch.float32]
-            and count_f == expect_f and diff_f <= tol and same_f):
-        raise SystemExit("phase 9: serving wav2vec2-base failed")
-    del pred, model
-    torch.cuda.empty_cache()
-    return res
-
-
-def w2v_train(params, card: str) -> dict:
-    """(1) fp32, no dropout or SpecAugment, batch 8: loss and gradients
-    with the kernels against MME_FLASH=0; (2) bf16, four steps on one batch
-    of 8 with MME_OPT_STATE=bf16 and every knob on: the eval loss after
-    them below the one before, the launches of every step."""
-    out = {}
-    model = w2v_model(params, torch.float32, quiet=True)
-    model.train()
-    batch, labels, mask, cw = w2v_inputs(8, SEED + 73)
-    params_t = list(model.parameters())
-
-    def loss_and_grads():
-        kernels.reset_launches()
-        loss = cross_entropy(model(batch), labels, cw, mask)
-        grads = torch.autograd.grad(loss, params_t, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params_t)]
-        torch.cuda.synchronize()
-        return (loss.item(), global_norm_f32(grads).item(),
-                {k: v for k, v in kernels.LAUNCHES.items() if v})
-
-    loss, norm, count = loss_and_grads()
-    os.environ["MME_FLASH"] = "0"
-    try:
-        loss0, norm0, count0 = loss_and_grads()
-    finally:
-        del os.environ["MME_FLASH"]
-    out["fp32"] = {"batch": 8, "loss": loss, "loss_plain": loss0,
-                   "grad_norm": norm, "grad_norm_plain": norm0,
-                   "launches": count, "launches_plain": count0}
-    print(f"wav2vec2_base train fp32: {json.dumps(out['fp32'])}", flush=True)
-    if not (np.isfinite(loss) and np.isfinite(norm)
-            and count == {"flash_fwd": W2V_FLASH, "flash_bwd": W2V_FLASH}
-            and not count0
-            and abs(loss - loss0) <= TRAIN_LOSS_RTOL * abs(loss0)
-            and abs(norm - norm0) <= TRAIN_NORM_RTOL * norm0):
-        raise SystemExit("phase 9: the fp32 training check of wav2vec2-base "
-                         "failed")
-    del model, params_t
-    torch.cuda.empty_cache()
-
-    model = w2v_model(params, torch.bfloat16, quiet=True)
-    env = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1", **KNOBS}
-    os.environ.update(env)
-    try:
-        tx = make_optimizer(cosine_warm_restarts(FAMILY_LR, 10, 1000), 0.01,
-                            1.0)
-        st = TrainState.create(model.parameters(), tx, use_accum=False,
-                               generator=torch.Generator(
-                                   device="cuda").manual_seed(SEED))
-        step = make_train_step(model, tx, num_classes=7)
-        ev = make_eval_step(model, num_classes=7)
-        batch, labels, mask, cw = w2v_inputs(8, SEED + 74)
-        before = ev(batch, labels, mask, cw)[0].item()
-        torch.cuda.reset_peak_memory_stats()
-        losses, times, counts = [], [], []
-        for _ in range(4):
-            kernels.reset_launches()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            _, l, _, _ = step(st, batch, labels, mask, cw, 1.0, True, SEED)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            losses.append(l.item())
-            counts.append({k: v for k, v in kernels.LAUNCHES.items() if v})
-        after = ev(batch, labels, mask, cw)[0].item()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-    finally:
-        for k in env:
-            del os.environ[k]
-    expect = {"flash_fwd": W2V_FLASH, "flash_bwd": W2V_FLASH,
-              "fused_mlp_fwd": W2V_MLP, "fused_mlp_bwd": W2V_MLP,
-              "layer_norm_fwd": W2V_LN, "layer_norm_bwd": W2V_LN,
-              "adam_update": 1}
-    out["bf16"] = {"eval_loss_before": before, "eval_loss_after": after,
-                   "losses": losses, "times_ms": times,
-                   "ms_per_step": float(np.median(times[1:])),
-                   "peak_gb": peak, "launches_per_step": counts[-1],
-                   "expected_launches_per_step": expect}
-    print(f"wav2vec2_base train bf16: {json.dumps(out['bf16'])}", flush=True)
-    if not (all(np.isfinite(losses)) and np.isfinite(after)
-            and after < before and all(c == expect for c in counts)):
-        raise SystemExit("phase 9: the bf16 training leg of wav2vec2-base "
-                         "failed")
-    del model, st, step, ev
-    torch.cuda.empty_cache()
-    return out
-
-
-def w2v_loop(params, card: str) -> dict:
-    """``run_classifier`` for one epoch of 4 steps (bf16 compute,
-    MME_OPT_STATE=bf16 MME_FUSED_ADAM=1, dropout and SpecAugment on) with
-    MME_EXPORT_BUNDLE set; the bundle loaded with ``load_bundle`` against a
-    live Predictor on its weights."""
-    directory = tempfile.mkdtemp(prefix="mme_w2v_loop_")
-    bundle = os.path.join(directory, "bundle")
-    env = dict(LOOP_ENV, MME_EXPORT_BUNDLE=bundle,
-               MME_RUN_DIR=os.path.join(directory, "run"))
-    try:
-        train_ds, val_ds, test_ds = (synthetic_audio_dataset(n, W2V_LEN, 7, s)
-                                     for n, s in W2V_LOOP_SIZES)
-        model = w2v_model(params, torch.bfloat16)
-        cfg = ExperimentConfig(**dict(LOOP_CFG, epoch=1, log_val=4),
-                               checkpoint_dir=os.path.join(directory, "ck"),
-                               audio_max_samples=W2V_LEN)
-        os.environ.update(env)
-        try:
-            kernels.reset_launches()
-            t = time.perf_counter()
-            summary = run_classifier(cfg, model, train_ds, val_ds, test_ds,
-                                     device="cuda")
-            loop_s = time.perf_counter() - t
-            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        finally:
-            for k in env:
-                del os.environ[k]
-        with open(os.path.join(env["MME_RUN_DIR"], "metrics.jsonl")) as f:
-            logs = [json.loads(line) for line in f]
-        losses = [d[k] for d in logs for k in ("train/loss", "val/loss",
-                                               "test/loss") if k in d]
-        exported = next(d for d in logs if "export_bundle" in d)
-        del model
-        torch.cuda.empty_cache()
-
-        served = load_bundle(bundle, device="cuda")
-        live_model = w2v_model(params, torch.bfloat16)
-        live_model.load_state_dict(
-            {k[len("model."):]: v for k, v in
-             served.module.state_dict().items()}, strict=True)
-        live = Predictor(live_model, batch_size=8, device="cuda")
-        reqs = [synthetic_audio_dataset(n, W2V_LEN, 7, seed).features
-                for n, seed in W2V_REQUESTS]
-        chunks = sum(-(-n // 8) for n, _ in W2V_REQUESTS)
-        served(reqs[0])
-        live(reqs[0])                                   # warm-up
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        got = [served(r) for r in reqs]
-        torch.cuda.synchronize()
-        count = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        want = [live(r) for r in reqs]
-        tol = SERVE_TOL[torch.bfloat16]
-        diff, same = served_diff(got, want, tol)
-        with open(os.path.join(bundle, "meta.json")) as f:
-            meta_model = json.load(f)["model"]
-        out = {"loop_s": loop_s, "launches": launches, "losses": losses,
-               "test_loss": summary["test/loss"],
-               "export_s": exported["export_s"], "save_s": exported["save_s"],
-               "bundle_gb": exported["bytes"] / 1e9, "load_s": served.load_s,
-               "bundle_ops": list(served.ops), "bundle_model": meta_model,
-               "bundle_launches_per_chunk": {
-                   k: v // chunks for k, v in count.items()},
-               "bundle_vs_live_max_abs": diff, "predictions_agree": same}
-        (out["bundle_ms_per_batch_of_8"],
-         out["bundle_times_ms"]) = median_ms(served, reqs[0])
-        del served, live, live_model
-    finally:
-        shutil.rmtree(directory, ignore_errors=True)
-        torch.cuda.empty_cache()
-    want_loop = {"flash_fwd": W2V_FLASH * (W2V_LOOP_STEPS
-                                           + W2V_LOOP_EVAL_BATCHES),
-                 "flash_bwd": W2V_FLASH * W2V_LOOP_STEPS,
-                 "adam_update": W2V_LOOP_STEPS}
-    out["expected_launches"] = want_loop
-    print(f"wav2vec2_base loop and bundle: {json.dumps(out)}", flush=True)
-    if not (all(np.isfinite(losses)) and launches == want_loop
-            and count == {"flash_fwd": W2V_FLASH * chunks}
-            and out["bundle_ops"] == ["flash_fwd"]
-            and meta_model == "BatchModel" and same and diff <= tol):
-        raise SystemExit("phase 9: wav2vec2-base through run_classifier and "
-                         "its bundle failed")
-    return out
-
-
-def wav2vec2_base(card: str) -> dict:
-    t = time.perf_counter()
-    meta = Wav2Vec2Classifier(Wav2Vec2Spec.base(), 7, device="meta")
-    params = init_variables(meta, SEED)["params"]
-    n_params = sum(p.numel() for p in meta.parameters())
-    res = {"parameters": n_params, "weights_s": time.perf_counter() - t}
-    res["serve"] = w2v_serve(params, card)
-    res["train"] = w2v_train(params, card)
-    res["loop"] = w2v_loop(params, card)
-    res["model_s"] = time.perf_counter() - t
-    serve, bf16 = res["serve"], res["train"]["bf16"]
-    print(json.dumps({"slice_model": {
-        "model": "wav2vec2_base", "parameters": n_params,
-        "serve_ms_per_batch_of_8": serve["ms_per_batch_of_8"],
-        "serve_ms_per_batch_of_8_knobs_on":
-            serve["ms_per_batch_of_8_knobs_on"],
-        "train_bf16_ms_per_step": bf16["ms_per_step"],
-        "peak_gb": max(serve["peak_gb"], bf16["peak_gb"]),
-        "launches_serve_chunk_knobs_on":
-            serve["launches_per_chunk_knobs_on"],
-        "launches_train_step": bf16["launches_per_step"],
-        "model_s": res["model_s"], "detail": res, "card": card}}),
-        flush=True)
-    return {"serve": serve["launches_per_chunk_knobs_on"],
-            "step": bf16["launches_per_step"]}
 
 
 def load_drawn(net):
@@ -2984,12 +2757,617 @@ def slice_models(card: str) -> dict:
     """Phase 9. Returns wav2vec2-base's launches of one served chunk with
     both knobs on and of one bf16 train step with every knob on."""
     t0 = time.perf_counter()
-    launches = wav2vec2_base(card)
+    launches = zoo_model_legs("Wav2Vec2Classifier", card)
     torch.cuda.empty_cache()
     slow_r50(card)
     resnet_frozen(card)
     conv_nets(card)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# phase 10: the text and two-modality classifiers at full width, batch 8,
+# 70 tokens, 160 000-sample waveforms (499 frames) and 16x224x224 clips
+# (1 568 tokens), weights from init_variables, one model at a time. K1 per
+# served chunk or train step once per attention layer (DistilRoBERTa 6,
+# wav2vec2-base 12, VideoMAE 12, VisualBERT 12), K5a/K5b as many with
+# MME_FUSED_MLP=1, K4a/K4b from `classifier_ln_sites` (the 1 024-row gate
+# keeps the 560 text rows and VisualBERT's 568 off the kernels). Phase 9's
+# Wav2Vec2Classifier takes the same legs at W2V_LEN samples.
+ZOO_TEXT_LEN, ZOO_SAMPLES = 70, 160000
+# text_nn's LSTM: vocabulary 5 000, 300-wide embedding and state, one layer
+LSTM_VOCAB, LSTM_DIM = 5000, 300
+
+
+def quiet_encoder(e):
+    return dataclasses.replace(e, dropout=0.0, attention_dropout=0.0)
+
+
+def with_encoder(spec, enc):
+    return dataclasses.replace(spec, encoder=enc(spec.encoder))
+
+
+def w2v_base(enc, quiet: bool) -> Wav2Vec2Spec:
+    spec = with_encoder(Wav2Vec2Spec.base(), enc)
+    if quiet:
+        spec = dataclasses.replace(spec, mask_time_prob=0.0,
+                                   mask_feature_prob=0.0)
+    return spec
+
+
+def text_audio_base(enc, quiet: bool) -> TextAudioSpec:
+    return TextAudioSpec(text=with_encoder(TextEncoderSpec.distilroberta(),
+                                           enc),
+                         audio=w2v_base(enc, quiet), output_dim=7,
+                         dropout=0.0 if quiet else 0.5)
+
+
+def text_video_base(enc, quiet: bool) -> TextVideoSpec:
+    return TextVideoSpec(text=with_encoder(TextEncoderSpec.distilroberta(),
+                                           enc),
+                         video=with_encoder(VideoMAESpec.base(), enc),
+                         output_dim=7, dropout=0.0 if quiet else 0.5)
+
+
+def text_video_data(n: int, seed: int, video_only: bool = False,
+                    tasks: bool = False):
+    """``synthetic_tv`` at full size; ``tasks``: a per-row ``task_id``
+    alternating text and video."""
+    ds = text_video_nn.synthetic_tv(text_video_base(lambda e: e, False), n,
+                                    ZOO_TEXT_LEN, 7, seed)
+    if video_only:
+        ds.features = {"video": ds.features["video"]}
+    if tasks:
+        ds.features["task_id"] = (np.arange(n) % 2).astype(np.int32)
+    return ds
+
+
+@dataclasses.dataclass(frozen=True)
+class ZooModel:
+    """One classifier of phases 9 and 10. ``spec(enc, quiet)``: its
+    full-width spec with ``enc`` applied to every encoder spec (``quiet``:
+    SpecAugment and the head's dropout off); ``build(spec, rate, device)``
+    the module, ``rate`` the head's dropout where the spec has none;
+    ``data(n, seed)`` n records drawn as its CLI draws them; ``flash`` its
+    K1 launches per forward. Legs: ``train_fp32`` the fp32 gradients
+    against MME_FLASH=0, ``train_bf16`` four bf16 steps, ``looped``
+    ``run_classifier`` and a bundle. Seeds: the served requests
+    ((rows, seed)), the fp32 and the bf16 batch, the loop's splits."""
+    spec: Callable
+    build: Callable
+    inputs: tuple
+    data: Callable
+    flash: int
+    classes: int = 7
+    samples: int = ZOO_SAMPLES
+    train_fp32: bool = True
+    train_bf16: bool = True
+    looped: bool = False
+    requests: tuple = ((8, 110), (5, 111), (11, 112))
+    train_seeds: tuple = (130, 131)
+    loop_sizes: tuple = ((32, 120), (8, 121), (8, 122))
+
+
+# phase 10's models, then phase 9's wav2vec2-base with its own seeds
+ZOO_MODELS = {
+    "BertClassifier": ZooModel(
+        spec=lambda enc, quiet: with_encoder(TextEncoderSpec.distilroberta(),
+                                             enc),
+        build=lambda s, rate, device: BertClassifier(s, 7, rate,
+                                                     device=device),
+        inputs=("input_ids", "text_mask"),
+        data=lambda n, seed: synthetic_text_dataset(50265, n, ZOO_TEXT_LEN,
+                                                    7, seed),
+        flash=6),
+    "BertAudioClassifier": ZooModel(
+        spec=text_audio_base,
+        build=lambda s, rate, device: BertAudioClassifier(s, device=device),
+        inputs=text_audio_nn.INPUTS,
+        data=lambda n, seed: text_audio_nn.synthetic_ta(
+            text_audio_base(lambda e: e, False), n, ZOO_TEXT_LEN,
+            ZOO_SAMPLES, 7, seed),
+        flash=18, looped=True),
+    "BertVideoMAELateFusion": ZooModel(
+        spec=text_video_base,
+        build=lambda s, rate, device: BertVideoMAELateFusion(s,
+                                                             device=device),
+        inputs=text_video_nn.INPUTS, data=text_video_data, flash=18),
+    "BertVideoMAEMTLShared": ZooModel(
+        spec=text_video_base,
+        build=lambda s, rate, device: BertVideoMAEMTLShared(s, device=device),
+        inputs=text_video_nn.INPUTS + ("task_id",),
+        data=lambda n, seed: text_video_data(n, seed, tasks=True),
+        flash=18, train_bf16=False),
+    "VBertClassifier": ZooModel(
+        spec=lambda enc, quiet: with_encoder(VisualBertSpec(), enc),
+        build=lambda s, rate, device: VBertClassifier(s, 2, rate,
+                                                      device=device),
+        inputs=visual_bert_nn.INPUTS,
+        data=lambda n, seed: visual_bert_nn.synthetic_vbert(
+            n, ZOO_TEXT_LEN, 1024, 30522, 2, seed),
+        flash=12, classes=2),
+    "VideoMAEClassifier": ZooModel(
+        spec=lambda enc, quiet: with_encoder(VideoMAESpec.base(), enc),
+        build=lambda s, rate, device: VideoMAEClassifier(s, 7, rate,
+                                                         device=device),
+        inputs=("video",),
+        data=lambda n, seed: text_video_data(n, seed, video_only=True),
+        flash=12, train_fp32=False, train_bf16=False),
+    "Wav2Vec2Classifier": ZooModel(
+        spec=w2v_base,
+        build=lambda s, rate, device: Wav2Vec2Classifier(s, 7, rate,
+                                                         device=device),
+        inputs=("waveform", "audio_mask"),
+        data=lambda n, seed: synthetic_audio_dataset(n, W2V_LEN, 7, seed),
+        flash=12, samples=W2V_LEN, looped=True,
+        requests=((8, 70), (5, 71), (11, 72)), train_seeds=(73, 74),
+        loop_sizes=((32, 80), (8, 81), (8, 82))),
+}
+ZOO = tuple(name for name in ZOO_MODELS if name != "Wav2Vec2Classifier")
+
+
+def zoo_spec(name: str, dtype: torch.dtype, quiet: bool = False):
+    """The full-width spec of ``name`` computing in ``dtype``; ``quiet``:
+    every dropout rate and SpecAugment probability 0 (the classifier's
+    own dropout is ``zoo_net``'s)."""
+    def enc(e):
+        e = dataclasses.replace(e, dtype=dtype)
+        return quiet_encoder(e) if quiet else e
+    return ZOO_MODELS[name].spec(enc, quiet)
+
+
+def zoo_net(name: str, dtype: torch.dtype, quiet: bool = False,
+            device: str = "cuda"):
+    """(the classifier, the batch keys it takes)."""
+    m = ZOO_MODELS[name]
+    return (m.build(zoo_spec(name, dtype, quiet), 0.0 if quiet else 0.5,
+                    device), m.inputs)
+
+
+def zoo_model(name: str, params, dtype: torch.dtype,
+              quiet: bool = False) -> BatchModel:
+    net, inputs = zoo_net(name, dtype, quiet)
+    net.load_state_dict(from_flax(params), strict=True)
+    return BatchModel(net, inputs)
+
+
+def zoo_requests(name: str) -> Tuple[list, int]:
+    """The served requests' features and their chunks of 8."""
+    reqs = ZOO_MODELS[name].requests
+    return ([ZOO_MODELS[name].data(n, seed).features for n, seed in reqs],
+            sum(-(-n // 8) for n, _ in reqs))
+
+
+def zoo_ln(name: str, batch: int = 8) -> int:
+    """K4a (K4b) launches per chunk (step) of ``batch`` from the spec."""
+    return sum(fused_ln_sites(classifier_ln_sites(
+        zoo_spec(name, torch.bfloat16), batch, ZOO_TEXT_LEN,
+        ZOO_MODELS[name].samples)).values())
+
+
+def zoo_batch(name: str, n: int, seed: int, task=None):
+    """n records on the card with their labels, an all-ones sample mask
+    and unit class weights; ``task`` sets the MTL's 0-d task."""
+    ds = ZOO_MODELS[name].data(n, seed)
+    feats = dict(ds.features)
+    if task is not None:
+        feats["task_id"] = np.asarray(task, np.int32)
+    return (to_device(feats, "cuda"), torch.as_tensor(ds.labels,
+                                                      device="cuda"),
+            torch.ones(n, dtype=torch.int32, device="cuda"),
+            torch.ones(ZOO_MODELS[name].classes, device="cuda"))
+
+
+def zoo_serve(name: str, params, card: str) -> dict:
+    """bf16 compute over fp32 weights, batch 8, ragged requests of 8, 5
+    and 11 rows: K1 against MME_FLASH=0, then both knobs on against both
+    off."""
+    m = ZOO_MODELS[name]
+    reqs, chunks = zoo_requests(name)
+    flash, n_ln = m.flash, zoo_ln(name)
+    tol = SERVE_TOL[torch.bfloat16]
+    model = zoo_model(name, params, torch.bfloat16)
+    pred = Predictor(model, batch_size=8, device="cuda")
+    pred(reqs[0])                                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    got = [pred(r) for r in reqs]
+    torch.cuda.synchronize()
+    count = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    os.environ["MME_FLASH"] = "0"
+    try:
+        kernels.reset_launches()
+        ref = [pred(r) for r in reqs]
+        plain = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        del os.environ["MME_FLASH"]
+    diff, same = served_diff(got, ref, tol)
+    part = {k: v[:3] for k, v in reqs[0].items()}
+    pad_diff = float(np.abs(pred(part)[1] - got[0][1][:3]).max())
+    finite = all(np.isfinite(p).all() for _, p in got + ref)
+    shapes_ok = all(p.shape == (n, m.classes)
+                    for (_, p), (n, _) in zip(got, m.requests))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with knobs_on():
+        pred(reqs[0])                                   # warm-up
+        kernels.reset_launches()
+        fused = [pred(r) for r in reqs]
+        count_f = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    diff_f, same_f = served_diff(fused, got, tol)
+    expect = {"flash_fwd": flash * chunks}
+    expect_f = {"flash_fwd": flash * chunks,
+                "fused_mlp_fwd": flash * chunks}
+    if n_ln:
+        expect_f["layer_norm_fwd"] = n_ln * chunks
+    res = {"chunks": chunks, "launches": count, "launches_plain": plain,
+           "max_abs_vs_plain": diff, "predictions_agree": same,
+           "padded_chunk_max_abs": pad_diff, "peak_gb": peak,
+           "launches_knobs_on": count_f, "expected_knobs_on": expect_f,
+           "max_abs_knobs_on_vs_off": diff_f,
+           "predictions_agree_knobs_on": same_f,
+           "launches_per_chunk_knobs_on": {k: v // chunks
+                                           for k, v in count_f.items()}}
+    if name == "VBertClassifier":
+        vbert = model.net.vbert
+        word = vbert.visual_bert.embeddings.word.weight
+        res["tied_decoder"] = (
+            vbert.decoder_weight.data_ptr() == word.data_ptr()
+            and sum(p.data_ptr() == word.data_ptr()
+                    for p in model.parameters()) == 1)
+    res["ms_per_batch_of_8"], res["times_ms"] = median_ms(pred, reqs[0])
+    with knobs_on():
+        (res["ms_per_batch_of_8_knobs_on"],
+         res["times_ms_knobs_on"]) = median_ms(pred, reqs[0])
+    print(f"zoo {name} serve bf16: {json.dumps(res)}", flush=True)
+    if not (finite and shapes_ok and count == expect and not plain
+            and diff <= tol and same and pad_diff <= SERVE_TOL[torch.float32]
+            and count_f == expect_f and diff_f <= tol and same_f
+            and res.get("tied_decoder", True)):
+        raise SystemExit(f"serving {name} failed")
+    del pred, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_grads(model, batch, labels, mask, cw):
+    """fp32 loss, gradient norm and launches of one training-mode pass;
+    the named gradients (zero where the forward did not reach a
+    parameter)."""
+    params = list(model.parameters())
+    kernels.reset_launches()
+    loss = cross_entropy(model(batch), labels, cw, mask)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, params)]
+    torch.cuda.synchronize()
+    return (loss.item(), global_norm_f32(grads).item(),
+            {k: v for k, v in kernels.LAUNCHES.items() if v},
+            dict(zip([n for n, _ in model.named_parameters()], grads)))
+
+
+def zoo_train_fp32(name: str, params, card: str) -> dict:
+    """fp32, no dropout or SpecAugment, batch 8: loss and gradient norm
+    with K1/K2 against MME_FLASH=0. The MTL runs one step with task 0 and
+    one with task 1: the other tower's gradients exactly zero, the chosen
+    tower's, ``shared_layer``'s and the head's not."""
+    m = ZOO_MODELS[name]
+    model = zoo_model(name, params, torch.float32, quiet=True)
+    model.train()
+    flash = m.flash
+    tasks = (0, 1) if name == "BertVideoMAEMTLShared" else (None,)
+    out = {}
+    for task in tasks:
+        batch, labels, mask, cw = zoo_batch(name, 8, SEED + m.train_seeds[0],
+                                            task)
+        loss, norm, count, grads = zoo_grads(model, batch, labels, mask, cw)
+        os.environ["MME_FLASH"] = "0"
+        try:
+            loss0, norm0, count0, _ = zoo_grads(model, batch, labels, mask,
+                                                cw)
+        finally:
+            del os.environ["MME_FLASH"]
+        res = {"batch": 8, "loss": loss, "loss_plain": loss0,
+               "grad_norm": norm, "grad_norm_plain": norm0,
+               "launches": count, "launches_plain": count0}
+        ok = (np.isfinite(loss) and np.isfinite(norm)
+              and count == {"flash_fwd": flash, "flash_bwd": flash}
+              and not count0
+              and abs(loss - loss0) <= TRAIN_LOSS_RTOL * abs(loss0)
+              and abs(norm - norm0) <= TRAIN_NORM_RTOL * norm0)
+        if task is not None:
+            idle = ("net.videomae.", "net.fc_norm.") if task == 0 else \
+                ("net.bert.",)
+            busy = ("net.bert.",) if task == 0 else ("net.videomae.",
+                                                     "net.fc_norm.")
+            zero = [n for n, g in grads.items()
+                    if n.startswith(idle) and g.any()]
+            dead = [n for n, g in grads.items()
+                    if n.startswith(busy) and "pooler" not in n
+                    and not g.any()]
+            shared = float(grads["net.shared_layer.weight"].norm())
+            head = float(grads["net.classifier.weight"].norm())
+            res.update(task=task, idle_nonzero=zero, busy_zero=dead,
+                       shared_layer_grad_norm=shared,
+                       classifier_grad_norm=head)
+            ok = ok and not zero and not dead and shared > 0 and head > 0
+        leg = "fp32" if task is None else f"fp32_task{task}"
+        out[leg] = res
+        print(f"zoo {name} train {leg}: {json.dumps(res)}", flush=True)
+        if not ok:
+            raise SystemExit(f"the fp32 training check of {name} "
+                             f"({leg}) failed")
+        del grads
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train_bf16(name: str, params, card: str) -> dict:
+    """bf16, no dropout, four steps on one batch of 8 with
+    MME_OPT_STATE=bf16 MME_FUSED_ADAM=1 and both knobs on: the eval loss
+    after them below the one before, every step's launches."""
+    m = ZOO_MODELS[name]
+    model = zoo_model(name, params, torch.bfloat16, quiet=True)
+    flash, n_ln = m.flash, zoo_ln(name)
+    env = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1", **KNOBS}
+    os.environ.update(env)
+    try:
+        tx = make_optimizer(cosine_warm_restarts(FAMILY_LR, 10, 1000), 0.01,
+                            1.0)
+        st = TrainState.create(model.parameters(), tx, use_accum=False,
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(SEED))
+        step = make_train_step(model, tx, num_classes=m.classes)
+        ev = make_eval_step(model, num_classes=m.classes)
+        batch, labels, mask, cw = zoo_batch(name, 8,
+                                            SEED + m.train_seeds[1])
+        before = ev(batch, labels, mask, cw)[0].item()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, counts = [], [], []
+        for _ in range(4):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, l, _, _ = step(st, batch, labels, mask, cw, 1.0, True, SEED)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(l.item())
+            counts.append({k: v for k, v in kernels.LAUNCHES.items() if v})
+        after = ev(batch, labels, mask, cw)[0].item()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for key in env:
+            del os.environ[key]
+    expect = {"flash_fwd": flash, "flash_bwd": flash,
+              "fused_mlp_fwd": flash, "fused_mlp_bwd": flash,
+              "adam_update": 1}
+    if n_ln:
+        expect.update(layer_norm_fwd=n_ln, layer_norm_bwd=n_ln)
+    res = {"eval_loss_before": before, "eval_loss_after": after,
+           "losses": losses, "times_ms": times,
+           "ms_per_step": float(np.median(times[1:])), "peak_gb": peak,
+           "launches_per_step": counts[-1],
+           "expected_launches_per_step": expect}
+    print(f"zoo {name} train bf16: {json.dumps(res)}", flush=True)
+    if not (all(np.isfinite(losses)) and np.isfinite(after)
+            and after < before and all(c == expect for c in counts)):
+        raise SystemExit(f"the bf16 training leg of {name} failed")
+    del model, st, step, ev
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_loop(name: str, params, card: str) -> dict:
+    """``run_classifier`` for one epoch of 4 steps (bf16 compute,
+    MME_OPT_STATE=bf16 MME_FUSED_ADAM=1, dropout and SpecAugment on) with
+    MME_EXPORT_BUNDLE set; the bundle loaded with ``load_bundle`` against a
+    live Predictor on its weights."""
+    directory = tempfile.mkdtemp(prefix="mme_zoo_loop_")
+    bundle = os.path.join(directory, "bundle")
+    env = dict(LOOP_ENV, MME_EXPORT_BUNDLE=bundle,
+               MME_RUN_DIR=os.path.join(directory, "run"))
+    m = ZOO_MODELS[name]
+    try:
+        train_ds, val_ds, test_ds = (m.data(n, s) for n, s in m.loop_sizes)
+        model = zoo_model(name, params, torch.bfloat16)
+        cfg = ExperimentConfig(**dict(LOOP_CFG, epoch=1, log_val=4),
+                               checkpoint_dir=os.path.join(directory, "ck"),
+                               audio_max_samples=m.samples)
+        os.environ.update(env)
+        try:
+            kernels.reset_launches()
+            t = time.perf_counter()
+            summary = run_classifier(cfg, model, train_ds, val_ds, test_ds,
+                                     device="cuda")
+            loop_s = time.perf_counter() - t
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        finally:
+            for k in env:
+                del os.environ[k]
+        with open(os.path.join(env["MME_RUN_DIR"], "metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f]
+        losses = [d[k] for d in logs for k in ("train/loss", "val/loss",
+                                               "test/loss") if k in d]
+        exported = next(d for d in logs if "export_bundle" in d)
+        del model
+        torch.cuda.empty_cache()
+
+        served = load_bundle(bundle, device="cuda")
+        live_model = zoo_model(name, params, torch.bfloat16)
+        live_model.load_state_dict(
+            {k[len("model."):]: v for k, v in
+             served.module.state_dict().items()}, strict=True)
+        live = Predictor(live_model, batch_size=8, device="cuda")
+        reqs, chunks = zoo_requests(name)
+        served(reqs[0])
+        live(reqs[0])                                   # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = [served(r) for r in reqs]
+        torch.cuda.synchronize()
+        count = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = [live(r) for r in reqs]
+        tol = SERVE_TOL[torch.bfloat16]
+        diff, same = served_diff(got, want, tol)
+        with open(os.path.join(bundle, "meta.json")) as f:
+            meta_model = json.load(f)["model"]
+        out = {"loop_s": loop_s, "launches": launches, "losses": losses,
+               "test_loss": summary["test/loss"],
+               "export_s": exported["export_s"], "save_s": exported["save_s"],
+               "bundle_gb": exported["bytes"] / 1e9, "load_s": served.load_s,
+               "bundle_ops": list(served.ops), "bundle_model": meta_model,
+               "bundle_launches_per_chunk": {
+                   k: v // chunks for k, v in count.items()},
+               "bundle_vs_live_max_abs": diff, "predictions_agree": same}
+        (out["bundle_ms_per_batch_of_8"],
+         out["bundle_times_ms"]) = median_ms(served, reqs[0])
+        del served, live, live_model
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        torch.cuda.empty_cache()
+    steps = -(-m.loop_sizes[0][0] // 8)
+    evals = sum(-(-n // 8) for n, _ in m.loop_sizes[1:])
+    want_loop = {"flash_fwd": m.flash * (steps + evals),
+                 "flash_bwd": m.flash * steps, "adam_update": steps}
+    out["expected_launches"] = want_loop
+    print(f"zoo {name} loop and bundle: {json.dumps(out)}", flush=True)
+    if not (all(np.isfinite(losses)) and launches == want_loop
+            and count == {"flash_fwd": m.flash * chunks}
+            and out["bundle_ops"] == ["flash_fwd"]
+            and meta_model == "BatchModel" and same and diff <= tol):
+        raise SystemExit(f"{name} through run_classifier and its "
+                         "bundle failed")
+    return out
+
+
+def zoo_model_legs(name: str, card: str) -> dict:
+    """Every leg of one classifier; its JSON line; its launches of one
+    served chunk with both knobs on and of one train step (the bf16 leg's
+    with every knob on, or the MTL's fp32 step). Starts from what the
+    earlier phases left on the card once cyclic garbage is collected
+    (``baseline_gb``), so its peaks are its own."""
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    meta, _ = zoo_net(name, torch.float32, device="meta")
+    params = init_variables(meta, SEED)["params"]
+    n_params = sum(p.numel() for p in meta.parameters())
+    res = {"parameters": n_params, "weights_s": time.perf_counter() - t,
+           "baseline_gb": torch.cuda.memory_allocated() / 1e9}
+    m = ZOO_MODELS[name]
+    res["serve"] = zoo_serve(name, params, card)
+    res["train"] = {}
+    if m.train_fp32:
+        res["train"] = zoo_train_fp32(name, params, card)
+    if m.train_bf16:
+        res["train"]["bf16"] = zoo_train_bf16(name, params, card)
+    if m.looped:
+        res["loop"] = zoo_loop(name, params, card)
+    del params
+    torch.cuda.empty_cache()
+    res["model_s"] = time.perf_counter() - t
+    serve = res["serve"]
+    train = res.get("train", {})
+    bf16 = train.get("bf16", {})
+    step = bf16.get("launches_per_step") or next(
+        (leg["launches"] for leg in train.values()), {})
+    print(json.dumps({"slice_model": {
+        "model": name, "parameters": n_params,
+        "serve_ms_per_batch_of_8": serve["ms_per_batch_of_8"],
+        "serve_ms_per_batch_of_8_knobs_on":
+            serve["ms_per_batch_of_8_knobs_on"],
+        "train_bf16_ms_per_step": bf16.get("ms_per_step"),
+        "peak_gb_serve": serve["peak_gb"],
+        "peak_gb_train": bf16.get("peak_gb"),
+        "launches_serve_chunk_knobs_on":
+            serve["launches_per_chunk_knobs_on"],
+        "launches_train_step": step,
+        "max_abs_vs_plain": serve["max_abs_vs_plain"],
+        "baseline_gb": res["baseline_gb"],
+        "model_s": res["model_s"], "detail": res, "card": card}}),
+        flush=True)
+    return {"serve": serve["launches_per_chunk_knobs_on"], "step": step}
+
+
+def zoo_lstm(card: str) -> dict:
+    """``LSTMClassifier`` at text_nn's size (vocabulary 5 000, 300-wide
+    embedding and state, one layer) over 8 x 70 tokens in fp32: a forward
+    and two train steps, no kernel of the port launched."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    net, n_params = load_drawn(LSTMClassifier(LSTM_VOCAB, LSTM_DIM, LSTM_DIM,
+                                              device="cuda"))
+    model = BatchModel(net, ("input_ids",))
+    ds = synthetic_text_dataset(LSTM_VOCAB, 8, ZOO_TEXT_LEN, 7, SEED + 140)
+    batch = to_device(ds.features, "cuda")
+    labels = torch.as_tensor(ds.labels, device="cuda")
+    mask = torch.ones(8, dtype=torch.int32, device="cuda")
+    cw = torch.ones(7, device="cuda")
+    kernels.reset_launches()
+    model.eval()
+    with torch.no_grad():
+        logits = model(batch)
+    tx = make_optimizer(lambda s: 1e-3, 0.01, 1.0)
+    _, _, losses, times = steps_of(model, tx, batch, labels, mask, cw, 2)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    res = {"model": "LSTMClassifier", "parameters": n_params,
+           "logits_shape": list(logits.shape), "losses": losses,
+           "times_ms": times, "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "model_s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"slice_model": res}), flush=True)
+    if not (tuple(logits.shape) == (8, 7) and not launches
+            and bool(torch.isfinite(logits).all())
+            and bool((logits <= 0).all()) and all(np.isfinite(losses))):
+        raise SystemExit("phase 10: LSTMClassifier failed")
+    del model, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_clis(card: str) -> dict:
+    """text_nn (both models), text_audio_nn, text_video_nn -m 1MTL and
+    visual_bert_nn on synthetic data, one epoch at batch 8 on the card, in
+    a temporary directory."""
+    out = {}
+    cwd = os.getcwd()
+    directory = tempfile.mkdtemp(prefix="mme_zoo_cli_")
+    try:
+        os.chdir(directory)
+        for label, main_fn, extra in (
+                ("text_nn", text_nn.main, []),
+                ("text_nn_LSTM", text_nn.main, ["-m", "LSTM"]),
+                ("text_audio_nn", text_audio_nn.main, []),
+                ("text_video_nn_1MTL", text_video_nn.main, ["-m", "1MTL"]),
+                ("visual_bert_nn", visual_bert_nn.main, [])):
+            t = time.perf_counter()
+            summary = main_fn(["--dataset", "synthetic", "-e", "1", "-b",
+                               "8"] + extra)
+            out[label] = {"test_loss": summary["test/loss"],
+                          "s": time.perf_counter() - t}
+            shutil.rmtree(os.path.join(directory, "checkpoints"),
+                          ignore_errors=True)
+            if not np.isfinite(summary["test/loss"]):
+                raise SystemExit(f"phase 10: {label} on the card failed")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(directory, ignore_errors=True)
+    print(json.dumps({"zoo_clis": out, "card": card}), flush=True)
+    return out
+
+
+def zoo(card: str) -> dict:
+    """Phase 10. Returns per model the launches of one served chunk with
+    both knobs on and of one train step."""
+    t0 = time.perf_counter()
+    launches = {}
+    for name in ZOO:
+        launches[name] = zoo_model_legs(name, card)
+        torch.cuda.empty_cache()
+    zoo_lstm(card)
+    zoo_clis(card)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -3045,14 +3423,19 @@ def main() -> int:
     family = fusion_family(card)
     torch.cuda.empty_cache()
     w2v = slice_models(card)
+    torch.cuda.empty_cache()
+    zoo_launches = zoo(card)
 
     def family_launches(name):
-        """launches_<model> of phases 8 and 9: one served chunk with both
-        knobs on for a forward kernel, one bf16 train step with every knob
-        on for the others."""
+        """launches_<model> of phases 8, 9 and 10: one served chunk with
+        both knobs on for a forward kernel, one bf16 train step with every
+        knob on for the others (the MTL's fp32 step; 0 for a model without
+        a train leg)."""
         leg = "serve" if name.endswith("_fwd") else "step"
         out = {f"launches_{m}": family[m][leg].get(name, 0) for m in FAMILY}
         out["launches_wav2vec2_base"] = w2v[leg].get(name, 0)
+        out.update({f"launches_{m}": zoo_launches[m][leg].get(name, 0)
+                    for m in ZOO})
         return out
 
     def entry(name, route, source, replaces, result):

@@ -1,10 +1,10 @@
 """Synthetic records shaped like the real ones, the CLIs' data-free path.
 
 Port of ``mme_tpu/data/synthetic.py``: ``synthetic_tav_dataset`` (MELD-shaped
-triple-modal), ``synthetic_audio_dataset`` and ``synthetic_image_dataset``
-(Hateful-Memes-shaped): the same arrays, bit for bit, for the same seed and
-shapes, with the label planted in each modality so training can learn. The
-text generator waits for its CLI (ROADMAP Queue 1 item 5).
+triple-modal), ``synthetic_text_dataset``, ``synthetic_audio_dataset`` and
+``synthetic_image_dataset`` (Hateful-Memes-shaped): the same arrays, bit for
+bit, for the same seed and shapes, with the label planted in each modality
+so training can learn.
 """
 
 from __future__ import annotations
@@ -48,6 +48,20 @@ def synthetic_tav_dataset(spec: TAVSpec, n: int, text_len: int = 70,
         {"input_ids": ids.astype(np.int32), "text_mask": text_mask,
          "waveform": wave, "audio_mask": audio_mask, "video": video},
         labels.astype(np.int64), dialog_ids=dialogs)
+
+
+def synthetic_text_dataset(vocab_size: int, n: int, text_len: int = 70,
+                           num_classes: int = 7, seed: int = 0
+                           ) -> ArrayDataset:
+    """Token ids [n, L] with label-correlated tokens at 1..3, and an
+    all-ones text mask."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, num_classes, n)
+    ids = rng.randint(5, vocab_size, size=(n, text_len))
+    ids[:, 1:4] = (labels[:, None] + 5 + np.arange(3)[None, :])
+    mask = np.ones((n, text_len), np.int32)
+    return ArrayDataset({"input_ids": ids.astype(np.int32),
+                         "text_mask": mask}, labels.astype(np.int64))
 
 
 def synthetic_audio_dataset(n: int, audio_len: int = 48000,

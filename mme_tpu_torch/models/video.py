@@ -2,9 +2,9 @@
 pre-LN encoder), the slow-pathway 3-D ResNet-50 and the scratch Conv3D net.
 
 Port of ``mme_tpu/models/video.py`` (``VideoMAESpec``, ``TubeletEmbed``,
-``VideoMAEModel``, ``Conv3DClassifier``, ``Bottleneck3D``, ``SlowR50``).
-Video arrives channels-last, [B, T, H, W, C]; the conv nets run
-channels-first inside. ``VideoMAEClassifier`` is not ported yet.
+``VideoMAEModel``, ``VideoMAEClassifier``, ``Conv3DClassifier``,
+``Bottleneck3D``, ``SlowR50``). Video arrives channels-last,
+[B, T, H, W, C]; the conv nets run channels-first inside.
 """
 
 from __future__ import annotations
@@ -106,6 +106,28 @@ class VideoMAEModel(nn.Module):
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.encoder(self.embed(video, visible_mask, keep_k), None,
                             rng)
+
+
+class VideoMAEClassifier(nn.Module):
+    """Mean-pool classifier over VideoMAE features: ``videomae`` → mean
+    over tokens → dropout → ``classifier`` in the encoder's compute
+    dtype."""
+
+    def __init__(self, spec: VideoMAESpec, output_dim: int,
+                 dropout: float = 0.5, device: DeviceLike = "cuda"):
+        super().__init__()
+        self.dropout = dropout
+        self.videomae = VideoMAEModel(spec, device=device)
+        self.classifier = Dense(spec.encoder.hidden, output_dim,
+                                dtype=spec.encoder.dtype, device=device)
+
+    def forward(self, video: torch.Tensor,
+                visible_mask: Optional[torch.Tensor] = None,
+                keep_k: Optional[int] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.videomae(video, visible_mask, keep_k, rng)
+        return self.classifier(dropout(h.mean(dim=1), self.dropout,
+                                       self.training, rng))
 
 
 class Conv3DClassifier(nn.Module):

@@ -41,13 +41,23 @@ import torch
 import torch.nn.functional as F
 
 from mme_tpu_torch.device import card_line
+from mme_tpu_torch.models.audio import Wav2Vec2Spec
 from mme_tpu_torch.models.fusion import TAVSpec
+from mme_tpu_torch.models.text import TextEncoderSpec
+from mme_tpu_torch.models.text_audio import TextAudioSpec
+from mme_tpu_torch.models.text_video import TextVideoSpec
+from mme_tpu_torch.models.video import VideoMAESpec
+from mme_tpu_torch.models.visualbert import VisualBertSpec
 from mme_tpu_torch.ops.layer_norm import (MIN_FUSED_ROWS,
                                           fused_layer_norm_bwd,
                                           fused_layer_norm_fwd)
 from mme_tpu_torch.time_flash import event_ms, host_us, kernel_ms
 
 EPS = 1e-5
+
+
+def _encoder_sites(e, rows: int) -> list:
+    return [(rows, e.hidden)] * (2 * e.layers + int(e.final_ln))
 
 
 def ln_sites(spec: TAVSpec, batch: int, text_len: int = 70,
@@ -66,18 +76,15 @@ def ln_sites(spec: TAVSpec, batch: int, text_len: int = 70,
         frames = (frames - k) // st + 1
         conv.append((batch * frames, d))
 
-    def encoder(e, rows):
-        return [(rows, e.hidden)] * (2 * e.layers + int(e.final_ln))
-
     text = ([(batch * text_len, spec.text.encoder.hidden)]    # embeddings
-            + encoder(spec.text.encoder, batch * text_len))
+            + _encoder_sites(spec.text.encoder, batch * text_len))
     # the PreFormer's conv stack, feature projection, audio_ln and text
     # embeddings, then the fusion trunk
     sites = conv + [(batch * frames, a.conv_dims[-1]),
                     (batch * frames, a.encoder.hidden),
                     (batch * text_len, spec.text.encoder.hidden)]
-    sites += encoder(spec.fusion,
-                     batch * (text_len + frames + spec.video_keep_k))
+    sites += _encoder_sites(spec.fusion,
+                            batch * (text_len + frames + spec.video_keep_k))
     if model in ("TAVFormer", "TAVForW2V2", "TAVMoE"):
         return sites + [(batch, spec.hidden)]
     if model == "TAVForMAE2Tower":
@@ -87,17 +94,80 @@ def ln_sites(spec: TAVSpec, batch: int, text_len: int = 70,
     # the audio tower's conv stack and feature projection and encoder, the
     # video and text towers and the four pooled norms
     sites += conv + [(batch * frames, a.conv_dims[-1])]
-    sites += encoder(a.encoder, batch * frames)
-    sites += encoder(spec.video.encoder,
-                     batch * (spec.video.num_patches - spec.video_keep_k))
+    sites += _encoder_sites(a.encoder, batch * frames)
+    sites += _encoder_sites(spec.video.encoder,
+                            batch * (spec.video.num_patches
+                                     - spec.video_keep_k))
     return sites + text + [(batch, spec.hidden)] * 4
+
+
+def _wav2vec2_sites(a, batch: int, samples: int) -> list:
+    """A full wav2vec2 tower: its extractor's per-conv LayerNorms (the
+    ``"layer"`` variant; ``"group"`` has one GroupNorm instead), the
+    feature projection's, the post-LN encoder's ``ln`` and the stack."""
+    frames, sites = samples, []
+    for k, st, d in zip(a.conv_kernels, a.conv_strides, a.conv_dims):
+        frames = (frames - k) // st + 1
+        if a.feat_extract_norm == "layer":
+            sites.append((batch * frames, d))
+    rows = batch * frames
+    sites.append((rows, a.conv_dims[-1]))
+    if not a.do_stable_layer_norm:
+        sites.append((rows, a.encoder.hidden))
+    return sites + _encoder_sites(a.encoder, rows)
+
+
+def classifier_ln_sites(spec, batch: int, text_len: int = 70,
+                        samples: int = 160000, visual: int = 1) -> list:
+    """(rows, features) of every FusedLayerNorm call of one forward of a
+    single- or two-modality classifier, from its spec alone: a
+    ``TextEncoderSpec`` (``BertClassifier``), ``TextAudioSpec``
+    (``BertAudioClassifier``), ``TextVideoSpec`` (``BertVideoMAEMTLShared``
+    and ``BertVideoMAELateFusion``, whose sites are the same),
+    ``VisualBertSpec`` (``VBertClassifier`` with ``visual`` feature
+    vectors), ``VideoMAESpec`` (``VideoMAEClassifier``), ``Wav2Vec2Spec``
+    (``Wav2Vec2Classifier``), or None (``LSTMClassifier``, no LayerNorm)."""
+    def text(t):
+        rows = batch * text_len
+        return [(rows, t.encoder.hidden)] + _encoder_sites(t.encoder, rows)
+
+    def video(v):
+        return _encoder_sites(v.encoder, batch * v.num_patches)
+
+    if spec is None:
+        return []
+    if isinstance(spec, TextEncoderSpec):
+        return text(spec)
+    if isinstance(spec, TextAudioSpec):
+        return text(spec.text) + _wav2vec2_sites(spec.audio, batch, samples)
+    if isinstance(spec, TextVideoSpec):
+        # the pooled fc_norm over B rows
+        return (text(spec.text) + video(spec.video)
+                + [(batch, spec.video.encoder.hidden)])
+    if isinstance(spec, VisualBertSpec):
+        e, rows = spec.encoder, batch * (text_len + visual)
+        # the embeddings' LN over text and visual tokens, the stack, the MLM
+        # head's transform_ln
+        return [(rows, e.hidden)] + _encoder_sites(e, rows) + [(rows,
+                                                                 e.hidden)]
+    if isinstance(spec, VideoMAESpec):
+        return video(spec)
+    if isinstance(spec, Wav2Vec2Spec):
+        return _wav2vec2_sites(spec, batch, samples)
+    raise TypeError(f"no LayerNorm sites for a {type(spec).__name__}")
+
+
+def fused_ln_sites(sites) -> Counter:
+    """The sites that MME_FUSED_LN=1 sends to the kernels, by shape."""
+    return Counter((n, h) for n, h in sites
+                   if n >= MIN_FUSED_ROWS and h % 8 == 0)
 
 
 def fused_ln_shapes(spec: TAVSpec, batch: int,
                     model: str = "TAVModel") -> Counter:
-    """The sites that MME_FUSED_LN=1 sends to the kernels, by shape."""
-    return Counter((n, h) for n, h in ln_sites(spec, batch, model=model)
-                   if n >= MIN_FUSED_ROWS and h % 8 == 0)
+    """The sites of a fusion model that MME_FUSED_LN=1 sends to the
+    kernels, by shape."""
+    return fused_ln_sites(ln_sites(spec, batch, model=model))
 
 
 def step_and_chunk_shapes(batch: int = 8) -> list:

@@ -16,6 +16,7 @@ result is rounded to bf16 once more).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -1134,3 +1135,110 @@ def test_batchnorm_bundle_round_trip_on_card(cuda, tmp_path):
             if k.endswith((".mean", ".var"))}
     assert len(held) == 2 * sum(isinstance(m, BatchNorm)
                                 for m in net.modules())
+
+
+# --- the text and two-modality classifiers ----------------------------------
+
+# bf16 probabilities, kernels against their plain versions
+ZOO_PROB_TOL = 1e-2
+
+def _zoo_case(name, dtype):
+    """(BatchModel at a small width computing in ``dtype``, requests of 4
+    rows, K1 launches per forward, the model's spec for its LayerNorm
+    sites): hidden 256 in 4 heads of 64 and intermediate 1024, the widths
+    the flash and fused-MLP kernels take, 2 layers per tower."""
+    from mme_tpu_torch.cli import text_audio_nn, text_video_nn, visual_bert_nn
+    from mme_tpu_torch.cli.common import BatchModel
+    from mme_tpu_torch.data.synthetic import synthetic_text_dataset
+    from mme_tpu_torch.models import text, text_audio, text_video, video
+    from mme_tpu_torch.models import visualbert
+
+    def enc(e):
+        return dataclasses.replace(e, hidden=256, heads=4, layers=2,
+                                   intermediate=1024, dtype=dtype)
+
+    t = text.TextEncoderSpec()
+    t = dataclasses.replace(t, vocab_size=1000, encoder=enc(t.encoder))
+    v = video.VideoMAESpec()
+    v = dataclasses.replace(v, image_size=112, encoder=enc(v.encoder))
+    a = text_audio.TextAudioSpec().audio
+    a = dataclasses.replace(a, conv_dims=(32, 32, 32),
+                            conv_kernels=(10, 3, 3), conv_strides=(5, 2, 2),
+                            mask_time_prob=0.0, encoder=enc(a.encoder))
+    if name == "BertClassifier":
+        net, spec = text.BertClassifier(t, 7, device="cuda"), t
+        feats = synthetic_text_dataset(1000, 4, 70, 7, 1).features
+        inputs, flash = ("input_ids", "text_mask"), 2
+    elif name == "BertAudioClassifier":
+        spec = text_audio.TextAudioSpec(text=t, audio=a, hidden=256)
+        net = text_audio.BertAudioClassifier(spec, device="cuda")
+        feats = text_audio_nn.synthetic_ta(spec, 4, 70, 24000, 7, 1).features
+        inputs, flash = text_audio_nn.INPUTS, 4
+    elif name == "VBertClassifier":
+        spec = dataclasses.replace(visualbert.VisualBertSpec(),
+                                   vocab_size=1000,
+                                   encoder=enc(visualbert.VisualBertSpec()
+                                               .encoder))
+        net = visualbert.VBertClassifier(spec, 2, device="cuda")
+        feats = visual_bert_nn.synthetic_vbert(4, 70, 1024, 1000, 2,
+                                               1).features
+        inputs, flash = visual_bert_nn.INPUTS, 2
+    else:
+        spec = text_video.TextVideoSpec(text=t, video=v, hidden=256)
+        feats = text_video_nn.synthetic_tv(spec, 4, 70, 7, 1).features
+        if name == "VideoMAEClassifier":
+            net, spec = video.VideoMAEClassifier(v, 7, device="cuda"), v
+            inputs, flash = ("video",), 2
+        else:
+            net = getattr(text_video, name)(spec, device="cuda")
+            inputs, flash = text_video_nn.INPUTS, 4
+            if name == "BertVideoMAEMTLShared":
+                feats["task_id"] = np.array([0, 1, 0, 1], np.int32)
+                inputs += ("task_id",)
+    return net, BatchModel(net, inputs), feats, flash, spec
+
+
+@pytest.mark.parametrize("name", ["BertClassifier", "BertAudioClassifier",
+                                  "BertVideoMAEMTLShared",
+                                  "BertVideoMAELateFusion", "VBertClassifier",
+                                  "VideoMAEClassifier"])
+def test_zoo_classifier_bf16_kernels_match_plain(cuda, name, monkeypatch):
+    """Each text or two-modality classifier in bf16 at a small width
+    (batch 4, 70 tokens, 24 000 samples, 16x112x112 clips, weights from
+    ``init_variables``), served by ``Predictor``: one K1 launch per
+    attention layer and the probabilities within ZOO_PROB_TOL of
+    MME_FLASH=0's; with MME_FUSED_LN=1 MME_FUSED_MLP=1, one K5a launch per
+    layer, the K4a count of ``classifier_ln_sites`` and the probabilities
+    within ZOO_PROB_TOL of the knobs-off ones."""
+    from mme_tpu_torch.convert import from_flax, init_variables
+    from mme_tpu_torch.serve import Predictor
+    from mme_tpu_torch.time_layer_norm import (classifier_ln_sites,
+                                               fused_ln_sites)
+    net, model, feats, flash, spec = _zoo_case(name, torch.bfloat16)
+    net.load_state_dict(from_flax(**init_variables(net, 0)), strict=True)
+    pred = Predictor(model, batch_size=4, device=cuda)
+    names = ("flash_fwd", "layer_norm_fwd", "fused_mlp_fwd")
+
+    def serve():
+        before = {k: kernels.LAUNCHES[k] for k in names}
+        probs = pred(feats)[1]
+        return probs, {k: kernels.LAUNCHES[k] - before[k] for k in names
+                       if kernels.LAUNCHES[k] != before[k]}
+
+    got, count = serve()
+    monkeypatch.setenv("MME_FLASH", "0")
+    want, count_plain = serve()
+    monkeypatch.delenv("MME_FLASH")
+    assert count == {"flash_fwd": flash} and not count_plain
+    assert np.isfinite(got).all() and got.shape[0] == 4
+    assert np.abs(got - want).max() <= ZOO_PROB_TOL
+    monkeypatch.setenv("MME_FUSED_LN", "1")
+    monkeypatch.setenv("MME_FUSED_MLP", "1")
+    fused, count_f = serve()
+    n_ln = sum(fused_ln_sites(classifier_ln_sites(
+        spec, 4, text_len=70, samples=24000)).values())
+    want_f = {"flash_fwd": flash, "fused_mlp_fwd": flash}
+    if n_ln:
+        want_f["layer_norm_fwd"] = n_ln
+    assert count_f == want_f
+    assert np.abs(fused - got).max() <= ZOO_PROB_TOL
