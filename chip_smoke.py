@@ -20,7 +20,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    - the flash forward (K1) and backward (K2), q/k/v as strided views of a
      fused QKV tensor, at the four model shapes, wav2vec2-base's
      [8, 299, 12 heads] and phase 10's [8, 499], [8, 1 568] (no key mask)
-     and [8, 71] at 12 heads in bf16 and fp32, a ragged
+     and [8, 71] at 12 heads, phase 11's length buckets below the cap
+     (audio [8, 124 | 249 | 374] at 16 heads and fusion [8, 298 | 423 |
+     548] at 12, key mask) in bf16 and fp32, a ragged
      key length with head_dim 128, rows whose every key is masked by bias
      and, for K2, a sentinel row (every score -inf). Times each kernel, its
      plain version and ``scaled_dot_product_attention`` forward / backward
@@ -39,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    - the fused LayerNorm forward (K4a) and backward (K4b) at [2 392, 1024],
      [11 712, 768], [3 784, 768], [153 592, 512], wav2vec2-base's
      [2 392, 768] and [2 392, 512], phase 10's [3 992, 768], [3 992, 512]
-     and [12 544, 768], a ragged [3 001, 768] and
+     and [12 544, 768], the 1 024-row gate ([992 | 1 023 | 1 024 | 1 025 |
+     1 992, 1 024] and [992, 512]), a ragged [3 001, 768] and
      the widest row [1 024, 8 192] in bf16 and fp32, fp32 in / bf16 out, and
      x as a row-offset view: y, dx, dscale, dbias, two runs bit-equal. Times
      them at every shape a training step launches, beside ``F.layer_norm``
@@ -228,10 +231,57 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    training, launches per chunk and per step, the largest probability gap
    against ``MME_FLASH=0``, the model's seconds and the card.
 
+11. The data path at full width, as ``cli/tav_nn``'s pickle branch runs it
+   (the card's machine has no pandas, cv2 or PIL, so
+   ``records.build_tav_dataset`` reads a mapping of columns in place of
+   the frame):
+   (1) builds the port's WAV decoder (``data/wavio.py::build_library``,
+       ``g++`` on ``mme_tpu_torch/native/wavio.cpp``) and prints the
+       command and its seconds;
+   (2) writes 144 utterances of 1.5–11 s: most 48 kHz stereo 16-bit
+       through stdlib ``wave``, some 44.1 kHz mono, 24-bit and float32
+       with a header written here; 128 train (32 in each bucket of the
+       160 000-sample cap, so that epoch 0's weighted draw with
+       replacement still trains at least two full batches of 8 in every
+       bucket), 8 validation, 8 test;
+   (3) decodes them with ``load_waveforms_parallel`` natively, against the
+       numpy path within 1e-5, with no fallback; prints the decode rate on
+       the card machine's host CPU;
+   (4) ``resample_waveform`` on the card (48 kHz → 16 kHz over
+       [8, 288 000]) against ``resample_numpy`` within 1e-5;
+   (5) TAV records through ``build_tav_dataset``: hash-tokenized text
+       (``get_tokenizer(None, 50 265)``), ``load_audio_bucket`` at the
+       cap, MELD emotion strings with ``build_label_map``'s sorted map,
+       then uint8 video drawn from a seed;
+   (6) ``tav_nn.build_model`` and ``tav_nn.train`` on them: full-width
+       ``TAVSpec(output_dim=7)`` from ``init_params``, bf16,
+       ``MME_OPT_STATE=bf16 MME_FUSED_ADAM=1 MME_FUSED_LN=1
+       MME_FUSED_MLP=1``, length buckets on (``make_bucket_iter``), one
+       epoch and the test pass, ``MME_PREDICT_OUT`` and the checkpoints in
+       a temporary directory removed afterwards;
+   (7) checks every train step and eval batch: its audio length is a
+       bucket bound (every bound trains at least two steps), its
+       K1/K2/K3/K4a/K4b/K5a/K5b launches are those the spec gives at the
+       batch fed (K4 from ``time_layer_norm.ln_sites``: the 40 000-sample
+       bucket's 992-row audio sites stay under the kernel's 1 024-row
+       gate), its logits and the losses are finite, and the prediction
+       log's labels are the label map's names;
+   (8) prints per bucket the first and the steady (median of the rest) ms
+       per step and the launches of a step, and the peak memory; holds
+       every kernel against its plain version at the shapes the run fed
+       it (K1/K2 at the four towers' attention in bf16, K4a/K4b at every
+       LayerNorm shape the kernel takes and K5a/K5b at the four towers'
+       MLPs, both in bf16 and fp32); then times K1/K2 at each bucket's
+       audio and fusion lengths and K4a/K4b at its LayerNorm shapes, each
+       beside its plain version, ``scaled_dot_product_attention`` or
+       ``F.layer_norm`` and its bound.
+
 Then one JSON line of per-kernel results (seven kernels;
 ``launches_<model>`` gives phases 8, 9 and 10's counts: a served chunk
 with both knobs on for a forward kernel, a bf16 train step for the
-others, the MTL's fp32 step, 0 for a model without a train leg), the
+others, the MTL's fp32 step, 0 for a model without a train leg;
+``launches_data_path`` phase 11's whole run and
+``launches_data_path_step`` one of its train steps per bucket bound), the
 card's name and power limit, and last the line
 ``{"ok": true, "device": {...}}``.
 
@@ -250,28 +300,36 @@ import re
 import select
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+import wave
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mme_tpu_torch.cli import (images_nn, text_audio_nn, text_nn,
+from mme_tpu_torch.cli import (images_nn, tav_nn, text_audio_nn, text_nn,
                                text_video_nn, visual_bert_nn, visual_nn)
-from mme_tpu_torch.cli.common import BatchModel, run_classifier
+from mme_tpu_torch.cli.common import (BatchModel, invert_label_map,
+                                      make_bucket_iter, run_classifier)
 from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import from_flax, init_params, init_variables
+from mme_tpu_torch.data import wavio
 from mme_tpu_torch.data.dataset import batches
+from mme_tpu_torch.data.records import (PickleDatasetConfig,
+                                        build_label_map, build_tav_dataset,
+                                        get_tokenizer)
 from mme_tpu_torch.data.synthetic import (synthetic_audio_dataset,
                                           synthetic_image_dataset,
                                           synthetic_tav_dataset,
                                           synthetic_text_dataset)
+from mme_tpu_torch.data.wavio import load_waveforms_parallel
 from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES, card_line
 from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
 from mme_tpu_torch.models.fusion import (FUSION_MODELS, TAVModel,
@@ -310,11 +368,13 @@ from mme_tpu_torch.ops.flash_attention import (bounds as flash_bounds,
                                                flash_attention_bwd_plain,
                                                flash_attention_fwd,
                                                flash_attention_fwd_plain)
+from mme_tpu_torch.ops.resample import resample_numpy, resample_waveform
 from mme_tpu_torch.ops.video import normalize_uint8_video
 from mme_tpu_torch.serve import Predictor, export_bundle, load_bundle
 from mme_tpu_torch.serve_http import PredictionService, make_server
 from mme_tpu_torch.time_layer_norm import (classifier_ln_sites,
-                                           fused_ln_shapes, fused_ln_sites)
+                                           fused_ln_shapes, fused_ln_sites,
+                                           ln_sites)
 from mme_tpu_torch.train.build_tav import (build_tav, example_tav_batch,
                                            make_video_keep_transform)
 from mme_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
@@ -386,6 +446,9 @@ LAUNCHES_PER_CHUNK = sum(n for *_, n in SERVED)   # 54
 # 16x224x224 clips (no key mask), VisualBERT's 70 tokens and 1 visual
 SLICE_ATTENTION = (("audio_base_160k", 499, True), ("videomae", 1568, False),
                    ("visualbert", 71, True))
+# the audio samples of phase 11's length buckets below the cap (the cap's
+# 499 frames are phase 10's): quarters of the CLI's 160 000
+BUCKET_SAMPLES = (40000, 80000, 120000)
 
 
 def ptxas_summary(log: str) -> dict:
@@ -463,6 +526,33 @@ def attention_inputs(B, Sq, Sk, H, D, dtype, masked_rows, seed):
     return q, qkv[:, :, 1], qkv[:, :, 2], bias
 
 
+def flash_fwd_hold(name, B, Sq, Sk, H, D, dtype, masked, has_bias,
+                   seed) -> float:
+    """K1 against its plain version on one case; raises if they disagree.
+    Returns max |O - O_plain|."""
+    q, k, v, bias = attention_inputs(B, Sq, Sk, H, D, dtype, masked, seed)
+    bias = bias if has_bias else None
+    o, lse = flash_attention_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, bias)
+    tol = TOL[dtype]
+    d = (o.float() - o_ref.float()).abs()
+    err = d.max().item()
+    excess = (d - tol["rtol"] * o_ref.float().abs()).max().item()
+    lse_err = ((lse - lse_ref).abs() / lse_ref.abs().clamp(min=1.0)
+               ).max().item()
+    finite = bool(torch.isfinite(o.float()).all())
+    print(f"flash_fwd {name:12s} {str(dtype)[6:]:8s} B={B} Sq={Sq} "
+          f"Sk={Sk} H={H} D={D} bias={has_bias} masked_rows={masked}: "
+          f"max|dO|={err:.3e}, max(|dO| - rtol|O|)={excess:.3e} "
+          f"(atol {tol['atol']}, rtol {tol['rtol']}); "
+          f"max rel dLSE={lse_err:.3e} (tol {tol['lse']})", flush=True)
+    if not (finite and excess <= tol["atol"] and lse_err <= tol["lse"]):
+        raise SystemExit(f"flash_fwd disagrees with its plain version "
+                         f"on case {name} {dtype}")
+    return err
+
+
 def check_flash(card: str):
     """Phase 3. Returns (max |O - O_plain| over all cases, per-shape
     results at the served bf16 shapes)."""
@@ -475,31 +565,12 @@ def check_flash(card: str):
         cases.append(("audio_base", 8, 299, 299, 12, 64, dtype, 1, True))
         cases += [(name, 8, s, s, 12, 64, dtype, int(bias), bias)
                   for name, s, bias in SLICE_ATTENTION]
+        cases += [(name, 8, s, s, h, 64, dtype, 1, True)
+                  for samples in BUCKET_SAMPLES
+                  for name, s, h in bucket_attention(TAVSpec(), samples)]
         cases.append(("ragged_d128", 3, 100, 333, 4, 128, dtype, 1, True))
-    max_err = 0.0
-    for i, (name, B, Sq, Sk, H, D, dtype, masked, has_bias) in enumerate(
-            cases):
-        q, k, v, bias = attention_inputs(B, Sq, Sk, H, D, dtype, masked, i)
-        bias = bias if has_bias else None
-        o, lse = flash_attention_fwd(q, k, v, bias)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, bias)
-        tol = TOL[dtype]
-        d = (o.float() - o_ref.float()).abs()
-        err = d.max().item()
-        excess = (d - tol["rtol"] * o_ref.float().abs()).max().item()
-        lse_err = ((lse - lse_ref).abs() / lse_ref.abs().clamp(min=1.0)
-                   ).max().item()
-        finite = bool(torch.isfinite(o.float()).all())
-        print(f"flash_fwd {name:12s} {str(dtype)[6:]:8s} B={B} Sq={Sq} "
-              f"Sk={Sk} H={H} D={D} bias={has_bias} masked_rows={masked}: "
-              f"max|dO|={err:.3e}, max(|dO| - rtol|O|)={excess:.3e} "
-              f"(atol {tol['atol']}, rtol {tol['rtol']}); "
-              f"max rel dLSE={lse_err:.3e} (tol {tol['lse']})", flush=True)
-        if not (finite and excess <= tol["atol"] and lse_err <= tol["lse"]):
-            raise SystemExit(f"flash_fwd disagrees with its plain version "
-                             f"on case {name} {dtype}")
-        max_err = max(max_err, err)
+    max_err = max(flash_fwd_hold(*case, seed=i)
+                  for i, case in enumerate(cases))
 
     shapes = []
     for i, (name, B, S, H, n) in enumerate(SERVED):
@@ -540,6 +611,44 @@ def grads_close(got, want, dtype):
     return finite and worst <= 1.0, worst, worst_abs
 
 
+def flash_bwd_hold(name, B, Sq, Sk, H, D, dtype, masked, has_bias,
+                   sentinel, seed) -> float:
+    """K2 against its plain version on one case (``sentinel``: the last
+    row's keys all at -inf); raises if they disagree. Returns the largest
+    |error| of dQ, dK, dV."""
+    q, k, v, bias = attention_inputs(B, Sq, Sk, H, D, dtype, masked, seed)
+    bias = bias if has_bias else None
+    if sentinel:
+        bias = bias.clone()
+        bias[-1] = float("-inf")       # every score -inf in this row
+    g = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    got = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    again = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, bias, out, lse, do)
+    ok, share, err = grads_close(got, want, dtype)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    # a row masked by bias keeps the uniform P (dV not zero); a sentinel row
+    # gets no gradient at all
+    masked_dv = got[2][0].float().abs().max().item() if masked else None
+    dead = (all(bool((x[-1] == 0).all()) for x in got) if sentinel
+            else None)
+    print(f"flash_bwd {name:12s} {str(dtype)[6:]:8s} B={B} Sq={Sq} "
+          f"Sk={Sk} H={H} D={D} bias={has_bias} masked_rows={masked}: "
+          f"max|dgrad|={err:.3e} = {share:.3f} of tolerance "
+          f"({BWD_TOL[dtype]} of max|grad|); two runs equal {same}; "
+          f"max|dV| of the masked row {masked_dv}; sentinel row zero "
+          f"{dead}", flush=True)
+    if not (ok and same and (masked_dv is None or sentinel
+                             or masked_dv > 0)
+            and dead is not False):
+        raise SystemExit(f"flash_bwd disagrees with its plain version "
+                         f"on case {name} {dtype}")
+    return err
+
+
 def check_flash_bwd(card: str):
     """Phase 3, K2. Returns (max |error| over all cases, per-shape results
     at the bf16 model shapes)."""
@@ -553,43 +662,14 @@ def check_flash_bwd(card: str):
                       False))
         cases += [(name, 8, s, s, 12, 64, dtype, int(bias), bias, False)
                   for name, s, bias in SLICE_ATTENTION]
+        cases += [(name, 8, s, s, h, 64, dtype, 1, True, False)
+                  for samples in BUCKET_SAMPLES
+                  for name, s, h in bucket_attention(TAVSpec(), samples)]
         cases.append(("ragged_d128", 3, 100, 333, 4, 128, dtype, 1, True,
                       False))
         cases.append(("sentinel", 3, 130, 130, 4, 64, dtype, 1, True, True))
-    max_err = 0.0
-    for i, (name, B, Sq, Sk, H, D, dtype, masked, has_bias,
-            sentinel) in enumerate(cases):
-        q, k, v, bias = attention_inputs(B, Sq, Sk, H, D, dtype, masked, i)
-        bias = bias if has_bias else None
-        if sentinel:
-            bias = bias.clone()
-            bias[-1] = float("-inf")       # every score -inf in this row
-        g = torch.Generator(device="cuda").manual_seed(1000 + i)
-        do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
-        out, lse = flash_attention_fwd(q, k, v, bias)
-        got = flash_attention_bwd(q, k, v, bias, out, lse, do)
-        again = flash_attention_bwd(q, k, v, bias, out, lse, do)
-        torch.cuda.synchronize()
-        want = flash_attention_bwd_plain(q, k, v, bias, out, lse, do)
-        ok, share, err = grads_close(got, want, dtype)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        # a row masked by bias keeps the uniform P (dV not zero); a
-        # sentinel row gets no gradient at all
-        masked_dv = got[2][0].float().abs().max().item() if masked else None
-        dead = (all(bool((x[-1] == 0).all()) for x in got) if sentinel
-                else None)
-        print(f"flash_bwd {name:12s} {str(dtype)[6:]:8s} B={B} Sq={Sq} "
-              f"Sk={Sk} H={H} D={D} bias={has_bias} masked_rows={masked}: "
-              f"max|dgrad|={err:.3e} = {share:.3f} of tolerance "
-              f"({BWD_TOL[dtype]} of max|grad|); two runs equal {same}; "
-              f"max|dV| of the masked row {masked_dv}; sentinel row zero "
-              f"{dead}", flush=True)
-        if not (ok and same and (masked_dv is None or sentinel
-                                 or masked_dv > 0)
-                and dead is not False):
-            raise SystemExit(f"flash_bwd disagrees with its plain version "
-                             f"on case {name} {dtype}")
-        max_err = max(max_err, err)
+    max_err = max(flash_bwd_hold(*case, seed=i)
+                  for i, case in enumerate(cases))
 
     shapes = []
     for i, (name, B, S, H, n) in enumerate(SERVED):
@@ -816,6 +896,45 @@ def ln_case(n, h, xdtype, ydtype, seed, offset=0):
     return x, w, b, gy
 
 
+def ln_hold(n, h, xdt, ydt, seed, offset=0, eps=1e-5) -> Tuple[float,
+                                                                 float]:
+    """K4a and K4b against their plain versions on one case; raises if
+    they disagree. Returns (max |dy|, max |d(dx)|)."""
+    x, w, b, gy = ln_case(n, h, xdt, ydt, seed, offset)
+    y = fused_layer_norm_fwd(x, w, b, eps, ydt)
+    got = fused_layer_norm_bwd(gy, x, w, eps)
+    again = fused_layer_norm_bwd(gy, x, w, eps)
+    torch.cuda.synchronize()
+    y0 = fused_layer_norm_fwd_plain(x, w, b, eps, ydt)
+    want = fused_layer_norm_bwd_plain(gy, x, w, eps)
+
+    def excess(a, ref, dt):
+        atol, rtol = LN_TOL[dt]
+        d = (a.float() - ref.float()).abs()
+        return d.max().item(), (d - rtol * ref.float().abs()
+                                ).max().item() - atol
+
+    e_y, x_y = excess(y, y0, ydt)
+    e_dx, x_dx = excess(got[0], want[0], xdt)
+    sums = max(((a - r).abs().max() / r.abs().max().clamp(min=1e-12)
+                ).item() for a, r in zip(got[1:], want[1:]))
+    same = all(torch.equal(a, r) for a, r in zip(got, again))
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (y,) + tuple(got))
+    print(f"layer_norm N={n} H={h} x {str(xdt)[6:]} y {str(ydt)[6:]}"
+          f"{' (row-offset view)' if offset else ''}: "
+          f"max|dy|={e_y:.3e}, max|d(dx)|={e_dx:.3e} (atol, rtol "
+          f"{LN_TOL[ydt]}, {LN_TOL[xdt]}); dscale, dbias within "
+          f"{sums:.3e} of their largest element (tol {LN_SUM_RTOL}); "
+          f"two runs equal {same}", flush=True)
+    if not (finite and same and x_y <= 0 and x_dx <= 0
+            and sums <= LN_SUM_RTOL and y.dtype == ydt
+            and got[0].dtype == xdt):
+        raise SystemExit(f"fused layer norm disagrees with its plain "
+                         f"version at N={n} H={h} {xdt}")
+    return e_y, e_dx
+
+
 def check_layer_norm(spec: TAVSpec, card: str):
     """Phase 3, K4a and K4b. Returns the forward's and the backward's entry
     for the kernels line, times and bounds summed over the launches of one
@@ -825,47 +944,19 @@ def check_layer_norm(spec: TAVSpec, card: str):
               (2392, 768), (2392, 512),                      # wav2vec2-base
               (3992, 768), (3992, 512),           # at 160 000 samples
               (12544, 768),                                  # VideoMAE
+              # the 1 024-row gate: rows the module leaves to F.layer_norm
+              # (phase 11's 992-row audio sites) and just over
+              (992, 1024), (1023, 1024), (1024, 1024), (1025, 1024),
+              (1992, 1024), (992, 512),
               (3001, 768),                                   # one ragged N
               (1024, 8192)]                                  # the widest row
     cases = [(n, h, dt, dt, 0) for dt in (torch.bfloat16, torch.float32)
              for n, h in shapes]
     cases.append((2392, 1024, torch.float32, torch.bfloat16, 0))  # fp32 → bf16
     cases.append((2392, 1024, torch.bfloat16, torch.bfloat16, 8))  # row view
-    err_fwd = err_bwd = 0.0
-    for i, (n, h, xdt, ydt, offset) in enumerate(cases):
-        x, w, b, gy = ln_case(n, h, xdt, ydt, 400 + i, offset)
-        y = fused_layer_norm_fwd(x, w, b, eps, ydt)
-        got = fused_layer_norm_bwd(gy, x, w, eps)
-        again = fused_layer_norm_bwd(gy, x, w, eps)
-        torch.cuda.synchronize()
-        y0 = fused_layer_norm_fwd_plain(x, w, b, eps, ydt)
-        want = fused_layer_norm_bwd_plain(gy, x, w, eps)
-
-        def excess(a, ref, dt):
-            atol, rtol = LN_TOL[dt]
-            d = (a.float() - ref.float()).abs()
-            return d.max().item(), (d - rtol * ref.float().abs()
-                                    ).max().item() - atol
-
-        e_y, x_y = excess(y, y0, ydt)
-        e_dx, x_dx = excess(got[0], want[0], xdt)
-        sums = max(((a - r).abs().max() / r.abs().max().clamp(min=1e-12)
-                    ).item() for a, r in zip(got[1:], want[1:]))
-        same = all(torch.equal(a, r) for a, r in zip(got, again))
-        finite = all(bool(torch.isfinite(t.float()).all())
-                     for t in (y,) + tuple(got))
-        print(f"layer_norm N={n} H={h} x {str(xdt)[6:]} y {str(ydt)[6:]}"
-              f"{' (row-offset view)' if offset else ''}: "
-              f"max|dy|={e_y:.3e}, max|d(dx)|={e_dx:.3e} (atol, rtol "
-              f"{LN_TOL[ydt]}, {LN_TOL[xdt]}); dscale, dbias within "
-              f"{sums:.3e} of their largest element (tol {LN_SUM_RTOL}); "
-              f"two runs equal {same}", flush=True)
-        if not (finite and same and x_y <= 0 and x_dx <= 0
-                and sums <= LN_SUM_RTOL and y.dtype == ydt
-                and got[0].dtype == xdt):
-            raise SystemExit(f"fused layer norm disagrees with its plain "
-                             f"version at N={n} H={h} {xdt}")
-        err_fwd, err_bwd = max(err_fwd, e_y), max(err_bwd, e_dx)
+    errs = [ln_hold(n, h, xdt, ydt, 400 + i, offset)
+            for i, (n, h, xdt, ydt, offset) in enumerate(cases)]
+    err_fwd, err_bwd = (max(e) for e in zip(*errs))
 
     fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0}
     bwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0}
@@ -971,6 +1062,42 @@ def check_gemm_core(card: str):
           flush=True)
 
 
+def mlp_hold(name, n, h, f, dt, act, seed) -> Tuple[float, float]:
+    """K5a and K5b against their plain versions on one case; raises if
+    they disagree. Returns (max |d out|, the largest |error| of the five
+    gradients)."""
+    x, w1, b1, w2, b2, do = mlp_case(n, h, f, dt, seed)
+    out = fused_mlp_fwd(x, w1, b1, w2, b2, act)
+    got = fused_mlp_bwd(x, w1, b1, w2, do, act)
+    again = fused_mlp_bwd(x, w1, b1, w2, do, act)
+    torch.cuda.synchronize()
+    out0 = fused_mlp_fwd_plain(x, w1, b1, w2, b2, act)
+    want = fused_mlp_bwd_plain(x, w1, b1, w2, do, act)
+    shares, worst, err_fwd, err_bwd = {}, 0.0, 0.0, 0.0
+    names = ("out", "dx", "dw1", "db1", "dw2", "db2")
+    for key, a, ref in zip(names, (out,) + got, (out0,) + want):
+        tol = (MLP_BIAS_TOL if key.startswith("db") else MLP_TOL)[dt]
+        d = (a.float() - ref.float()).abs().max().item()
+        shares[key] = d / (tol * ref.float().abs().max().item())
+        if key == "out":
+            err_fwd = d
+        else:
+            err_bwd = max(err_bwd, d)
+        worst = max(worst, shares[key])
+    same = all(torch.equal(a, r) for a, r in zip(got, again))
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (out,) + got)
+    print(f"fused_mlp {name:9s} {str(dt)[6:]:8s} {act:8s} N={n} H={h} "
+          f"F={f}: error as a share of tolerance "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+          + f" (tol {MLP_TOL[dt]} of max, biases {MLP_BIAS_TOL[dt]}); "
+          f"two runs equal {same}", flush=True)
+    if not (finite and same and worst <= 1.0):
+        raise SystemExit(f"fused mlp disagrees with its plain version "
+                         f"on case {name} {dt} {act}")
+    return err_fwd, err_bwd
+
+
 def check_fused_mlp(spec: TAVSpec, card: str):
     """Phase 3, K5a and K5b. Returns the forward's and the backward's entry
     for the kernels line, summed over the 54 launches of one step."""
@@ -994,37 +1121,8 @@ def check_fused_mlp(spec: TAVSpec, card: str):
                                    (129, 768, 320, "relu"),
                                    (129, 1024, 256, "tanh"))]
     cases.append(("fp32_wide", 300, 768, 3072, torch.float32, "gelu"))
-    err_fwd = err_bwd = 0.0
-    for i, (name, n, h, f, dt, act) in enumerate(cases):
-        x, w1, b1, w2, b2, do = mlp_case(n, h, f, dt, 500 + i)
-        out = fused_mlp_fwd(x, w1, b1, w2, b2, act)
-        got = fused_mlp_bwd(x, w1, b1, w2, do, act)
-        again = fused_mlp_bwd(x, w1, b1, w2, do, act)
-        torch.cuda.synchronize()
-        out0 = fused_mlp_fwd_plain(x, w1, b1, w2, b2, act)
-        want = fused_mlp_bwd_plain(x, w1, b1, w2, do, act)
-        shares, worst = {}, 0.0
-        names = ("out", "dx", "dw1", "db1", "dw2", "db2")
-        for key, a, ref in zip(names, (out,) + got, (out0,) + want):
-            tol = (MLP_BIAS_TOL if key.startswith("db") else MLP_TOL)[dt]
-            d = (a.float() - ref.float()).abs().max().item()
-            shares[key] = d / (tol * ref.float().abs().max().item())
-            if key == "out":
-                err_fwd = max(err_fwd, d)
-            else:
-                err_bwd = max(err_bwd, d)
-            worst = max(worst, shares[key])
-        same = all(torch.equal(a, r) for a, r in zip(got, again))
-        finite = all(bool(torch.isfinite(t.float()).all())
-                     for t in (out,) + got)
-        print(f"fused_mlp {name:9s} {str(dt)[6:]:8s} {act:8s} N={n} H={h} "
-              f"F={f}: error as a share of tolerance "
-              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
-              + f" (tol {MLP_TOL[dt]} of max, biases {MLP_BIAS_TOL[dt]}); "
-              f"two runs equal {same}", flush=True)
-        if not (finite and same and worst <= 1.0):
-            raise SystemExit(f"fused mlp disagrees with its plain version "
-                             f"on case {name} {dt} {act}")
+    errs = [mlp_hold(*case, seed=500 + i) for i, case in enumerate(cases)]
+    err_fwd, err_bwd = (max(e) for e in zip(*errs))
 
     totals = [dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, nbytes=0)
               for _ in range(2)]
@@ -3371,6 +3469,505 @@ def zoo(card: str) -> dict:
     return launches
 
 
+# phase 11: the data path at full width. The CLI's audio cap; utterances
+# per split (the train split: 32 in each of the cap's four buckets, so that
+# epoch 0's draw with replacement, weighted by class, still gives every
+# bucket at least two full batches of 8); the
+# share of the cap each train bucket's lengths span (the last runs past the
+# cap); MELD's emotions; the knobs of the run; the decoded waves against
+# the numpy path (-ffast-math reorders the sums: a few fp32 ulps of waves
+# in [-1, 1])
+DATA_CAP = 160000
+DATA_SPLITS = (("train", 128), ("val", 8), ("test", 8))
+DATA_SPANS = ((0.15, 0.235), (0.265, 0.485), (0.515, 0.735), (0.765, 1.1))
+MELD = ("neutral", "joy", "sadness", "anger", "surprise", "fear", "disgust")
+DATA_ENV = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1",
+            "MME_FUSED_LN": "1", "MME_FUSED_MLP": "1", "MME_DTYPE": "bf16"}
+WAVE_ATOL = 1e-5
+DATA_WORKERS = 8
+
+
+def audio_frames(spec: TAVSpec, samples: int) -> int:
+    """Frames of the audio tower's conv stack over ``samples``."""
+    frames = samples
+    for k, st in zip(spec.audio.conv_kernels, spec.audio.conv_strides):
+        frames = (frames - k) // st + 1
+    return frames
+
+
+def bucket_attention(spec: TAVSpec, samples: int) -> tuple:
+    """(name, seq, heads) of the audio tower's and the fusion trunk's
+    attention at ``samples`` of audio (70 text tokens, the video tokens
+    kept)."""
+    frames = audio_frames(spec, samples)
+    return ((f"audio_{frames}", frames, spec.audio.encoder.heads),
+            (f"fusion_{70 + frames + spec.video_keep_k}",
+             70 + frames + spec.video_keep_k, spec.fusion.heads))
+
+
+def write_wav(path: str, samples: np.ndarray, rate: int, fmt) -> np.ndarray:
+    """samples [frames, channels] in [-1, 1] → a WAV file: 16-bit PCM
+    through stdlib ``wave``, 24-bit PCM and IEEE float32 (``"f32"``) with
+    a header written here. Returns the samples as the file holds them."""
+    ch = samples.shape[1]
+    if fmt == "f32":
+        held = samples.astype(np.float32)
+        data, code, bits = held.astype("<f4").tobytes(), 3, 32
+    else:
+        bits, code = fmt, 1
+        scale = 2.0 ** (bits - 1)
+        q = np.clip(np.round(samples * scale), -scale, scale - 1).astype(
+            np.int64)
+        held = (q / scale).astype(np.float32)
+        if bits == 16:
+            with wave.open(path, "wb") as w:
+                w.setnchannels(ch)
+                w.setsampwidth(2)
+                w.setframerate(rate)
+                w.writeframes(q.astype("<i2").tobytes())
+            return held
+        data = (q & 0xFFFFFF).astype("<u4").view(np.uint8).reshape(
+            -1, 4)[:, :3].tobytes()
+    block = ch * bits // 8
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
+                + b"fmt " + struct.pack("<IHHIIHH", 16, code, ch, rate,
+                                        rate * block, block, bits)
+                + b"data" + struct.pack("<I", len(data)) + data)
+    return held
+
+
+def write_utterances(directory: str, cap: int, seed: int) -> list:
+    """The phase's utterances, MELD's extraction format for most (48 kHz
+    stereo 16-bit) and a few 44.1 kHz mono, 24-bit and float32 files:
+    one dict per file with its split, path, seconds, format and the numpy
+    path's wave at 16 kHz (the samples as written, their channel mean,
+    ``resample_numpy``)."""
+    rng = np.random.default_rng(seed)
+    plan = []
+    for split, n in DATA_SPLITS:
+        for i in range(n):
+            lo, hi = (DATA_SPANS[i % 4] if split == "train"
+                      else (DATA_SPANS[0][0], DATA_SPANS[-1][1]))
+            plan.append((split, rng.uniform(lo, hi) * cap / 16000))
+    files = []
+    for i, (split, seconds) in enumerate(plan):
+        rate, ch, fmt = ((44100, 1, 16) if i % 9 == 4 else
+                         (48000, 2, 24) if i % 11 == 5 else
+                         (48000, 1, "f32") if i % 13 == 6 else
+                         (48000, 2, 16))
+        n = int(seconds * rate)
+        t = np.arange(n) / rate
+        x = (0.4 * np.sin(2 * np.pi * rng.uniform(100, 400) * t)[:, None]
+             + 0.1 * rng.standard_normal((n, ch)))
+        path = os.path.join(directory, f"utt{i:03d}.wav")
+        held = write_wav(path, np.clip(x, -1, 1), rate, fmt)
+        files.append({"split": split, "path": path, "seconds": n / rate,
+                      "rate": rate, "channels": ch, "format": fmt,
+                      "want": resample_numpy(held.mean(axis=1), rate,
+                                             16000)})
+    return files
+
+
+def decode_check(files: list, card: str) -> dict:
+    """Phase 11 (3): every file through ``load_waveforms_parallel`` on the
+    native library, against the numpy path."""
+    paths = [f["path"] for f in files]
+    before = wavio.FALLBACKS
+    t = time.perf_counter()
+    native = load_waveforms_parallel(paths, 16000, workers=DATA_WORKERS)
+    wall = time.perf_counter() - t
+    fallbacks = wavio.FALLBACKS - before
+    if any(g.shape != f["want"].shape for g, f in zip(native, files)):
+        raise SystemExit("phase 11: a decoded wave has the wrong length")
+    audio_s = sum(f["seconds"] for f in files)
+    out = {"files": len(files), "audio_seconds": audio_s,
+           "formats": sorted({f"{f['rate']} Hz x{f['channels']} "
+                              f"{f['format']}" for f in files}),
+           "max_abs_err": max(float(np.abs(g - f["want"]).max())
+                              for g, f in zip(native, files)),
+           "tol": WAVE_ATOL, "fallbacks": fallbacks,
+           "workers": DATA_WORKERS, "native_s": wall,
+           "utt_per_s": len(files) / wall, "audio_s_per_s": audio_s / wall,
+           "rates_on": f"the host CPU of the card's machine "
+                       f"({os.cpu_count()} cores)", "card": card}
+    print(json.dumps({"data_decode": out}), flush=True)
+    if not (fallbacks == 0 and out["max_abs_err"] <= WAVE_ATOL):
+        raise SystemExit("phase 11: WAV decode failed its checks")
+    return out
+
+
+def resample_check(card: str) -> dict:
+    """Phase 11 (4): ``resample_waveform`` on the card, 48 kHz → 16 kHz over
+    [8, 288 000], against ``resample_numpy`` row by row."""
+    g = np.random.default_rng(SEED + 110)
+    x = np.clip(0.4 * g.standard_normal((8, 288000)), -1, 1).astype(
+        np.float32)
+    xt = torch.from_numpy(x).cuda()
+    y = resample_waveform(xt, 48000, 16000)
+    want = np.stack([resample_numpy(r, 48000, 16000) for r in x])
+    e = float(np.abs(y.cpu().numpy() - want).max())
+    out = {"shape": list(x.shape), "out_shape": list(y.shape),
+           "max_abs_err": e, "tol": WAVE_ATOL,
+           "ms": cuda_ms(lambda: resample_waveform(xt, 48000, 16000)),
+           "card": card}
+    print(json.dumps({"data_resample": out}), flush=True)
+    if not (tuple(y.shape) == want.shape and e <= WAVE_ATOL):
+        raise SystemExit("phase 11: resample_waveform on the card disagrees "
+                         "with resample_numpy")
+    return out
+
+
+def data_records(files: list, spec: TAVSpec, cap: int, text_len: int,
+                 seed: int):
+    """Phase 11 (5): TAV records per split through
+    ``records.build_tav_dataset`` as ``cli/tav_nn``'s pickle branch builds
+    them, on a mapping of columns in place of the frame (the card's machine
+    has no pandas): text hash-tokenized (``get_tokenizer(None, ...)`` on
+    purpose), audio through ``load_audio_bucket`` at the cap, MELD emotion
+    strings with the label map ``build_label_map`` makes over every row,
+    dialogs of 8; then uint8 video drawn from ``seed`` in place of the zero
+    clips the builder gives rows without a video column. Returns (train,
+    val, test, id→name map)."""
+    rng = np.random.default_rng(seed)
+    vocab = ("i you we it that what no yes oh okay really so just know "
+             "think right well hey wait come on".split())
+    split = np.array([f["split"] for f in files])
+    frame = {"text": np.array([" ".join(rng.choice(vocab,
+                                                   rng.integers(3, 30)))
+                               for _ in files]),
+             "audio_path": np.array([f["path"] for f in files]),
+             "emotion": np.array([MELD[i % 7] if i < 7 else
+                                  MELD[rng.integers(7)]
+                                  for i in range(len(files))])}
+    rcfg = PickleDatasetConfig(text_max_len=text_len, audio_max_samples=cap,
+                               video_uint8=True,
+                               label_map=build_label_map(frame, "emotion"))
+    tok = get_tokenizer(None, spec.text.vocab_size)
+    out = []
+    for name, _ in DATA_SPLITS:
+        rows = split == name
+        part = {k: col[rows] for k, col in frame.items()}
+        part["dialog"] = np.arange(rows.sum()) // 8
+        ds = build_tav_dataset(part, rcfg, spec.video.num_frames,
+                               spec.video.image_size, tokenizer=tok)
+        video = ds.features["video"]
+        video[:] = rng.integers(0, 256, video.shape, dtype=np.uint8)
+        out.append(ds)
+    return (*out, invert_label_map(rcfg.label_map))
+
+
+def data_path_run(files: list, device: str, directory: str) -> dict:
+    """Phase 11 (5)-(6) on ``device`` (the CPU runs it at the tiny size,
+    with ``MME_TINY`` set): the records, then ``cli/tav_nn``'s model and
+    ``train`` as its pickle branch runs them (length buckets on, one epoch
+    and the test pass, ``MME_PREDICT_OUT``) on a config whose checkpoints
+    go to ``directory``. A hook on the model's forward records, for every
+    train step and eval batch, its mode, rows, audio samples, the kernel
+    launches so far and, on the card, the time after a synchronize.
+    Checks all but the launch counts and returns what it recorded."""
+    cfg = ExperimentConfig(batch_size=8, epoch=1, output_dim=7, seed=SEED,
+                           dataset="meld.pkl", checkpoint_dir=directory)
+    spec, cap, text_len = tav_nn.tav_spec(cfg)
+    t = time.perf_counter()
+    train_ds, val_ds, test_ds, id2label = data_records(files, spec, cap,
+                                                       text_len, SEED + 111)
+    records_s = time.perf_counter() - t
+    model = tav_nn.build_model(cfg, spec, device)
+    cuda = torch.device(device).type == "cuda"
+    calls, finite = [], []
+
+    def pre(module, args):
+        if cuda:
+            torch.cuda.synchronize()
+        wave_ = args[0]["waveform"]
+        calls.append({"train": module.training, "rows": int(wave_.shape[0]),
+                      "samples": int(wave_.shape[1]),
+                      "t": time.perf_counter(),
+                      "launches": dict(kernels.LAUNCHES)})
+
+    def post(module, args, out):
+        finite.append(bool(torch.isfinite(out).all()))
+
+    hooks = (model.register_forward_pre_hook(pre),
+             model.register_forward_hook(post))
+    predict_out = os.path.join(directory, "predictions.jsonl")
+    os.environ["MME_PREDICT_OUT"] = predict_out
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        summary = tav_nn.train(cfg, model, spec, cap, train_ds, val_ds,
+                               test_ds, id2label, bucketed=True,
+                               device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        end = {"t": time.perf_counter(), "launches": dict(kernels.LAUNCHES)}
+        run_s = end["t"] - t
+    finally:
+        del os.environ["MME_PREDICT_OUT"]
+        for h in hooks:
+            h.remove()
+    for a, b in zip(calls, calls[1:] + [end]):
+        a["ms"] = (b["t"] - a["t"]) * 1e3
+        a["delta"] = {k: v - a["launches"].get(k, 0)
+                      for k, v in b["launches"].items()}
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    with open(predict_out) as f:
+        rows = [json.loads(line) for line in f]
+    losses = {k: d[k] for d in logs for k in ("train/loss", "val/loss",
+                                              "test/loss") if k in d}
+    bounds = make_bucket_iter(cap).bucket_bounds
+    steps = [c for c in calls if c["train"]]
+    out = {"cap": cap, "text_len": text_len, "bounds": list(bounds),
+           "records_s": records_s,
+           "run_s": run_s, "losses": losses,
+           "splits": [len(train_ds), len(val_ds), len(test_ds)],
+           "steps": len(steps), "eval_batches": len(calls) - len(steps),
+           "step_samples": [c["samples"] for c in steps],
+           "bounds_fed": sorted({c["samples"] for c in calls}),
+           "prediction_rows": len(rows), "id2label": id2label,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                       else None)}
+    # train/loss is the mean over every step of the epoch (log_val is past
+    # the epoch's end): cross-entropy is never negative, so the mean is
+    # finite only if every step's loss is
+    ok = (all(np.isfinite(v) for v in losses.values()) and len(losses) == 3
+          and all(finite) and len(finite) == len(calls)
+          and all(c["samples"] in bounds for c in calls)
+          and all(sum(c["samples"] == b for c in steps) >= 2
+                  for b in bounds)
+          and len(rows) == len(test_ds)
+          and all(r["label"] == id2label[r["pred"]] for r in rows))
+    if not ok:
+        print(json.dumps({"data_path_failed": out}), flush=True)
+        raise SystemExit("phase 11: the bucketed training run failed its "
+                         "checks")
+    return {**out, "calls": calls, "launches": end["launches"]}
+
+
+def expected_launches(spec: TAVSpec, call: dict) -> dict:
+    """The kernel launches of one forward (eval) or one train step (forward,
+    backward and the fused Adam update) at the batch actually fed, with
+    every knob on."""
+    n_ln = sum(fused_ln_sites(ln_sites(spec, call["rows"],
+                                       samples=call["samples"])).values())
+    fwd = {"flash_fwd": LAUNCHES_PER_CHUNK,
+           "fused_mlp_fwd": LAUNCHES_PER_CHUNK, "layer_norm_fwd": n_ln}
+    if not call["train"]:
+        return {**fwd, "flash_bwd": 0, "fused_mlp_bwd": 0,
+                "layer_norm_bwd": 0, "adam_update": 0}
+    return {**fwd, "flash_bwd": LAUNCHES_PER_CHUNK,
+            "fused_mlp_bwd": LAUNCHES_PER_CHUNK, "layer_norm_bwd": n_ln,
+            "adam_update": 1}
+
+
+def bucket_holds(spec: TAVSpec, fed, text_len: int, card: str) -> None:
+    """Phase 11 (8): every kernel of the run against its plain version at
+    the shapes the run fed it. For each (rows, audio samples) of a train
+    step or eval batch: K1/K2 at the four towers' attention in bf16, the
+    run's type (phase 3 holds both types at batch 8 below the cap); K4a/
+    K4b at every LayerNorm shape the spec sends to the kernel and K5a/K5b
+    at the four towers' MLPs, each in bf16 and fp32; phase 3's
+    tolerances. Raises on the first disagreement."""
+    v = spec.video
+    attention, ln, mlp = set(), set(), set()
+    for rows, samples in sorted(fed):
+        frames = audio_frames(spec, samples)
+        attention |= {
+            (rows, text_len, spec.text.encoder.heads, True),
+            (rows, frames, spec.audio.encoder.heads, True),
+            (rows, v.num_patches - spec.video_keep_k, v.encoder.heads, False),
+            (rows, text_len + frames + spec.video_keep_k, spec.fusion.heads,
+             True)}
+        ln |= set(fused_ln_sites(ln_sites(spec, rows, text_len, samples)))
+        mlp |= {(n, h, f) for _, n, h, f, _ in
+                mlp_shapes(spec, rows, text_len, samples)}
+    t = time.perf_counter()
+    errs = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    for i, (b, s, h, masked) in enumerate(sorted(attention)):
+        case = ("data_path", b, s, s, h, 64, torch.bfloat16, int(masked),
+                masked)
+        errs["flash_fwd"] = max(errs["flash_fwd"],
+                                flash_fwd_hold(*case, seed=3000 + i))
+        errs["flash_bwd"] = max(errs["flash_bwd"],
+                                flash_bwd_hold(*case, False, seed=3000 + i))
+    dtypes = (torch.bfloat16, torch.float32)
+    ln_errs = [ln_hold(n, h, dt, dt, 3100 + i)
+               for i, (n, h) in enumerate(sorted(ln)) for dt in dtypes]
+    mlp_errs = [mlp_hold("data_path", n, h, f, dt, "gelu", 3200 + i)
+                for i, (n, h, f) in enumerate(sorted(mlp)) for dt in dtypes]
+    for key, e in (("layer_norm", ln_errs), ("fused_mlp", mlp_errs)):
+        errs[f"{key}_fwd"], errs[f"{key}_bwd"] = (max(x) for x in zip(*e))
+    print(json.dumps({"data_path_holds": {
+        "fed": sorted(fed), "attention_shapes": len(attention),
+        "layer_norm_shapes": sorted(ln), "mlp_shapes": sorted(mlp),
+        "max_abs_err": errs, "s": time.perf_counter() - t, "card": card}}),
+        flush=True)
+
+
+def bucket_kernel_shapes(spec: TAVSpec, bounds, card: str) -> dict:
+    """Phase 11 (8): K1/K2 at each bucket's attention shapes and K4a/K4b at
+    each LayerNorm shape of its train step that reaches the kernel (batch
+    8, bf16), each timed once beside its plain version and the library
+    call, with its bound; then per bucket the sums over one step's
+    launches (6 text, 24 audio, 12 video and 12 fusion attention layers;
+    the spec's LayerNorm sites)."""
+    v = spec.video
+    attention = {("text", 70, spec.text.encoder.heads, True): 6,
+                 ("video", v.num_patches - spec.video_keep_k,
+                  v.encoder.heads, False): 12}
+    ln = {b: fused_ln_sites(ln_sites(spec, 8, samples=b)) for b in bounds}
+    rows = {"flash": {}, "layer_norm": {}}
+    for bound in bounds:
+        (_, s_a, h_a), (_, s_f, h_f) = bucket_attention(spec, bound)
+        for key in (("audio", s_a, h_a, True), ("fusion", s_f, h_f, True),
+                    *attention):
+            if key in rows["flash"]:
+                continue
+            name, s, h, masked = key
+            q, k_, v_, bias = attention_inputs(8, s, s, h, 64,
+                                               torch.bfloat16, 0, s + h)
+            bias = bias if masked else None
+            mask = None if bias is None else bias.to(q.dtype)[:, None,
+                                                              None, :]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k_, v_))
+            do = torch.randn(8, s, h, 64, device="cuda").to(torch.bfloat16)
+            out, lse = flash_attention_fwd(q, k_, v_, bias)
+            leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            (_, _, fbound, fby), (_, _, bbound, bby) = flash_bounds(
+                8, s, s, h, 64, 2, masked)
+            rows["flash"][key] = {
+                "tower": name, "B": 8, "S": s, "H": h, "key_mask": masked,
+                "fwd_ms": cuda_ms(lambda: flash_attention_fwd(q, k_, v_,
+                                                              bias)),
+                "fwd_plain_ms": cuda_ms(lambda: flash_attention_fwd_plain(
+                    q, k_, v_, bias), iters=5),
+                "fwd_library_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask)),
+                "fwd_bound_ms": fbound, "fwd_bound_by": fby,
+                "bwd_ms": cuda_ms(lambda: flash_attention_bwd(
+                    q, k_, v_, bias, out, lse, do)),
+                "bwd_plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
+                    q, k_, v_, bias, out, lse, do), iters=3, warmup=1),
+                "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
+                    o_lib, leaves, do.transpose(1, 2), retain_graph=True)),
+                "bwd_bound_ms": bbound, "bwd_bound_by": bby}
+            del o_lib, leaves
+    for n, h in sorted(set().union(*ln.values())):
+        x, w, b, gy = ln_case(n, h, torch.bfloat16, torch.bfloat16, n % 997)
+        lx, lw, lb = (t.detach().to(torch.bfloat16).requires_grad_()
+                      for t in (x, w, b))
+        ly = F.layer_norm(lx, (h,), lw, lb, 1e-5)
+        (_, _, fbound, _), (_, _, bbound, _) = ln_bounds(n, h, 2)
+        rows["layer_norm"][(n, h)] = {
+            "N": n, "H": h,
+            "launches_per_step": {str(bnd): ln[bnd].get((n, h), 0)
+                                  for bnd in bounds},
+            "fwd_ms": cuda_ms(lambda: fused_layer_norm_fwd(
+                x, w, b, 1e-5, torch.bfloat16)),
+            "fwd_plain_ms": cuda_ms(lambda: fused_layer_norm_fwd_plain(
+                x, w, b, 1e-5, torch.bfloat16), iters=5),
+            "fwd_library_ms": cuda_ms(lambda: F.layer_norm(
+                x, (h,), lw, lb, 1e-5)),
+            "fwd_bound_ms": fbound,
+            "bwd_ms": cuda_ms(lambda: fused_layer_norm_bwd(gy, x, w, 1e-5)),
+            "bwd_plain_ms": cuda_ms(lambda: fused_layer_norm_bwd_plain(
+                gy, x, w, 1e-5), iters=5),
+            "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
+                ly, (lx, lw, lb), gy, retain_graph=True)),
+            "bwd_bound_ms": bbound, "bound_by": "bytes"}
+        del ly, lx
+
+    times = ("ms", "plain_ms", "library_ms", "bound_ms")
+    per_step = {}
+    for bound in bounds:
+        (_, s_a, h_a), (_, s_f, h_f) = bucket_attention(spec, bound)
+        layers = {("audio", s_a, h_a, True): 24, ("fusion", s_f, h_f, True):
+                  12, **attention}
+        step = {}
+        for kernel, table, counts in (
+                ("flash", rows["flash"], layers),
+                ("layer_norm", rows["layer_norm"], ln[bound])):
+            for d in ("fwd", "bwd"):
+                step[f"{kernel}_{d}"] = {
+                    t: sum(table[k][f"{d}_{t}"] * c
+                           for k, c in counts.items()) for t in times}
+        per_step[str(bound)] = step
+    out = {"flash": list(rows["flash"].values()),
+           "layer_norm": list(rows["layer_norm"].values()),
+           "per_step": per_step}
+    print(json.dumps({"data_path_kernel_shapes": out, "card": card}),
+          flush=True)
+    return out
+
+
+def data_path(card: str) -> dict:
+    """Phase 11. Returns the run's launches by kernel and one train step's
+    by bucket."""
+    t0 = time.perf_counter()
+    lib, cmd = wavio.build_library()
+    print(f"phase 11: WAV decoder {lib}: "
+          + (f"built in {time.perf_counter() - t0:.2f} s by {' '.join(cmd)}"
+             if cmd else "built before this run"), flush=True)
+    directory = tempfile.mkdtemp(prefix="mme_data_")
+    try:
+        t = time.perf_counter()
+        files = write_utterances(directory, DATA_CAP, SEED + 112)
+        print(f"phase 11: wrote {len(files)} WAV files in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        decode = decode_check(files, card)
+        resample_check(card)
+        for f in files:
+            del f["want"]
+        os.environ.update(DATA_ENV)
+        try:
+            run = data_path_run(files, "cuda", directory)
+        finally:
+            for k in DATA_ENV:
+                del os.environ[k]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    spec = TAVSpec(output_dim=7)
+    per_bucket, bad = {}, []
+    for c in run["calls"]:
+        want = expected_launches(spec, c)
+        got = {k: c["delta"].get(k, 0) for k in want}
+        if got != want:
+            bad.append({"call": {k: c[k] for k in ("train", "rows",
+                                                   "samples")},
+                        "launches": got, "expected": want})
+        if c["train"]:
+            b = per_bucket.setdefault(c["samples"], {"ms": [],
+                                                     "launches": got})
+            b["ms"].append(c["ms"])
+    for b in per_bucket.values():
+        # a bucket's first step also pays cuDNN's choice of conv algorithm
+        # for its shape; the steady figure is the median of the others
+        b["first_ms"] = b["ms"][0]
+        b["steady_ms"] = float(np.median(b["ms"][1:]))
+    print(json.dumps({"data_path": {
+        **{k: v for k, v in run.items() if k != "calls"},
+        "decode_utt_per_s": decode["utt_per_s"],
+        "per_bucket": {str(k): v for k, v in sorted(per_bucket.items())},
+        "launch_mismatches": bad, "phase_s": time.perf_counter() - t0,
+        "card": card}}), flush=True)
+    if bad:
+        raise SystemExit("phase 11: a step launched other kernels than its "
+                         "shape asks for")
+    bucket_holds(spec, {(c["rows"], c["samples"]) for c in run["calls"]},
+                 run["text_len"], card)
+    bucket_kernel_shapes(spec, run["bounds"], card)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": run["launches"],
+            "per_step": {b: v["launches"] for b, v in per_bucket.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3425,17 +4022,24 @@ def main() -> int:
     w2v = slice_models(card)
     torch.cuda.empty_cache()
     zoo_launches = zoo(card)
+    torch.cuda.empty_cache()
+    data = data_path(card)
 
     def family_launches(name):
         """launches_<model> of phases 8, 9 and 10: one served chunk with
         both knobs on for a forward kernel, one bf16 train step with every
         knob on for the others (the MTL's fp32 step; 0 for a model without
-        a train leg)."""
+        a train leg); phase 11's whole run and one of its train steps per
+        bucket bound."""
         leg = "serve" if name.endswith("_fwd") else "step"
         out = {f"launches_{m}": family[m][leg].get(name, 0) for m in FAMILY}
         out["launches_wav2vec2_base"] = w2v[leg].get(name, 0)
         out.update({f"launches_{m}": zoo_launches[m][leg].get(name, 0)
                     for m in ZOO})
+        out["launches_data_path"] = data["launches"].get(name, 0)
+        out["launches_data_path_step"] = {
+            str(bound): step.get(name, 0)
+            for bound, step in sorted(data["per_step"].items())}
         return out
 
     def entry(name, route, source, replaces, result):

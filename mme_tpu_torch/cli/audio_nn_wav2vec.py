@@ -6,7 +6,11 @@ Port of ``mme_tpu/cli/audio_nn_wav2vec.py``: ``Wav2Vec2Classifier`` on
 ``cli/common.py::run_classifier`` with length buckets
 (``make_bucket_iter``, ``MME_BUCKETS``). ``--dataset synthetic`` (or
 ``MME_TINY``) shrinks the tower to JAX's tiny spec (three 32-wide convs, a
-2-layer 64-wide encoder) over 4 000-sample waveforms. Runs on the card::
+2-layer 64-wide encoder) over 4 000-sample waveforms. ``--dataset
+<name>.pkl`` reads a pickled frame of the records contract
+(``data/records.py``): rows with ``audio_shape`` up to 10 000 are dropped
+before the label map is built over the frame, and the wav files are
+decoded natively and resampled to 16 kHz. Runs on the card::
 
     python -m mme_tpu_torch.cli.audio_nn_wav2vec --dataset synthetic -e 1 -b 8
 
@@ -14,8 +18,7 @@ and on the CPU only through ``main(argv, device="cpu")``. Weights are drawn
 from ``--seed`` (``convert.init_variables``). What the port lacks raises
 ``NotImplementedError`` before any work: ``MME_PRETRAINED`` with the
 full-size tower (JAX loads the pretrained tower there; ROADMAP Queue 1
-item 6) and a pickle dataset (item 3). A missing pickle raises
-``FileNotFoundError``.
+item 6). A missing pickle raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from mme_tpu_torch.cli.common import (BatchModel, make_bucket_iter,
-                                      resolve_pickle, run_classifier)
+                                      pickle_splits, resolve_pickle,
+                                      run_classifier)
 from mme_tpu_torch.config import arg_parse, config_from_args
 from mme_tpu_torch.convert import from_flax, init_variables
+from mme_tpu_torch.data.records import PickleDatasetConfig, build_audio_dataset
 from mme_tpu_torch.data.synthetic import synthetic_audio_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
@@ -62,20 +67,24 @@ def main(argv: Optional[Sequence[str]] = None,
                                   "import (ROADMAP Queue 1 item 6)")
     pkl = resolve_pickle(cfg.dataset)
     if pkl is not None:
-        raise NotImplementedError(
-            f"dataset pickle {pkl!r}: reading records (data/records.py) is "
-            "not ported yet (ROADMAP Queue 1 item 3); use --dataset "
-            "synthetic")
-    mk = lambda n, s: synthetic_audio_dataset(
-        n, audio_len=audio_len, num_classes=cfg.output_dim, seed=s)
-    train_ds, val_ds, test_ds = mk(128, 0), mk(32, 1), mk(32, 2)
+        rcfg = PickleDatasetConfig(label_col=cfg.label_task,
+                                   audio_max_samples=audio_len,
+                                   min_audio_shape=10000, seed=cfg.seed)
+        train_ds, val_ds, test_ds, id2label = pickle_splits(
+            pkl, rcfg, lambda x: build_audio_dataset(x, rcfg), filtered=True)
+    else:
+        id2label = None
+        mk = lambda n, s: synthetic_audio_dataset(
+            n, audio_len=audio_len, num_classes=cfg.output_dim, seed=s)
+        train_ds, val_ds, test_ds = mk(128, 0), mk(32, 1), mk(32, 2)
 
     net = Wav2Vec2Classifier(spec, cfg.output_dim, cfg.dropout, device=dev)
     net.load_state_dict(from_flax(**init_variables(net, cfg.seed)),
                         strict=True)
     return run_classifier(
         cfg, BatchModel(net, ("waveform", "audio_mask")), train_ds, val_ds,
-        test_ds, batch_iter=make_bucket_iter(audio_len), device=dev)
+        test_ds, batch_iter=make_bucket_iter(audio_len), id2label=id2label,
+        device=dev)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@ evaluated run.
 
 Port of ``mme_tpu/cli/common.py``: ``label_names``, ``invert_label_map``,
 ``resolve_pickle``, ``print_log``, ``make_bucket_iter`` and
-``run_classifier``; and ``BatchModel``, the counterpart of the single-model
-CLIs' ``apply_fn``. ``run_classifier`` takes the port's ``nn.Module`` with
+``run_classifier``; ``pickle_splits``, the pickle branch the CLIs share;
+and ``BatchModel``, the counterpart of the single-model CLIs'
+``apply_fn``. ``run_classifier`` takes the port's ``nn.Module`` with
 its weights (and running statistics) loaded (JAX's takes ``apply_fn``, a
 parameter tree and ``batch_stats``) and builds the rest as JAX does: class
 and sample weights, AdamW over cosine warm restarts with the trainable mask, the state without an accumulation
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +34,8 @@ from torch import nn
 from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import factored_views
 from mme_tpu_torch.data.dataset import ArrayDataset, BucketedBatchIter
+from mme_tpu_torch.data.records import (PickleDatasetConfig, apply_filters,
+                                        build_label_map, split_dataframe)
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.evals.metrics import Metrics
 from mme_tpu_torch.serve import Predictor, export_bundle
@@ -96,6 +99,26 @@ def resolve_pickle(dataset: str) -> Optional[str]:
             f"dataset pickle {pkl!r} not found (--dataset {dataset!r}); "
             "use --dataset synthetic for random smoke data")
     return pkl
+
+
+def pickle_splits(pkl: str, rcfg: PickleDatasetConfig,
+                  build: Callable[[Any], ArrayDataset],
+                  filtered: bool = False):
+    """The pickle branch the CLIs share: read the frame (``pandas``,
+    imported here), apply ``records.apply_filters`` first when
+    ``filtered``, build the label map over the whole frame into
+    ``rcfg.label_map``, split it and ``build`` each split. Returns (train,
+    val, test, id→name map or None for integer labels)."""
+    import pandas as pd
+
+    df = pd.read_pickle(pkl)
+    if filtered:
+        df = apply_filters(df, rcfg)
+    # ids factorize over the FULL frame, so a class missing from one split
+    # cannot shift the ids of the later classes in it
+    rcfg.label_map = build_label_map(df, rcfg.label_col)
+    train, val, test = (build(x) for x in split_dataframe(df, rcfg))
+    return train, val, test, invert_label_map(rcfg.label_map)
 
 
 def print_log(d: Dict[str, Any]) -> None:

@@ -3,7 +3,13 @@
 Port of ``mme_tpu/cli/tav_nn.py``. ``--dataset synthetic`` (or
 ``MME_TINY``) trains the tiny-spec fusion stack end to end on generated
 MELD-shaped records, through the whole policy stack of ``train/loop.py``.
-Runs on the card::
+``--dataset <name>.pkl`` reads a pickled frame of the records contract
+(``data/records.py``): the label map over the whole frame, the split
+column, dialog ids, the hash tokenizer for a vocabulary other than
+50 265, uint8 video from keyframe directories (``MME_KEYFRAME_GLOB``, a
+``str.format`` pattern over the row's columns and ``{name}``) or from the
+clips, and length buckets on by default (``MME_BUCKETS``). Runs on the
+card::
 
     python -m mme_tpu_torch.cli.tav_nn --dataset synthetic -e 2 -b 8
 
@@ -16,24 +22,26 @@ PreFormer and the audio tower; ``MME_SCAN_LAYERS=1`` has no eager
 counterpart and changes nothing. ``-m`` picks the fusion model from
 ``models/fusion.py::FUSION_MODELS`` (an unknown name gives ``TAVModel``, as
 in JAX); ``-m TAVMoE`` trains with the MoE aux loss in the objective. What
-the port lacks raises ``NotImplementedError``: a pickle dataset (ROADMAP
-Queue 1 item 3), ``MME_SP`` / ``MME_PP`` above 1 (item 7) and
-``MME_PRETRAINED`` (item 6). A missing pickle raises ``FileNotFoundError``.
+the port lacks raises ``NotImplementedError``: ``MME_SP`` / ``MME_PP``
+above 1 (ROADMAP Queue 1 item 7) and ``MME_PRETRAINED`` (item 6). A missing
+pickle raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from mme_tpu_torch.cli.common import (make_bucket_iter, resolve_pickle,
-                                      run_classifier)
+from mme_tpu_torch.cli.common import (make_bucket_iter, pickle_splits,
+                                      resolve_pickle, run_classifier)
 from mme_tpu_torch.config import arg_parse, config_from_args
 from mme_tpu_torch.convert import from_flax, init_params
+from mme_tpu_torch.data.records import (PickleDatasetConfig,
+                                        build_tav_dataset, get_tokenizer)
 from mme_tpu_torch.data.synthetic import synthetic_tav_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.fusion import FUSION_MODELS, TAVSpec
@@ -51,19 +59,15 @@ def _refuse_unported() -> None:
                                   "import (ROADMAP Queue 1 item 6)")
 
 
-def main(argv: Optional[Sequence[str]] = None,
-         device: DeviceLike = "cuda") -> Dict[str, Any]:
-    dev = resolve_device(device)
-    args = arg_parse("tav_nn", argv)
-    cfg = config_from_args(args)
-    _refuse_unported()
-    np.random.seed(cfg.seed)
-
+def tav_spec(cfg) -> Tuple[TAVSpec, int, int]:
+    """(spec, audio samples, text tokens) of a run: ``--mask``, the tiny
+    spec for synthetic data or ``MME_TINY``, ``MME_DTYPE`` and
+    ``MME_SHARE_FRONTEND``."""
     spec = TAVSpec(output_dim=cfg.output_dim, dropout=cfg.dropout,
                    learn_pos_embeddings=cfg.learn_PosEmbeddings)
     if not cfg.mask:
         # --mask gates the masking augmentations: off → no SpecAugment and
-        # the fixed visual keep-mask below
+        # the fixed visual keep-mask of the batch transform
         spec = dataclasses.replace(spec, audio=dataclasses.replace(
             spec.audio, mask_time_prob=0.0, mask_feature_prob=0.0))
     audio_len = cfg.audio_max_samples
@@ -77,35 +81,79 @@ def main(argv: Optional[Sequence[str]] = None,
     if os.environ.get("MME_SHARE_FRONTEND", "0") == "1":
         spec = dataclasses.replace(spec, share_audio_frontend=True)
         print("shared audio frontend (tied conv stacks)", flush=True)
+    return spec, audio_len, text_len
 
-    pkl = resolve_pickle(cfg.dataset)
-    if pkl is not None:
-        raise NotImplementedError(
-            f"dataset pickle {pkl!r}: reading records (data/records.py) is "
-            "not ported yet (ROADMAP Queue 1 item 3); use --dataset "
-            "synthetic")
-    mk = lambda n, s: synthetic_tav_dataset(
-        spec, n, text_len=text_len, audio_len=audio_len,
-        num_classes=cfg.output_dim, seed=s)
-    train_ds, val_ds, test_ds = mk(64, 0), mk(16, 1), mk(16, 2)
 
-    # -m selects the fusion architecture; an unknown name falls back to
-    # TAVModel, as JAX's FUSION_MODELS.get(name, TAVModel) does
+def build_model(cfg, spec: TAVSpec, device: DeviceLike = "cuda"):
+    """``-m``'s fusion model (an unknown name gives ``TAVModel``, as JAX's
+    ``FUSION_MODELS.get(name, TAVModel)``) with weights drawn from
+    ``--seed``."""
     model_cls = FUSION_MODELS.get(cfg.model, FUSION_MODELS["MAE_encoder"])
-    model = model_cls(spec, device=dev)
+    model = model_cls(spec, device=device)
     model.load_state_dict(
         from_flax(init_params(spec, cfg.seed, model=cfg.model)), strict=True)
     if os.environ.get("MME_SCAN_LAYERS") == "1":
         print("MME_SCAN_LAYERS: no eager counterpart; layers run one by one "
               "with the same numbers", flush=True)
-    transform = make_video_keep_transform(spec, random_mask=cfg.mask)
-    batch_iter = make_bucket_iter(audio_len, default_on=pkl is not None)
+    return model
+
+
+def train(cfg, model, spec: TAVSpec, audio_len: int, train_ds, val_ds,
+          test_ds, id2label: Optional[Dict[int, str]] = None,
+          bucketed: bool = False,
+          device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """``run_classifier`` with the CLI's batch transform, trainable mask
+    and length buckets (``bucketed``: on unless ``MME_BUCKETS=off``;
+    otherwise only with ``MME_BUCKETS``)."""
     return run_classifier(
-        cfg, model, train_ds, val_ds, test_ds, batch_transform=transform,
+        cfg, model, train_ds, val_ds, test_ds,
+        batch_transform=make_video_keep_transform(spec,
+                                                  random_mask=cfg.mask),
         trainable_mask=modality_embedding_trainable_mask(
             model, spec.learn_pos_embeddings),
-        batch_iter=batch_iter, has_aux_loss=cfg.model == "TAVMoE",
-        device=dev)
+        batch_iter=make_bucket_iter(audio_len, default_on=bucketed),
+        id2label=id2label, has_aux_loss=cfg.model == "TAVMoE",
+        device=device)
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         device: DeviceLike = "cuda") -> Dict[str, Any]:
+    dev = resolve_device(device)
+    args = arg_parse("tav_nn", argv)
+    cfg = config_from_args(args)
+    _refuse_unported()
+    np.random.seed(cfg.seed)
+    spec, audio_len, text_len = tav_spec(cfg)
+
+    pkl = resolve_pickle(cfg.dataset)
+    if pkl is not None:
+        # uint8 video: 4x smaller records and host→device copies; the batch
+        # transform normalises on the device
+        rcfg = PickleDatasetConfig(label_col=cfg.label_task,
+                                   text_max_len=text_len,
+                                   audio_max_samples=audio_len,
+                                   seed=cfg.seed, video_uint8=True)
+        tok = get_tokenizer(
+            None if spec.text.vocab_size != 50265 else
+            "j-hartmann/emotion-english-distilroberta-base",
+            spec.text.vocab_size)
+        kf = os.environ.get("MME_KEYFRAME_GLOB")
+        train_ds, val_ds, test_ds, id2label = pickle_splits(
+            pkl, rcfg, lambda x: build_tav_dataset(
+                x, rcfg, spec.video.num_frames, spec.video.image_size,
+                tokenizer=tok, keyframe_glob=kf))
+    else:
+        id2label = None
+        mk = lambda n, s: synthetic_tav_dataset(
+            spec, n, text_len=text_len, audio_len=audio_len,
+            num_classes=cfg.output_dim, seed=s)
+        train_ds, val_ds, test_ds = mk(64, 0), mk(16, 1), mk(16, 2)
+
+    model = build_model(cfg, spec, dev)
+    # length buckets: on by default for a pickle's real lengths; synthetic
+    # records have one length
+    return train(cfg, model, spec, audio_len, train_ds, val_ds, test_ds,
+                 id2label, bucketed=pkl is not None, device=dev)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,12 @@ the file's vocabulary (``MME_GLOVE_MAX`` words, default 50 000) and vectors
 loaded into its table. The BERT model is the full DistilRoBERTa unless
 ``--dataset synthetic`` or ``MME_TINY`` shrink it (vocabulary 512, a
 2-layer 64-wide encoder). ``--dataset synthetic`` trains on 256 / 32 / 32
-generated records of ``text_max_len`` tokens. Runs on the card::
+generated records of ``text_max_len`` tokens; ``--dataset <name>.pkl`` on a
+pickled frame of the records contract (``data/records.py``), tokenized by
+the GloVe vocabulary with ``MME_GLOVE``, else by the hash tokenizer for a
+vocabulary other than 50 265, else by a tokenizer from local files (the
+hash tokenizer with a loud warning when none resolves). Runs on the
+card::
 
     python -m mme_tpu_torch.cli.text_nn --dataset synthetic -e 1 -b 8
     python -m mme_tpu_torch.cli.text_nn --dataset synthetic -m LSTM -e 1 -b 8
@@ -16,8 +21,7 @@ and on the CPU only through ``main(argv, device="cpu")``. Weights are drawn
 from ``--seed`` (``convert.init_variables``). What the port lacks raises
 ``NotImplementedError`` before any work: ``MME_PRETRAINED`` with the
 full-size BERT model (JAX loads the pretrained text tower there; ROADMAP
-Queue 1 item 6) and a pickle dataset (item 3). A missing pickle raises
-``FileNotFoundError``.
+Queue 1 item 6). A missing pickle raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -28,10 +32,14 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
-from mme_tpu_torch.cli.common import BatchModel, resolve_pickle, run_classifier
+from mme_tpu_torch.cli.common import (BatchModel, pickle_splits,
+                                      resolve_pickle, run_classifier)
 from mme_tpu_torch.config import arg_parse, config_from_args
 from mme_tpu_torch.convert import from_flax, init_variables
-from mme_tpu_torch.data.glove import load_glove_txt, set_embedding_table
+from mme_tpu_torch.data.glove import (load_glove_txt, set_embedding_table,
+                                      tokenize_with_vocab)
+from mme_tpu_torch.data.records import (PickleDatasetConfig,
+                                        build_text_dataset, get_tokenizer)
 from mme_tpu_torch.data.synthetic import synthetic_text_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.text import (BertClassifier, LSTMClassifier,
@@ -57,24 +65,20 @@ def main(argv: Optional[Sequence[str]] = None,
         raise NotImplementedError("MME_PRETRAINED needs the pretrained-weight "
                                   "import (ROADMAP Queue 1 item 6)")
     pkl = resolve_pickle(cfg.dataset)
-    if pkl is not None:
-        raise NotImplementedError(
-            f"dataset pickle {pkl!r}: reading records (data/records.py) and "
-            "tokenizing them are not ported yet (ROADMAP Queue 1 item 3); "
-            "use --dataset synthetic")
 
+    gvocab, table = None, None
     if lstm:
-        vocab, embed_dim, table = 5000, 300, None
+        vocab, embed_dim = 5000, 300
         glove_path = os.environ.get("MME_GLOVE")
         if glove_path and os.path.exists(glove_path):
-            _, table = load_glove_txt(
+            gvocab, table = load_glove_txt(
                 glove_path, int(os.environ.get("MME_GLOVE_MAX", "50000")))
             vocab, embed_dim = table.shape
         net = LSTMClassifier(vocab, embed_dim, num_layers=cfg.lstm_layers,
                              output_dim=cfg.output_dim, device=dev)
         inputs = ("input_ids",)
     else:
-        vocab, table = spec.vocab_size, None
+        vocab = spec.vocab_size
         net = BertClassifier(spec, cfg.output_dim, cfg.dropout, device=dev)
         inputs = ("input_ids", "text_mask")
     net.load_state_dict(from_flax(**init_variables(net, cfg.seed)),
@@ -84,12 +88,29 @@ def main(argv: Optional[Sequence[str]] = None,
         print(f"loaded GloVe vectors {table.shape} into LSTM embedding",
               flush=True)
 
-    mk = lambda n, s: synthetic_text_dataset(
-        vocab, n, text_len=cfg.text_max_len, num_classes=cfg.output_dim,
-        seed=s)
-    train_ds, val_ds, test_ds = mk(256, 0), mk(32, 1), mk(32, 2)
+    if pkl is not None:
+        if gvocab is not None:
+            def tok(text, max_length=70):
+                ids = tokenize_with_vocab([text], gvocab, max_length)[0]
+                return ids.tolist(), (ids != 0).astype(int).tolist()
+        else:
+            # the hash tokenizer must match the model's (maybe reduced) vocab
+            tok = get_tokenizer(
+                None if vocab != 50265 else
+                "j-hartmann/emotion-english-distilroberta-base", vocab)
+        rcfg = PickleDatasetConfig(label_col=cfg.label_task,
+                                   text_max_len=cfg.text_max_len,
+                                   seed=cfg.seed)
+        train_ds, val_ds, test_ds, id2label = pickle_splits(
+            pkl, rcfg, lambda x: build_text_dataset(x, rcfg, tok))
+    else:
+        id2label = None
+        mk = lambda n, s: synthetic_text_dataset(
+            vocab, n, text_len=cfg.text_max_len, num_classes=cfg.output_dim,
+            seed=s)
+        train_ds, val_ds, test_ds = mk(256, 0), mk(32, 1), mk(32, 2)
     return run_classifier(cfg, BatchModel(net, inputs), train_ds, val_ds,
-                          test_ds, device=dev)
+                          test_ds, id2label=id2label, device=dev)
 
 
 if __name__ == "__main__":

@@ -6,15 +6,19 @@ Port of ``mme_tpu/cli/visual_nn.py``. ``--dataset synthetic`` (or
 ``MME_TINY``) runs 8×64×64 clips and a (1, 1, 1, 1)-block SlowR50; else
 16×224×224 and (3, 4, 6, 3). SlowR50 trains its BatchNorms' running
 statistics through ``run_classifier`` (they ride in the train state and its
-checkpoints). Runs on the card::
+checkpoints). ``--dataset <name>.pkl`` reads a pickled frame of the
+records contract (``data/records.py``): each row's clip decoded by its
+``timings`` with the IEMOCAP speaker crop, or its keyframe directory when
+``MME_KEYFRAME_GLOB`` gives one (a ``str.format`` pattern over the row's
+columns and ``{name}``, the clip's basename). Runs on the card::
 
     python -m mme_tpu_torch.cli.visual_nn --dataset synthetic -m ResNet -e 1 -b 8
 
 and on the CPU only through ``main(argv, device="cpu")``. Weights are drawn
 from ``--seed`` (``convert.init_variables``). What the port lacks raises
-``NotImplementedError``: a pickle dataset (ROADMAP Queue 1 item 3) and, for
-``-m ResNet``, ``MME_PRETRAINED`` (the slow_r50 import, item 6). A missing
-pickle raises ``FileNotFoundError``.
+``NotImplementedError``: for ``-m ResNet``, ``MME_PRETRAINED`` (the
+slow_r50 import, ROADMAP Queue 1 item 6). A missing pickle raises
+``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -24,10 +28,12 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
-from mme_tpu_torch.cli.common import BatchModel, resolve_pickle, run_classifier
+from mme_tpu_torch.cli.common import (BatchModel, pickle_splits,
+                                      resolve_pickle, run_classifier)
 from mme_tpu_torch.config import arg_parse, config_from_args
 from mme_tpu_torch.convert import from_flax, init_variables
 from mme_tpu_torch.data.dataset import ArrayDataset
+from mme_tpu_torch.data.records import PickleDatasetConfig, build_video_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.video import Conv3DClassifier, SlowR50
 
@@ -55,24 +61,27 @@ def main(argv: Optional[Sequence[str]] = None,
     stages = (1, 1, 1, 1) if tiny else (3, 4, 6, 3)
     resnet = cfg.model.lower() == "resnet"
 
-    pkl = resolve_pickle(cfg.dataset)
-    if pkl is not None:
-        raise NotImplementedError(
-            f"dataset pickle {pkl!r}: reading records (data/records.py) is "
-            "not ported yet (ROADMAP Queue 1 item 3); use --dataset "
-            "synthetic")
     if resnet and os.environ.get("MME_PRETRAINED"):
         raise NotImplementedError("MME_PRETRAINED needs the slow_r50 weight "
                                   "import (ROADMAP Queue 1 item 6)")
-    mk = lambda n, s: synthetic_video(n, frames, size, cfg.output_dim, s)
-    train_ds, val_ds, test_ds = mk(64, 0), mk(16, 1), mk(16, 2)
+    pkl = resolve_pickle(cfg.dataset)
+    if pkl is not None:
+        rcfg = PickleDatasetConfig(label_col=cfg.label_task, seed=cfg.seed)
+        kf = os.environ.get("MME_KEYFRAME_GLOB")
+        train_ds, val_ds, test_ds, id2label = pickle_splits(
+            pkl, rcfg, lambda x: build_video_dataset(
+                x, rcfg, frames, size, keyframe_glob=kf))
+    else:
+        id2label = None
+        mk = lambda n, s: synthetic_video(n, frames, size, cfg.output_dim, s)
+        train_ds, val_ds, test_ds = mk(64, 0), mk(16, 1), mk(16, 2)
 
     net = (SlowR50(cfg.output_dim, stage_sizes=stages, device=dev) if resnet
            else Conv3DClassifier(cfg.output_dim, device=dev))
     net.load_state_dict(from_flax(**init_variables(net, cfg.seed)),
                         strict=True)
     return run_classifier(cfg, BatchModel(net, ("video",)), train_ds, val_ds,
-                          test_ds, device=dev)
+                          test_ds, id2label=id2label, device=dev)
 
 
 if __name__ == "__main__":

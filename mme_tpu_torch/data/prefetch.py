@@ -27,7 +27,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from mme_tpu_torch.device import DeviceLike
+from mme_tpu_torch.device import DeviceLike, resolve_device
 
 _SENTINEL = object()
 
@@ -40,13 +40,13 @@ def _to_cpu_tensor(v: Any) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(v))
 
 
-def prefetch_batches(it: Iterator[Batch], device: DeviceLike = "cpu",
+def prefetch_batches(it: Iterator[Batch], device: DeviceLike = "cuda",
                      depth: int = 2) -> Iterator[Batch]:
     """Wrap a (features, labels, mask, idx) iterator: the features arrive
     as tensors on ``device``, moved by a producer thread up to ``depth``
     batches ahead. An exception of the producer is raised in the consumer;
     the producer is a daemon thread and stops once the consumer is gone."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     cuda = dev.type == "cuda"
     if cuda and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -288,19 +288,17 @@ def test_audio_cli_runs_on_cpu(tmp_path, monkeypatch):
 
 
 def test_audio_cli_refusals(tmp_path, monkeypatch):
-    """What the port lacks raises before any work: a pickle (ROADMAP
-    Queue 1 item 3) and ``MME_PRETRAINED`` with the full-size tower (item
-    6); a missing pickle raises ``FileNotFoundError``. ``MME_PRETRAINED``
-    with the tiny tower changes nothing in JAX, and is not refused."""
+    """What the port lacks raises before any work: ``MME_PRETRAINED`` with
+    the full-size tower (ROADMAP Queue 1 item 6); a missing pickle raises
+    ``FileNotFoundError``. ``MME_PRETRAINED`` with the tiny tower changes
+    nothing in JAX, and is not refused. (A pickle is read:
+    tests/test_torch_pickle_cli.py.)"""
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "meld.pkl").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        audio_nn_wav2vec.main(["--dataset", "meld.pkl"], device="cpu")
     with pytest.raises(FileNotFoundError):
         audio_nn_wav2vec.main(["--dataset", "missing"], device="cpu")
     monkeypatch.setenv("MME_PRETRAINED", str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 6"):
         audio_nn_wav2vec.main(["--dataset", "missing"], device="cpu")
     monkeypatch.setenv("MME_TINY", "1")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        audio_nn_wav2vec.main(["--dataset", "meld.pkl"], device="cpu")
+    with pytest.raises(FileNotFoundError):
+        audio_nn_wav2vec.main(["--dataset", "missing"], device="cpu")

@@ -574,14 +574,11 @@ def test_cli_runs_on_cpu(cli, argv, tmp_path, monkeypatch):
 
 
 def test_cli_refusals(tmp_path, monkeypatch):
-    """What the port lacks raises before any work: ``visual_nn`` on a
-    pickle (ROADMAP Queue 1 item 3) and ``-m ResNet`` with
-    ``MME_PRETRAINED`` (item 6); a missing pickle raises
-    ``FileNotFoundError``."""
+    """What the port lacks raises before any work: ``visual_nn -m
+    ResNet`` with ``MME_PRETRAINED`` (ROADMAP Queue 1 item 6); a missing
+    pickle raises ``FileNotFoundError``. (A pickle is read:
+    tests/test_torch_pickle_cli.py.)"""
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "clips.pkl").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        visual_nn.main(["--dataset", "clips.pkl"], device="cpu")
     with pytest.raises(FileNotFoundError):
         visual_nn.main(["--dataset", "missing"], device="cpu")
     monkeypatch.setenv("MME_PRETRAINED", str(tmp_path))

@@ -164,17 +164,12 @@ def test_main_prints_reference_keyed_dicts(tmp_path, monkeypatch, capsys):
     ("env", "MME_DP", "item 7"), ("env", "MME_SP", "item 7"),
     ("env", "MME_PP", "item 7"), ("env", "MME_COORDINATOR", "item 7"),
     ("env", "MME_NUM_PROCESSES", "item 7"),
-    ("env", "MME_PRETRAINED", "item 6"),
-    ("pickle", "exists", "item 3")])
+    ("env", "MME_PRETRAINED", "item 6")])
 def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch):
-    kind, what, item = case
+    _, what, item = case
     monkeypatch.chdir(tmp_path)
     argv = ["--dataset", "synthetic", "-e", "1", "-b", "8"]
-    if kind == "env":
-        monkeypatch.setenv(what, {"MME_MESH": "on"}.get(what, "2"))
-    else:
-        open(tmp_path / "meld.pkl", "wb").close()
-        argv[1] = str(tmp_path / "meld")
+    monkeypatch.setenv(what, {"MME_MESH": "on"}.get(what, "2"))
     with pytest.raises(NotImplementedError, match=item):
         tav_nn.main(argv, device="cpu")
 

@@ -250,6 +250,36 @@ def test_flash_kernels_at_tile_edges(cuda, dtype, D, Sq, Sk):
     _check_fwd_bwd(q, k, v, bias, do, dtype)
 
 
+# the length buckets of tav_nn's pickle branch at the 160 000-sample cap:
+# the audio tower's 124 / 249 / 374 / 499 frames at 16 heads and the fusion
+# trunk's 70 text + those frames + 104 video tokens at 12, 8 rows of ragged
+# key lengths
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,H", [(124, 16), (249, 16), (374, 16), (499, 16),
+                                 (298, 12), (423, 12), (548, 12), (673, 12)])
+def test_flash_kernels_at_bucket_lengths(cuda, dtype, S, H):
+    lengths = [S, S // 3, 1, S - 7, S, 2, S // 2, S]
+    q, k, v, bias = _inputs(8, S, S, H, 64, dtype, lengths, seed=S)
+    g = torch.Generator(device="cuda").manual_seed(S + 1)
+    do = torch.randn(8, S, H, 64, generator=g, device="cuda").to(dtype)
+    _check_fwd_bwd(q, k, v, bias, do, dtype)
+
+
+def test_resample_waveform_on_card_matches_numpy(cuda):
+    """48 kHz and 44.1 kHz → 16 kHz on the card against the host path, to
+    1e-5 on waves in [-1, 1] (fp32 products summed in another order)."""
+    from mme_tpu_torch.ops.resample import resample_numpy, resample_waveform
+    x = np.clip(0.4 * np.random.RandomState(0).randn(3, 48000), -1,
+                1).astype(np.float32)
+    for orig in (48000, 44100):
+        got = resample_waveform(torch.from_numpy(x).to(cuda), orig, 16000)
+        assert got.is_cuda and got.dtype == torch.float32
+        want = np.stack([resample_numpy(r, orig, 16000) for r in x])
+        np.testing.assert_allclose(got.cpu().numpy(), want, atol=1e-5,
+                                   rtol=0)
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_bf16_row_masked_by_bias(cuda, D):
     """A bf16 row whose every key carries the -0.7 f32max mask bias: the
@@ -550,7 +580,8 @@ def test_encoder_remat_on_cuda_recomputes_through_the_kernels(cuda):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("n,h", [(1, 128), (300, 96), (2392, 1024),
                                  (11712, 768), (153592, 512), (3001, 768),
-                                 (1031, 520), (517, 1032), (1024, 8192)])
+                                 (1031, 520), (517, 1032), (1024, 8192),
+                                 (992, 1024), (1025, 1024)])
 def test_layer_norm_kernels_match_plain(cuda, dtype, n, h):
     from mme_tpu_torch.ops import layer_norm as ln
     g = torch.Generator(device="cuda").manual_seed(n)

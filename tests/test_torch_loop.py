@@ -259,7 +259,8 @@ def test_prefetch_matches_jax_and_stops_when_abandoned():
     ds = _ds(dataset)
     order = np.arange(len(ds))
     got = [(({k: v.numpy() for k, v in b.items()}), l, m, i) for b, l, m, i
-           in prefetch.prefetch_batches(dataset.batches(ds, order, 4))]
+           in prefetch.prefetch_batches(dataset.batches(ds, order, 4),
+                                        device="cpu")]
     want = [({k: np.asarray(v) for k, v in b.items()}, l, m, i)
             for b, l, m, i in j_prefetch.prefetch_batches(
                 j_dataset.batches(ds, order, 4))]
@@ -272,11 +273,12 @@ def test_prefetch_matches_jax_and_stops_when_abandoned():
 
     seen = []
     with pytest.raises(KeyError, match="producer fault"):
-        for item in prefetch.prefetch_batches(failing()):
+        for item in prefetch.prefetch_batches(failing(), device="cpu"):
             seen.append(item)
     assert len(seen) == 2
 
-    it = prefetch.prefetch_batches(dataset.batches(ds, order, 1), depth=1)
+    it = prefetch.prefetch_batches(dataset.batches(ds, order, 1),
+                                   device="cpu", depth=1)
     next(it)
     it.close()
     deadline = time.time() + 5

@@ -57,9 +57,11 @@ def _batch():
 def ref():
     batch = _batch()
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    params = jax.jit(lambda: j_fusion.TAVModel(J_SPEC).init(
-        jax.random.PRNGKey(0), jb))()["params"]
-    return batch, jb, jax.tree.map(np.asarray, params)
+    # numpy draws at flax's scales (convert.init_params): jit-compiling
+    # JAX's init would cost every pytest worker that takes a test of this
+    # file ~10 s; test_init_params_matches_flax_tree_and_scales holds the
+    # drawn tree against JAX's
+    return batch, jb, init_params(SPEC, 0)
 
 
 def _torch(batch):
@@ -91,9 +93,10 @@ def test_converter_round_trip_on_every_leaf(ref):
 
 
 def test_init_params_matches_flax_tree_and_scales(ref):
-    _, _, params = ref
+    _, jb, _ = ref
     drawn = dict(_flat(init_params(SPEC, seed=0)))
-    leaves = dict(_flat(params))
+    leaves = dict(_flat(jax.eval_shape(lambda: j_fusion.TAVModel(
+        J_SPEC).init(jax.random.PRNGKey(0), jb))["params"]))
     assert drawn.keys() == leaves.keys()
     for path, leaf in leaves.items():
         assert drawn[path].shape == leaf.shape and drawn[path].dtype == \

@@ -13,13 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 from mme_tpu import serve as j_serve
 from mme_tpu.models import fusion as j_fusion
 
-from mme_tpu_torch.convert import from_flax
+from mme_tpu_torch.convert import from_flax, init_params
 from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
 from mme_tpu_torch.serve import Predictor, _batched_call, _pad_rows
 from mme_tpu_torch.train.build_tav import example_tav_batch
@@ -43,11 +42,10 @@ def _requests():
 
 @pytest.fixture(scope="module")
 def params():
-    ex = {k: jnp.asarray(v) for k, v in example_tav_batch(
-        SPEC, 1, 12, 4000).items()}
-    p = jax.jit(lambda: j_fusion.TAVModel(J_SPEC).init(
-        jax.random.PRNGKey(0), ex))()["params"]
-    return jax.tree.map(np.asarray, p)
+    # numpy draws at flax's scales (convert.init_params): jit-compiling
+    # JAX's init would cost every pytest worker that takes a test of this
+    # file ~10 s; test_torch_model.py holds the drawn tree against JAX's
+    return init_params(SPEC, 0)
 
 
 def _jax_predictor(params, **kw):
@@ -117,9 +115,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 _BLOCKED_IMPORT = """
-import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mme_tpu"):
-    sys.modules[name] = None          # any import of these now raises
+import importlib, os, pkgutil, sys
+import wave as wavemod
+# any import of these now raises: the JAX side, and the media libraries the
+# card's machine lacks
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mme_tpu", "pandas",
+             "cv2", "PIL", "transformers"):
+    sys.modules[name] = None
 import mme_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(mme_tpu_torch.__path__,
                                               "mme_tpu_torch.")]
@@ -166,17 +168,40 @@ assert slow(torch.rand(2, 2, 32, 32, 3)).shape == (2, 3)
 summary = images_nn.main(["--dataset", "synthetic", "-e", "1", "-b", "16"],
                          device="cpu")
 assert np.array(summary["test/confusion_matrix"]).sum() == 16
-assert len(mods) >= 52, mods
+# the WAV decoder from the port's own source, into a directory of its own,
+# then a file decoded through it and the data path's host pieces
+from mme_tpu_torch.data import records, wavio
+from mme_tpu_torch.ops.resample import resample_numpy
+assert wavio.SOURCE == os.path.join(os.path.dirname(mme_tpu_torch.__file__),
+                                    "native", "wavio.cpp")
+build = os.path.join(os.getcwd(), "wavio_build")     # under tmp_path
+lib, cmd = wavio.build_library(build)
+assert cmd is not None and cmd[-1] == wavio.SOURCE
+assert os.path.dirname(lib) == build and os.path.exists(lib)
+x = (np.sin(np.arange(4410) / 7.0) * 12000).astype("<i2")
+with wavemod.open(os.path.join(build, "a.wav"), "wb") as w:
+    w.setnchannels(1)
+    w.setsampwidth(2)
+    w.setframerate(44100)
+    w.writeframes(x.tobytes())
+y = wavio.load_waveform(os.path.join(build, "a.wav"))
+assert wavio.FALLBACKS == 0 and y.shape == (1600,)
+assert np.abs(y - resample_numpy(x / 32768.0, 44100, 16000)).max() < 1e-5
+ids, mask = records.tokenize_texts(["a b c"], 8,
+                                   records.get_tokenizer(None, 100))
+assert ids.shape == (1, 8) and mask.sum() == 5
+assert len(mods) >= 57, mods
 print(len(mods), "modules")
 """
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """Every port module imports, and serving, the train step, a
-    one-epoch synthetic run of the TAV CLI and of ``images_nn``, and the
-    audio classifier and SlowR50 on drawn weights work, with JAX, flax,
-    optax, orbax and mme_tpu blocked (the CLIs write their checkpoints
-    under tmp_path)."""
+    one-epoch synthetic run of the TAV CLI and of ``images_nn``, the audio
+    classifier and SlowR50 on drawn weights, and the WAV decoder built from
+    the port's own source work, with JAX, flax, optax, orbax, mme_tpu and
+    the media libraries (pandas, cv2, PIL, transformers) blocked (the CLIs
+    write their checkpoints under tmp_path)."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
                          cwd=str(tmp_path),

@@ -339,23 +339,21 @@ def test_text_cli_lstm_with_glove_runs_on_cpu(tmp_path, monkeypatch):
 
 
 def test_text_cli_refusals(tmp_path, monkeypatch):
-    """What the port lacks raises before any work: a pickle (ROADMAP
-    Queue 1 item 3), and ``MME_PRETRAINED`` with the full-size BERT model
-    (item 6); a missing pickle raises ``FileNotFoundError``. The LSTM loads
-    no pretrained weights in JAX, and is not refused for them."""
+    """What the port lacks raises before any work: ``MME_PRETRAINED`` with
+    the full-size BERT model (ROADMAP Queue 1 item 6); a missing pickle
+    raises ``FileNotFoundError``. The LSTM loads no pretrained weights in
+    JAX, and is not refused for them, nor is the tiny BERT. (A pickle is
+    read: tests/test_torch_pickle_cli.py.)"""
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "meld.pkl").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        text_nn.main(["--dataset", "meld.pkl"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        text_nn.main(["--dataset", "meld.pkl", "-m", "LSTM"], device="cpu")
     with pytest.raises(FileNotFoundError):
         text_nn.main(["--dataset", "missing"], device="cpu")
+    with pytest.raises(FileNotFoundError):
+        text_nn.main(["--dataset", "missing", "-m", "LSTM"], device="cpu")
     monkeypatch.setenv("MME_PRETRAINED", str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 6"):
-        text_nn.main(["--dataset", "meld.pkl"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        text_nn.main(["--dataset", "meld.pkl", "-m", "LSTM"], device="cpu")
+        text_nn.main(["--dataset", "missing"], device="cpu")
+    with pytest.raises(FileNotFoundError):
+        text_nn.main(["--dataset", "missing", "-m", "LSTM"], device="cpu")
     monkeypatch.setenv("MME_TINY", "1")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        text_nn.main(["--dataset", "meld.pkl"], device="cpu")
+    with pytest.raises(FileNotFoundError):
+        text_nn.main(["--dataset", "missing"], device="cpu")

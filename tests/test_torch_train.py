@@ -30,7 +30,7 @@ from mme_tpu.train import build_tav as j_build
 from mme_tpu.train.losses import cross_entropy as j_cross_entropy
 
 from mme_tpu_torch.config import ExperimentConfig
-from mme_tpu_torch.convert import grads_to_flax, to_flax
+from mme_tpu_torch.convert import grads_to_flax, init_params, to_flax
 from mme_tpu_torch.models.fusion import TAVSpec
 from mme_tpu_torch.models.layers import dropout
 from mme_tpu_torch.ops.audio import spec_augment_mask
@@ -77,9 +77,10 @@ def _batch():
 def ref():
     batch, labels, mask, cw = _batch()
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    params = jax.jit(lambda: j_fusion.TAVModel(J_SPEC).init(
-        jax.random.PRNGKey(0), jb))()["params"]
-    return batch, jb, jax.tree.map(np.asarray, params), labels, mask, cw
+    # numpy draws at flax's scales (convert.init_params): jit-compiling
+    # JAX's init would cost every pytest worker that takes a test of this
+    # file ~10 s; test_torch_model.py holds the drawn tree against JAX's
+    return batch, jb, init_params(SPEC, 0), labels, mask, cw
 
 
 def _flat(tree, prefix=()):
@@ -99,7 +100,10 @@ def _port(params, monkeypatch, spec=None, state_dtype="fp32", **kw):
                      device="cpu", **kw)
 
 
-def test_loss_and_every_gradient_leaf_match_jax(ref, monkeypatch):
+@pytest.fixture(scope="module")
+def jax_grads(ref):
+    """JAX's loss and every gradient leaf of the quiet model on the batch,
+    one compiled program for the two tests below that read them."""
     batch, jb, params, labels, mask, cw = ref
     j_model = j_fusion.TAVModel(_quiet(J_SPEC))
 
@@ -108,7 +112,13 @@ def test_loss_and_every_gradient_leaf_match_jax(ref, monkeypatch):
         return j_cross_entropy(logits, jnp.asarray(labels), jnp.asarray(cw),
                                jnp.asarray(mask))
 
-    want_loss, want = jax.jit(jax.value_and_grad(objective))(params)
+    loss, grads = jax.jit(jax.value_and_grad(objective))(params)
+    return float(loss), jax.tree.map(np.asarray, grads)
+
+
+def test_loss_and_every_gradient_leaf_match_jax(ref, jax_grads, monkeypatch):
+    batch, jb, params, labels, mask, cw = ref
+    want_loss, want = jax_grads
     model, state, _, _ = _port(params, monkeypatch)
     model.train()
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -368,7 +378,7 @@ def test_factored_step_matches_jax(ref, monkeypatch):
     assert all(m.dtype == torch.bfloat16 for m in opt.mu)
 
 
-def test_module_norms_and_histograms_match_jax(ref, monkeypatch):
+def test_module_norms_and_histograms_match_jax(ref, jax_grads, monkeypatch):
     """``log_histograms=True`` turns grad_norm into the dictionary of the
     JAX step: total, per-top-level-module gradient and parameter norms
     (1e-4 relative) and magnitude histograms (parameters exactly; gradient
@@ -378,14 +388,7 @@ def test_module_norms_and_histograms_match_jax(ref, monkeypatch):
     from mme_tpu.train import steps as j_steps
     from mme_tpu_torch.train.steps import make_train_step
     batch, jb, params, labels, mask, cw = ref
-    j_model = j_fusion.TAVModel(_quiet(J_SPEC))
-
-    def objective(p):
-        logits = j_model.apply({"params": p}, jb, deterministic=False)
-        return j_cross_entropy(logits, jnp.asarray(labels), jnp.asarray(cw),
-                               jnp.asarray(mask))
-
-    j_grads = jax.jit(jax.grad(objective))(params)
+    j_grads = jax_grads[1]
     model, state, _, _ = _port(params, monkeypatch)
     # lr 0: the step leaves the weights alone
     from mme_tpu_torch.train.steps import make_optimizer

@@ -25,7 +25,7 @@ from mme_tpu.train import build_tav as j_build
 from mme_tpu.train.losses import cross_entropy as j_cross_entropy
 
 from mme_tpu_torch.config import ExperimentConfig
-from mme_tpu_torch.convert import grads_to_flax, to_flax
+from mme_tpu_torch.convert import grads_to_flax, init_params, to_flax
 from mme_tpu_torch.models import layers as t_layers
 from mme_tpu_torch.models.fusion import TAVSpec
 from mme_tpu_torch.ops import layer_norm as t_ln
@@ -72,9 +72,10 @@ def ref():
     mask = np.array([1, 1, 0], np.int32)
     cw = np.linspace(0.5, 1.5, 7).astype(np.float32)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    params = jax.jit(lambda: j_fusion.TAVModel(J_SPEC).init(
-        jax.random.PRNGKey(0), jb))()["params"]
-    return batch, jb, jax.tree.map(np.asarray, params), labels, mask, cw
+    # numpy draws at flax's scales (convert.init_params): jit-compiling
+    # JAX's init would cost every pytest worker that takes a test of this
+    # file ~10 s; test_torch_model.py holds the drawn tree against JAX's
+    return batch, jb, init_params(SPEC, 0), labels, mask, cw
 
 
 @pytest.fixture
