@@ -276,13 +276,50 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        beside its plain version, ``scaled_dot_product_attention`` or
        ``F.layer_norm`` and its bound.
 
+12. The pretrained import at full width, as the CLIs run it with
+   ``MME_PRETRAINED`` (the card's machine has no ``transformers`` and no
+   ``safetensors``, and nothing is downloaded):
+   (1) writes five checkpoints into a temporary directory, removed
+       afterwards, in the layouts of the reference's (the name → shape
+       tables ``roberta_layout``, ``wav2vec2_layout``, ``videomae_layout``,
+       ``slow_r50_layout``; ``tests/test_torch_pretrained.py`` holds them
+       to the ``transformers`` classes), values drawn from a seed:
+       emotion-english-distilroberta-base (``model.safetensors`` by this
+       script's writer, under its full repo id), wav2vec2-lg-xlsr
+       (``pytorch_model.bin``, the positional conv as ``weight_g`` /
+       ``weight_v``), videomae-base-finetuned-kinetics
+       (``model.safetensors``), wav2vec2-base-superb-er
+       (``pytorch_model.bin``, the parametrization keys) and
+       ``slow_r50.pyth`` under ``model_state``, 2.44 GB in all;
+   (2) per checkpoint its bytes and the seconds to draw, write, read (the
+       port's safetensors reader or ``torch.load``), convert and merge
+       into its model's shape-only flax tree, and load onto the card;
+   (3) ``tav_nn.build_model`` at full width in bf16: the three towers
+       printed; on the card, bit for bit, the word table, text layer 0's
+       fused qkv weight and bias, the VideoMAE tubelet kernel and its
+       q / zero k / v bias, the PreFormer's copies of the towers' leaves and
+       the fusion trunk, heads and norms as ``init_params`` draws them; the
+       folded positional conv within ``POS_FOLD_RTOL`` of a float64 fold;
+   (4) phase 4's batch of 8 served with the knobs off and on (54 K1; 54
+       K5a and 114 K4a with the knobs), then ``tav_nn.train`` for one
+       epoch of 3 bf16 steps with every knob, a validation and the test
+       pass, every call's K1–K5 launches as the spec gives them at the
+       batch fed, and K1/K2/K4/K5 held against their plain versions at
+       those shapes;
+   (5) ``BertClassifier``, wav2vec2-base's ``Wav2Vec2Classifier`` and
+       ``SlowR50`` at full width through ``text_nn``'s,
+       ``audio_nn_wav2vec``'s and ``visual_nn``'s ``load_weights``: a leaf
+       of each against its file, SlowR50's BatchNorm buffers against the
+       file's running statistics, one served batch of 8 each.
+
 Then one JSON line of per-kernel results (seven kernels;
 ``launches_<model>`` gives phases 8, 9 and 10's counts: a served chunk
 with both knobs on for a forward kernel, a bf16 train step for the
 others, the MTL's fp32 step, 0 for a model without a train leg;
 ``launches_data_path`` phase 11's whole run and
-``launches_data_path_step`` one of its train steps per bucket bound), the
-card's name and power limit, and last the line
+``launches_data_path_step`` one of its train steps per bucket bound,
+``launches_pretrained`` phase 12's train run), the card's name and power
+limit, and last the line
 ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it,
@@ -294,6 +331,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -314,12 +352,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mme_tpu_torch.cli import (images_nn, tav_nn, text_audio_nn, text_nn,
-                               text_video_nn, visual_bert_nn, visual_nn)
+from mme_tpu_torch.cli import (audio_nn_wav2vec, images_nn, tav_nn,
+                               text_audio_nn, text_nn, text_video_nn,
+                               visual_bert_nn, visual_nn)
 from mme_tpu_torch.cli.common import (BatchModel, invert_label_map,
                                       make_bucket_iter, run_classifier)
 from mme_tpu_torch.config import ExperimentConfig
-from mme_tpu_torch.convert import from_flax, init_params, init_variables
+from mme_tpu_torch.convert import (ShapeDtype, flax_shapes, from_flax,
+                                   init_params, init_variables)
 from mme_tpu_torch.data import wavio
 from mme_tpu_torch.data.dataset import batches
 from mme_tpu_torch.data.records import (PickleDatasetConfig,
@@ -334,8 +374,18 @@ from mme_tpu_torch.device import PEAK_BF16_FLOPS, PEAK_BYTES, card_line
 from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
 from mme_tpu_torch.models.fusion import (FUSION_MODELS, TAVModel,
                                          TAVMoEFormer, TAVSpec)
+from mme_tpu_torch.models.hf_import import (convert_slow_r50,
+                                            convert_text_encoder,
+                                            convert_videomae,
+                                            convert_wav2vec2, state_dict_np)
 from mme_tpu_torch.models.image import ConvNetClassifier, ResnetClassifier
 from mme_tpu_torch.models.moe import MoEMlp, router_gates
+from mme_tpu_torch.models.pretrained import (AUDIO_SUPERB, AUDIO_XLSR,
+                                             SLOW_R50, TEXT_EMOTION,
+                                             VIDEO_MAE, find_checkpoint_dir,
+                                             load_local_state_dict,
+                                             merge_params,
+                                             strip_model_prefix)
 from mme_tpu_torch.models.text import (BertClassifier, LSTMClassifier,
                                        TextEncoderSpec)
 from mme_tpu_torch.models.text_audio import BertAudioClassifier, TextAudioSpec
@@ -858,14 +908,19 @@ def check_adam(spec: TAVSpec, card: str):
 
 
 @contextlib.contextmanager
-def knobs_on():
-    """MME_FUSED_LN=1 and MME_FUSED_MLP=1 for the enclosed calls."""
-    os.environ.update(KNOBS)
+def environ(values: dict):
+    """``values`` set in ``os.environ`` for the enclosed calls."""
+    os.environ.update(values)
     try:
         yield
     finally:
-        for k in KNOBS:
+        for k in values:
             del os.environ[k]
+
+
+def knobs_on():
+    """MME_FUSED_LN=1 and MME_FUSED_MLP=1 for the enclosed calls."""
+    return environ(KNOBS)
 
 
 def mlp_shapes(spec: TAVSpec, batch: int, text_len: int = 70,
@@ -3657,6 +3712,45 @@ def data_records(files: list, spec: TAVSpec, cap: int, text_len: int,
     return (*out, invert_label_map(rcfg.label_map))
 
 
+@contextlib.contextmanager
+def recorded_calls(model, cuda: bool):
+    """Hooks on ``model``'s forward for the enclosed run. Yields (calls,
+    finite): per train step or eval batch its mode, rows and audio
+    samples, the kernel launches so far and, on the card, the time after a
+    synchronize; whether its logits were finite. On leaving, each call
+    gains ``ms`` and ``delta`` (its launches by kernel, up to the next
+    call or the end), and ``calls`` ends with one more entry, the end's
+    time and launches."""
+    calls, finite = [], []
+
+    def mark(entry):
+        if cuda:
+            torch.cuda.synchronize()
+        calls.append({**entry, "t": time.perf_counter(),
+                      "launches": dict(kernels.LAUNCHES)})
+
+    def pre(module, args):
+        wave_ = args[0]["waveform"]
+        mark({"train": module.training, "rows": int(wave_.shape[0]),
+              "samples": int(wave_.shape[1])})
+
+    def post(module, args, out):
+        finite.append(bool(torch.isfinite(out).all()))
+
+    hooks = (model.register_forward_pre_hook(pre),
+             model.register_forward_hook(post))
+    try:
+        yield calls, finite
+        mark({"end": True})
+    finally:
+        for h in hooks:
+            h.remove()
+    for a, b in zip(calls, calls[1:]):
+        a["ms"] = (b["t"] - a["t"]) * 1e3
+        a["delta"] = {k: v - a["launches"].get(k, 0)
+                      for k, v in b["launches"].items()}
+
+
 def data_path_run(files: list, device: str, directory: str) -> dict:
     """Phase 11 (5)-(6) on ``device`` (the CPU runs it at the tiny size,
     with ``MME_TINY`` set): the records, then ``cli/tav_nn``'s model and
@@ -3675,44 +3769,21 @@ def data_path_run(files: list, device: str, directory: str) -> dict:
     records_s = time.perf_counter() - t
     model = tav_nn.build_model(cfg, spec, device)
     cuda = torch.device(device).type == "cuda"
-    calls, finite = [], []
-
-    def pre(module, args):
-        if cuda:
-            torch.cuda.synchronize()
-        wave_ = args[0]["waveform"]
-        calls.append({"train": module.training, "rows": int(wave_.shape[0]),
-                      "samples": int(wave_.shape[1]),
-                      "t": time.perf_counter(),
-                      "launches": dict(kernels.LAUNCHES)})
-
-    def post(module, args, out):
-        finite.append(bool(torch.isfinite(out).all()))
-
-    hooks = (model.register_forward_pre_hook(pre),
-             model.register_forward_hook(post))
     predict_out = os.path.join(directory, "predictions.jsonl")
     os.environ["MME_PREDICT_OUT"] = predict_out
     try:
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t = time.perf_counter()
-        summary = tav_nn.train(cfg, model, spec, cap, train_ds, val_ds,
-                               test_ds, id2label, bucketed=True,
-                               device=device)
-        if cuda:
-            torch.cuda.synchronize()
-        end = {"t": time.perf_counter(), "launches": dict(kernels.LAUNCHES)}
-        run_s = end["t"] - t
+        with recorded_calls(model, cuda) as (calls, finite):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            summary = tav_nn.train(cfg, model, spec, cap, train_ds, val_ds,
+                                   test_ds, id2label, bucketed=True,
+                                   device=device)
     finally:
         del os.environ["MME_PREDICT_OUT"]
-        for h in hooks:
-            h.remove()
-    for a, b in zip(calls, calls[1:] + [end]):
-        a["ms"] = (b["t"] - a["t"]) * 1e3
-        a["delta"] = {k: v - a["launches"].get(k, 0)
-                      for k, v in b["launches"].items()}
+    end = calls.pop()
+    run_s = end["t"] - t
     with open(os.path.join(directory, "metrics.jsonl")) as f:
         logs = [json.loads(line) for line in f]
     with open(predict_out) as f:
@@ -3968,6 +4039,630 @@ def data_path(card: str) -> dict:
             "per_step": {b: v["launches"] for b, v in per_bucket.items()}}
 
 
+# phase 12: the pretrained import at full width. Five checkpoints in the
+# layouts of the reference's (HF's RobertaForSequenceClassification,
+# Wav2Vec2ForSequenceClassification twice, VideoMAEForVideoClassification,
+# pytorchvideo's slow_r50), their values drawn from a seed, loaded through
+# the CLIs' own branches
+PRETRAINED_SIZES = ((24, 150), (8, 151), (8, 152))
+PRETRAINED_AUDIO = 96000
+PRETRAINED_TRAIN_ENV = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1",
+                        "MME_FUSED_LN": "1", "MME_FUSED_MLP": "1"}
+SLOW_STAGES = (3, 4, 6, 3)
+# the folded positional conv against a float64 fold of the file, relative
+# to its largest element: the converter folds in fp32, and numpy sums each
+# kernel tap's 1 024 · 64 squares over the leading axes one row at a time,
+# whose rounding grows like sqrt(n) · 2^-24 ≈ 1.5e-5 of the norm
+POS_FOLD_RTOL = 1e-4
+# numpy dtype name → safetensors dtype
+SAFETENSORS_CODES = {
+    "bool": "BOOL", "uint8": "U8", "int8": "I8", "uint16": "U16",
+    "int16": "I16", "float16": "F16", "uint32": "U32", "int32": "I32",
+    "float32": "F32", "uint64": "U64", "int64": "I64", "float64": "F64",
+    "complex64": "C64"}
+
+
+def _linear_layout(name: str, n_in: int, n_out: int) -> dict:
+    return {f"{name}.weight": (n_out, n_in), f"{name}.bias": (n_out,)}
+
+
+def _norm_layout(name: str, n: int) -> dict:
+    return {f"{name}.weight": (n,), f"{name}.bias": (n,)}
+
+
+def roberta_layout(spec: TextEncoderSpec, labels: int) -> dict:
+    """``RobertaForSequenceClassification``'s state-dict names and shapes
+    at ``spec``: the ``roberta.`` tower without a pooler, the two-layer
+    classification head."""
+    h, f, p = spec.encoder.hidden, spec.encoder.intermediate, "roberta."
+    out = {f"{p}embeddings.word_embeddings.weight": (spec.vocab_size, h),
+           f"{p}embeddings.position_embeddings.weight":
+               (spec.max_positions, h),
+           f"{p}embeddings.token_type_embeddings.weight":
+               (spec.type_vocab_size, h),
+           **_norm_layout(f"{p}embeddings.LayerNorm", h)}
+    for i in range(spec.encoder.layers):
+        q = f"{p}encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            out.update(_linear_layout(f"{q}attention.self.{name}", h, h))
+        out.update(_linear_layout(f"{q}attention.output.dense", h, h))
+        out.update(_norm_layout(f"{q}attention.output.LayerNorm", h))
+        out.update(_linear_layout(f"{q}intermediate.dense", h, f))
+        out.update(_linear_layout(f"{q}output.dense", f, h))
+        out.update(_norm_layout(f"{q}output.LayerNorm", h))
+    out.update(_linear_layout("classifier.dense", h, h))
+    out.update(_linear_layout("classifier.out_proj", h, labels))
+    return out
+
+
+def wav2vec2_layout(spec: Wav2Vec2Spec, labels: int, weight_norm: str,
+                    projector: int = 256) -> dict:
+    """``Wav2Vec2ForSequenceClassification``'s names and shapes at
+    ``spec``: the ``wav2vec2.`` tower, then ``projector`` and
+    ``classifier``. ``weight_norm`` names the positional conv's weight-norm
+    keys: ``"weight_g"`` (``weight_g`` / ``weight_v``, as older files have
+    them) or ``"parametrizations"`` (``parametrizations.weight.original0`` /
+    ``original1``, as torch's parametrization names them)."""
+    h, f, p = spec.encoder.hidden, spec.encoder.intermediate, "wav2vec2."
+    out = {f"{p}masked_spec_embed": (h,)}
+    c_in = 1
+    for i, (c, k) in enumerate(zip(spec.conv_dims, spec.conv_kernels)):
+        q = f"{p}feature_extractor.conv_layers.{i}."
+        out[f"{q}conv.weight"] = (c, c_in, k)
+        if spec.conv_bias:
+            out[f"{q}conv.bias"] = (c,)
+        if spec.feat_extract_norm == "layer" or i == 0:
+            out.update(_norm_layout(f"{q}layer_norm", c))
+        c_in = c
+    out.update(_norm_layout(f"{p}feature_projection.layer_norm", c_in))
+    out.update(_linear_layout(f"{p}feature_projection.projection", c_in, h))
+    conv = f"{p}encoder.pos_conv_embed.conv."
+    g, v = (("weight_g", "weight_v") if weight_norm == "weight_g" else
+            ("parametrizations.weight.original0",
+             "parametrizations.weight.original1"))
+    k = spec.num_conv_pos_embeddings
+    out[conv + "bias"] = (h,)
+    out[conv + g] = (1, 1, k)
+    out[conv + v] = (h, h // spec.num_conv_pos_embedding_groups, k)
+    out.update(_norm_layout(f"{p}encoder.layer_norm", h))
+    for i in range(spec.encoder.layers):
+        q = f"{p}encoder.layers.{i}."
+        for name in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            out.update(_linear_layout(f"{q}attention.{name}", h, h))
+        out.update(_norm_layout(f"{q}layer_norm", h))
+        out.update(_linear_layout(f"{q}feed_forward.intermediate_dense", h,
+                                  f))
+        out.update(_linear_layout(f"{q}feed_forward.output_dense", f, h))
+        out.update(_norm_layout(f"{q}final_layer_norm", h))
+    out.update(_linear_layout("projector", h, projector))
+    out.update(_linear_layout("classifier", projector, labels))
+    return out
+
+
+def videomae_layout(spec: VideoMAESpec, labels: int) -> dict:
+    """``VideoMAEForVideoClassification``'s names and shapes at ``spec``
+    (mean pooling): the ``videomae.`` tower with q and v biases, then
+    ``fc_norm`` and ``classifier``."""
+    h, f, p = spec.encoder.hidden, spec.encoder.intermediate, "videomae."
+    proj = f"{p}embeddings.patch_embeddings.projection"
+    out = {f"{proj}.weight": (h, spec.channels, spec.tubelet_size,
+                              spec.patch_size, spec.patch_size),
+           f"{proj}.bias": (h,)}
+    for i in range(spec.encoder.layers):
+        q = f"{p}encoder.layer.{i}."
+        a = f"{q}attention.attention."
+        out[f"{a}q_bias"] = (h,)
+        out[f"{a}v_bias"] = (h,)
+        for name in ("query", "key", "value"):
+            out[f"{a}{name}.weight"] = (h, h)
+        out.update(_linear_layout(f"{q}attention.output.dense", h, h))
+        out.update(_linear_layout(f"{q}intermediate.dense", h, f))
+        out.update(_linear_layout(f"{q}output.dense", f, h))
+        out.update(_norm_layout(f"{q}layernorm_before", h))
+        out.update(_norm_layout(f"{q}layernorm_after", h))
+    out.update(_norm_layout("fc_norm", h))
+    out.update(_linear_layout("classifier", h, labels))
+    return out
+
+
+def slow_r50_layout(stages=SLOW_STAGES) -> dict:
+    """pytorchvideo's slow_r50 backbone names and shapes (stem, then per
+    stage the bottlenecks' ``branch2`` convs and norms and the first
+    block's ``branch1`` shortcut), as ``tests/test_slow_r50_import.py``
+    lays them out."""
+    def bn(name, c):
+        return {**_norm_layout(name, c), f"{name}.running_mean": (c,),
+                f"{name}.running_var": (c,)}
+    out = {"blocks.0.conv.weight": (64, 3, 1, 7, 7),
+           **bn("blocks.0.norm", 64)}
+    c_in = 64
+    for s, (blocks, w, tk) in enumerate(zip(stages, (64, 128, 256, 512),
+                                            (1, 1, 3, 3))):
+        for b in range(blocks):
+            pre = f"blocks.{s + 1}.res_blocks.{b}"
+            cin = c_in if b == 0 else w * 4
+            out[f"{pre}.branch2.conv_a.weight"] = (w, cin, tk, 1, 1)
+            out.update(bn(f"{pre}.branch2.norm_a", w))
+            out[f"{pre}.branch2.conv_b.weight"] = (w, w, 1, 3, 3)
+            out.update(bn(f"{pre}.branch2.norm_b", w))
+            out[f"{pre}.branch2.conv_c.weight"] = (w * 4, w, 1, 1, 1)
+            out.update(bn(f"{pre}.branch2.norm_c", w * 4))
+            if b == 0:
+                out[f"{pre}.branch1_conv.weight"] = (w * 4, cin, 1, 1, 1)
+                out.update(bn(f"{pre}.branch1_norm", w * 4))
+        c_in = w * 4
+    return out
+
+
+def pretrained_checkpoints(spec: TAVSpec, base: Wav2Vec2Spec,
+                           stages=SLOW_STAGES) -> list:
+    """Phase 12's checkpoints: (repo id, directory under the root, file,
+    layout). The text one sits under its full repo id, the others under
+    their basenames; slow_r50 is a file at the root."""
+    return [
+        (TEXT_EMOTION, TEXT_EMOTION, "model.safetensors",
+         roberta_layout(spec.text, 7)),
+        (AUDIO_XLSR, AUDIO_XLSR.split("/")[-1], "pytorch_model.bin",
+         wav2vec2_layout(spec.audio, 8, "weight_g")),
+        (VIDEO_MAE, VIDEO_MAE.split("/")[-1], "model.safetensors",
+         videomae_layout(spec.video, 400)),
+        (AUDIO_SUPERB, AUDIO_SUPERB.split("/")[-1], "pytorch_model.bin",
+         wav2vec2_layout(base, 4, "parametrizations")),
+        (SLOW_R50, "", "slow_r50.pyth", slow_r50_layout(stages))]
+
+
+def draw_layout(layout: dict, rng: np.random.Generator) -> dict:
+    """float32 values for ``layout``: norm scales 1 + 0.02 N(0, 1), running
+    variances and weight-norm magnitudes uniform in [0.5, 1.5), everything
+    else 0.02 N(0, 1)."""
+    out = {}
+    for name, shape in layout.items():
+        if name.endswith(("running_var", "weight_g", "original0")):
+            a = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        else:
+            a = rng.standard_normal(shape, dtype=np.float32)
+            a *= np.float32(0.02)
+            if (len(shape) == 1 and name.endswith(".weight")
+                    and "norm" in name.lower()):
+                a += np.float32(1.0)
+        out[name] = a
+    return out
+
+
+def write_safetensors(path: str, tensors: dict,
+                      metadata: Optional[dict] = None) -> None:
+    """``{name: array}`` → a ``.safetensors`` file laid out as the
+    safetensors package writes one: an 8-byte little-endian header length,
+    the JSON header (``__metadata__`` first, then per tensor its dtype,
+    shape and data offsets) padded with spaces to a multiple of 8 bytes,
+    then the data, packed in the header's order (the widest dtypes first,
+    then by name), little-endian."""
+    names = sorted(tensors, key=lambda k: (-tensors[k].dtype.itemsize, k))
+    header = {"__metadata__": metadata} if metadata else {}
+    offset = 0
+    for k in names:
+        a = tensors[k]
+        header[k] = {"dtype": SAFETENSORS_CODES[a.dtype.name],
+                     "shape": list(a.shape),
+                     "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for k in names:
+            a = tensors[k]
+            np.ascontiguousarray(a, a.dtype.newbyteorder("<")).tofile(f)
+
+
+def write_checkpoint(root: str, entry, rng: np.random.Generator) -> dict:
+    """One checkpoint of :func:`pretrained_checkpoints` under ``root``: a
+    ``.safetensors`` file by :func:`write_safetensors`, a ``.bin`` by
+    ``torch.save`` of the state dict, slow_r50 nested under
+    ``model_state``. Returns its path, bytes and seconds."""
+    repo, sub, name, layout = entry
+    directory = os.path.join(root, sub)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, name)
+    t = time.perf_counter()
+    tensors = draw_layout(layout, rng)
+    draw_s = time.perf_counter() - t
+    t = time.perf_counter()
+    if name.endswith(".safetensors"):
+        write_safetensors(path, tensors, {"format": "pt"})
+    else:
+        sd = {k: torch.from_numpy(v) for k, v in tensors.items()}
+        torch.save({"model_state": sd} if repo == SLOW_R50 else sd, path)
+    return {"path": path, "bytes": os.path.getsize(path),
+            "parameters": int(sum(a.size for a in tensors.values())),
+            "draw_s": draw_s, "write_s": time.perf_counter() - t}
+
+
+def pos_conv_fold(sd: dict, prefix: str) -> np.ndarray:
+    """The positional conv's dense weight [out, in/g, k] folded from the
+    file's weight norm in float64."""
+    for g, v in (("weight_g", "weight_v"),
+                 ("parametrizations.weight.original0",
+                  "parametrizations.weight.original1")):
+        if f"{prefix}.{g}" in sd:
+            g = sd[f"{prefix}.{g}"].astype(np.float64)
+            v = sd[f"{prefix}.{v}"].astype(np.float64)
+            return g * v / np.maximum(
+                np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True)), 1e-12)
+    raise KeyError(f"{prefix}: no weight-norm keys")
+
+
+def fold_rel_err(got: torch.Tensor, want: np.ndarray) -> float:
+    """max |got - want| / max |want|."""
+    got = got.detach().double().cpu().numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same shape and the same bits (b moved to a's device)."""
+    return (tuple(a.shape) == tuple(b.shape)
+            and bool(torch.equal(a, b.to(a.device))))
+
+
+def tav_leaf_checks(model: TAVModel, files: dict, init: dict,
+                    spec: TAVSpec) -> dict:
+    """Phase 12 (2): the loaded ``TAVModel``'s leaves, where they live,
+    against the files (``files``: repo id → the file's state dict) and the
+    drawn tree ``init`` (``init_params`` at the model's seed). Bit for bit:
+    the word table, text layer 0's fused qkv weight and bias, the VideoMAE
+    tubelet kernel and layer 0's q / zero k / v bias, the PreFormer's
+    copies of the towers' leaves and everything the files do not hold.
+    The folded positional conv to ``POS_FOLD_RTOL`` of a float64 fold."""
+    state = model.state_dict()
+    text = strip_model_prefix(files[TEXT_EMOTION])
+    audio = strip_model_prefix(files[AUDIO_XLSR])
+    video = strip_model_prefix(files[VIDEO_MAE])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    e = spec.text.encoder
+    q = "encoder.layer.0.attention.self."
+    at = "model.text_encoder.encoder.layer_0.attention."
+    w = video["embeddings.patch_embeddings.projection.weight"]
+    v = spec.video.encoder
+    a = "encoder.layer.0.attention.attention."
+    zeros = np.zeros(v.hidden, np.float32)
+    out = {
+        "word_table": same(state["model.text_encoder.embeddings.word.weight"],
+                           t(text["embeddings.word_embeddings.weight"])),
+        "text_qkv": same(state[at + "qkv.weight"], torch.cat(
+            [t(text[f"{q}{n}.weight"]) for n in ("query", "key", "value")])),
+        "text_qkv_bias": same(state[at + "qkv_bias"], torch.stack(
+            [t(text[f"{q}{n}.bias"]) for n in ("query", "key", "value")]
+        ).reshape(3, e.heads, e.hidden // e.heads)),
+        "tubelet_kernel": same(
+            state["model.videomae.patch_embed.proj.weight"],
+            t(w.transpose(0, 2, 3, 4, 1).reshape(w.shape[0], -1))),
+        "video_qkv_bias_zero_k": same(
+            state["model.videomae.encoder.layer_0.attention.qkv_bias"],
+            t(np.stack([video[a + "q_bias"], zeros, video[a + "v_bias"]])
+              .reshape(3, v.heads, v.hidden // v.heads)))}
+    out["pos_conv_rel_err"] = fold_rel_err(
+        state["model.wav2vec2.encoder.pos_conv.conv.weight"],
+        pos_conv_fold(audio, "encoder.pos_conv_embed.conv"))
+    copies = (("preformer.text_embeddings.", "model.text_encoder.embeddings."),
+              ("preformer.feature_extractor.",
+               "model.wav2vec2.feature_extractor."),
+              ("preformer.feature_projection.",
+               "model.wav2vec2.feature_projection."),
+              ("preformer.pos_conv.", "model.wav2vec2.encoder.pos_conv."),
+              ("preformer.audio_ln.",
+               "model.wav2vec2.encoder.layers.final_ln."),
+              ("preformer.masked_spec_embed",
+               "model.wav2vec2.masked_spec_embed"),
+              ("preformer.video.patch_embed.",
+               "model.videomae.patch_embed."))
+    out["preformer_copies"] = {}
+    for mine, tower in copies:
+        keys = [k for k in state if k.startswith(mine)]
+        out["preformer_copies"][mine.rstrip(".")] = len(keys) > 0 and all(
+            same(state[k], state[tower + k[len(mine):]]) for k in keys)
+    m = init["model"]
+    drawn = {"model": {k: m[k] for k in (
+        "modality_embedding", "wav_to_hidden", "fusion_encoder",
+        "text_norm", "fusion_norm", "audio_norm", "video_norm",
+        "classifier")}, "preformer": {
+        "wav_to_hidden": init["preformer"]["wav_to_hidden"]}}
+    # the classifier checkpoint has no pooler: the text tower keeps its draw
+    drawn["model"]["text_encoder"] = {"pooler": m["text_encoder"]["pooler"]}
+    want = from_flax(drawn)
+    out["drawn_leaves"] = len(want)
+    out["drawn_as_seeded"] = all(same(state[k], v) for k, v in want.items())
+    out["ok"] = (all(v for k, v in out.items() if isinstance(v, bool))
+                 and all(out["preformer_copies"].values())
+                 and out["pos_conv_rel_err"] <= POS_FOLD_RTOL)
+    return out
+
+
+def loaded_leaves(tree: dict) -> dict:
+    """``tree`` without its shape-only leaves."""
+    return {k: loaded_leaves(v) if isinstance(v, dict) else v
+            for k, v in tree.items() if not isinstance(v, ShapeDtype)}
+
+
+def checkpoint_times(root: str, entries: list, spec: TAVSpec,
+                     base: Wav2Vec2Spec, stages=SLOW_STAGES,
+                     device: str = "cuda") -> Tuple[dict, dict]:
+    """Phase 12 (5): per checkpoint the seconds to read it (this package's
+    safetensors reader or ``torch.load``), to convert it and merge it into
+    its model's flax tree (shapes only: ``convert.flax_shapes``) and to
+    load the leaves it filled onto the card. Returns (the files' state
+    dicts, the times)."""
+    tav = flax_shapes(TAVModel(spec, device="meta"))["model"]
+    targets = {
+        TEXT_EMOTION: (lambda sd: convert_text_encoder(sd, spec.text),
+                       tav["text_encoder"]),
+        AUDIO_XLSR: (lambda sd: convert_wav2vec2(sd, spec.audio),
+                     tav["wav2vec2"]),
+        VIDEO_MAE: (lambda sd: convert_videomae(sd, spec.video),
+                    tav["videomae"]),
+        AUDIO_SUPERB: (lambda sd: convert_wav2vec2(sd, base), flax_shapes(
+            Wav2Vec2Classifier(base, 7, device="meta"))["wav2vec2"]),
+        SLOW_R50: (lambda sd: convert_slow_r50(sd, stages)["params"],
+                   flax_shapes(SlowR50(7, stage_sizes=stages,
+                                       device="meta")))}
+    files, times = {}, {}
+    for repo, sub, name, _ in entries:
+        path = os.path.join(root, sub, name)
+        t = time.perf_counter()
+        if repo == SLOW_R50:
+            sd = state_dict_np(torch.load(path, map_location="cpu",
+                                          weights_only=True)["model_state"])
+        else:
+            sd = load_local_state_dict(find_checkpoint_dir(root, repo))
+        read_s = time.perf_counter() - t
+        convert, target = targets[repo]
+        t = time.perf_counter()
+        merged, missing, _ = merge_params(
+            target, convert(strip_model_prefix(sd)))
+        convert_s = time.perf_counter() - t
+        t = time.perf_counter()
+        on_card = {k: v.to(device)
+                   for k, v in from_flax(loaded_leaves(merged)).items()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times[repo] = {"read_s": read_s, "convert_merge_s": convert_s,
+                       "to_card_s": time.perf_counter() - t,
+                       "filled": len(on_card), "unfilled": len(missing)}
+        files[repo] = sd
+        del on_card, merged
+    return files, times
+
+
+def captured(fn, *args):
+    """(fn(*args), the lines it printed), the lines also echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue().splitlines()
+
+
+def pretrained_tav(files: dict, directory: str, card: str) -> dict:
+    """Phase 12 (2)-(3) with ``MME_PRETRAINED`` set: ``tav_nn.build_model``
+    at full width in bf16, its leaves, then phase 4's batch of 8 served
+    with the knobs off and on, then ``tav_nn.train`` for a few bf16 steps
+    with every knob, each call's launches against the spec, and K1/K2/K4/
+    K5 held at the shapes fed."""
+    cfg = ExperimentConfig(batch_size=8, epoch=1, output_dim=7, seed=SEED,
+                           dataset="pretrained",
+                           audio_max_samples=PRETRAINED_AUDIO,
+                           checkpoint_dir=directory)
+    with environ({"MME_DTYPE": "bf16"}):
+        spec, audio_len, text_len = tav_nn.tav_spec(cfg)
+    t = time.perf_counter()
+    init = init_params(spec, cfg.seed)
+    init_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model, lines = captured(tav_nn.build_model, cfg, spec, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    loaded = [x.split(": ", 1)[1] for x in lines
+              if x.startswith("loaded pretrained tower: ")]
+    checks = tav_leaf_checks(model, files, init, spec)
+    del init
+    out = {"build_model_s": build_s, "init_params_s": init_s,
+           "loaded": loaded, "leaves": checks,
+           "build_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    reqs = requests(spec)[:1]                 # phase 4's batch of 8
+    ln_per_chunk = sum(fused_ln_shapes(spec, 8).values())
+    pred = Predictor(model, batch_size=8, device="cuda")
+    serve(pred, reqs)                         # warm-up: cuDNN's choices
+    kernels.reset_launches()
+    t = time.perf_counter()
+    off = serve(pred, reqs)
+    off_ms = (time.perf_counter() - t) * 1e3
+    off_launches = dict(kernels.LAUNCHES)
+    with knobs_on():
+        serve(pred, reqs)
+        kernels.reset_launches()
+        t = time.perf_counter()
+        on = serve(pred, reqs)
+        on_ms = (time.perf_counter() - t) * 1e3
+        on_launches = dict(kernels.LAUNCHES)
+    diff = float(np.abs(on[0] - off[0]).max())
+    served_ok = (all(np.isfinite(p).all() and p.shape == (8, 7)
+                     for p in off + on)
+                 and diff <= SERVE_TOL[torch.bfloat16]
+                 and off_launches["flash_fwd"] == LAUNCHES_PER_CHUNK
+                 and off_launches["fused_mlp_fwd"] == 0
+                 and on_launches["flash_fwd"] == on_launches[
+                     "fused_mlp_fwd"] == LAUNCHES_PER_CHUNK
+                 and on_launches["layer_norm_fwd"] == ln_per_chunk)
+    out["serve"] = {"ms_knobs_off": off_ms, "ms_knobs_on": on_ms,
+                    "max_abs_probs_on_vs_off": diff,
+                    "launches_knobs_off": off_launches,
+                    "launches_knobs_on": on_launches, "ok": served_ok}
+    del pred
+
+    (n_train, s_train), *evals = PRETRAINED_SIZES
+    train_ds = synthetic_tav_dataset(spec, n_train, text_len, audio_len,
+                                     seed=s_train)
+    val_ds, test_ds = (synthetic_tav_dataset(spec, n, text_len, audio_len,
+                                             seed=s) for n, s in evals)
+    torch.cuda.reset_peak_memory_stats()
+    with environ(PRETRAINED_TRAIN_ENV):
+        with recorded_calls(model, True) as (calls, finite):
+            kernels.reset_launches()
+            tav_nn.train(cfg, model, spec, audio_len, train_ds, val_ds,
+                         test_ds, None, bucketed=False, device="cuda")
+    end = calls.pop()
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    losses = {k: d[k] for d in logs for k in ("train/loss", "val/loss",
+                                              "test/loss") if k in d}
+    bad = []
+    for c in calls:
+        want = expected_launches(spec, c)
+        got = {k: c["delta"].get(k, 0) for k in want}
+        if got != want:
+            bad.append({"train": c["train"], "rows": c["rows"],
+                        "launches": got, "expected": want})
+    steps = [c for c in calls if c["train"]]
+    out["train"] = {
+        "steps": len(steps), "eval_batches": len(calls) - len(steps),
+        "losses": losses, "step_ms": [c["ms"] for c in steps],
+        "launches": end["launches"], "launch_mismatches": bad,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "ok": (not bad and len(steps) == n_train // 8 and len(losses) == 3
+               and all(np.isfinite(v) for v in losses.values())
+               and all(finite) and len(finite) == len(calls))}
+    del model
+    torch.cuda.empty_cache()
+    print(json.dumps({"pretrained_tav": {**out, "card": card}}),
+          flush=True)
+    if not (checks["ok"] and served_ok and out["train"]["ok"]
+            and loaded == [TEXT_EMOTION, AUDIO_XLSR, VIDEO_MAE]):
+        raise SystemExit("phase 12: the pretrained TAVModel failed its "
+                         "checks")
+    bucket_holds(spec, {(c["rows"], c["samples"]) for c in calls}, text_len,
+                 card)
+    return end["launches"]
+
+
+def pretrained_classifiers(files: dict, card: str) -> dict:
+    """Phase 12 (4): ``BertClassifier`` (distilroberta),
+    ``Wav2Vec2Classifier`` (wav2vec2-base) and ``SlowR50`` at full width,
+    loaded by ``text_nn``'s, ``audio_nn_wav2vec``'s and ``visual_nn``'s
+    ``load_weights`` with ``MME_PRETRAINED`` set; a leaf of each against
+    its file, SlowR50's BatchNorm buffers against the file's running
+    statistics; one served batch of 8 each (fp32)."""
+    text = strip_model_prefix(files[TEXT_EMOTION])
+    base = strip_model_prefix(files[AUDIO_SUPERB])
+    slow = files[SLOW_R50]
+    tspec, bspec = TextEncoderSpec.distilroberta(), Wav2Vec2Spec.base()
+    cases = (
+        ("BertClassifier", lambda: BertClassifier(tspec, 7, 0.5,
+                                                  device="cuda"),
+         lambda net: text_nn.load_weights(net, tspec, SEED),
+         "loaded pretrained text tower", ("input_ids", "text_mask"),
+         ZOO_MODELS["BertClassifier"].data(8, 160).features, 6,
+         lambda net: {"word_table": same(
+             net.bert.embeddings.word.weight,
+             torch.from_numpy(text["embeddings.word_embeddings.weight"]))}),
+        ("Wav2Vec2Classifier", lambda: Wav2Vec2Classifier(bspec, 7, 0.5,
+                                                          device="cuda"),
+         lambda net: audio_nn_wav2vec.load_weights(net, bspec, SEED),
+         "loaded pretrained audio tower", ("waveform", "audio_mask"),
+         ZOO_MODELS["Wav2Vec2Classifier"].data(8, 161).features, 12,
+         lambda net: {
+             "projection": same(
+                 net.wav2vec2.feature_projection.projection.weight,
+                 torch.from_numpy(
+                     base["feature_projection.projection.weight"])),
+             "pos_conv_rel_err": fold_rel_err(
+                 net.wav2vec2.encoder.pos_conv.conv.weight,
+                 pos_conv_fold(base, "encoder.pos_conv_embed.conv"))}),
+        ("SlowR50", lambda: SlowR50(7, stage_sizes=SLOW_STAGES,
+                                    device="cuda"),
+         lambda net: visual_nn.load_weights(net, SLOW_STAGES, SEED),
+         "loaded pretrained slow_r50 backbone", ("video",),
+         visual_nn.synthetic_video(8, 16, 224, 7, 162).features, 0,
+         lambda net: slow_r50_checks(net, slow)))
+    out = {}
+    for name, build, load, line, inputs, feats, flash, check in cases:
+        torch.cuda.reset_peak_memory_stats()
+        net = build()
+        t = time.perf_counter()
+        _, lines = captured(load, net)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        leaves = check(net)
+        pred = Predictor(BatchModel(net, inputs), batch_size=8,
+                         device="cuda")
+        pred(feats)                                     # warm-up
+        kernels.reset_launches()
+        t = time.perf_counter()
+        probs = pred(feats)[1]
+        ms = (time.perf_counter() - t) * 1e3
+        launches = kernels.LAUNCHES["flash_fwd"]
+        ok = (any(x.startswith(line) for x in lines)
+              and all(v for v in leaves.values() if isinstance(v, bool))
+              and leaves.get("pos_conv_rel_err", 0.0) <= POS_FOLD_RTOL
+              and probs.shape == (8, 7) and np.isfinite(probs).all()
+              and launches == flash)
+        out[name] = {"load_weights_s": load_s, "leaves": leaves,
+                     "serve_ms": ms, "flash_fwd": launches,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "ok": bool(ok)}
+        del pred, net
+        torch.cuda.empty_cache()
+    print(json.dumps({"pretrained_classifiers": {**out, "card": card}}),
+          flush=True)
+    if not all(v["ok"] for v in out.values()):
+        raise SystemExit("phase 12: a pretrained classifier failed its "
+                         "checks")
+    return out
+
+
+def slow_r50_checks(net: SlowR50, sd: dict, stages=SLOW_STAGES) -> dict:
+    """The stem conv against the file, and every BatchNorm's running mean
+    and variance (the module's buffers) against the file's
+    ``running_mean`` / ``running_var``, bit for bit."""
+    stats = from_flax({}, convert_slow_r50(sd, stages)["batch_stats"])
+    state = net.state_dict()
+    return {"stem_conv": same(state["stem_conv.weight"],
+                              torch.from_numpy(sd["blocks.0.conv.weight"])),
+            "bn_buffers": len(stats),
+            "bn_buffers_equal": all(same(state[k], v)
+                                    for k, v in stats.items())}
+
+
+def pretrained(card: str) -> dict:
+    """Phase 12. Returns the TAV train run's launches by kernel."""
+    t0 = time.perf_counter()
+    spec = TAVSpec(output_dim=7)
+    entries = pretrained_checkpoints(spec, Wav2Vec2Spec.base())
+    root = tempfile.mkdtemp(prefix="mme_pretrained_")
+    try:
+        rng = np.random.default_rng(SEED + 140)
+        written = {e[0]: write_checkpoint(root, e, rng) for e in entries}
+        files, times = checkpoint_times(root, entries, spec,
+                                        Wav2Vec2Spec.base())
+        print(json.dumps({"pretrained_checkpoints": {
+            repo: {**written[repo], **times[repo]} for repo in written},
+            "card": card}), flush=True)
+        directory = os.path.join(root, "run")
+        os.makedirs(directory)
+        with environ({"MME_PRETRAINED": root}):
+            launches = pretrained_tav(files, directory, card)
+            pretrained_classifiers(files, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4024,13 +4719,15 @@ def main() -> int:
     zoo_launches = zoo(card)
     torch.cuda.empty_cache()
     data = data_path(card)
+    torch.cuda.empty_cache()
+    pre = pretrained(card)
 
     def family_launches(name):
         """launches_<model> of phases 8, 9 and 10: one served chunk with
         both knobs on for a forward kernel, one bf16 train step with every
         knob on for the others (the MTL's fp32 step; 0 for a model without
         a train leg); phase 11's whole run and one of its train steps per
-        bucket bound."""
+        bucket bound; phase 12's train run."""
         leg = "serve" if name.endswith("_fwd") else "step"
         out = {f"launches_{m}": family[m][leg].get(name, 0) for m in FAMILY}
         out["launches_wav2vec2_base"] = w2v[leg].get(name, 0)
@@ -4040,6 +4737,7 @@ def main() -> int:
         out["launches_data_path_step"] = {
             str(bound): step.get(name, 0)
             for bound, step in sorted(data["per_step"].items())}
+        out["launches_pretrained"] = pre.get(name, 0)
         return out
 
     def entry(name, route, source, replaces, result):

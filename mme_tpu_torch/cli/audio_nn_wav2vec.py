@@ -15,10 +15,11 @@ decoded natively and resampled to 16 kHz. Runs on the card::
     python -m mme_tpu_torch.cli.audio_nn_wav2vec --dataset synthetic -e 1 -b 8
 
 and on the CPU only through ``main(argv, device="cpu")``. Weights are drawn
-from ``--seed`` (``convert.init_variables``). What the port lacks raises
-``NotImplementedError`` before any work: ``MME_PRETRAINED`` with the
-full-size tower (JAX loads the pretrained tower there; ROADMAP Queue 1
-item 6). A missing pickle raises ``FileNotFoundError``.
+from ``--seed`` (``convert.init_variables``); for the full-size conv
+stack, ``MME_PRETRAINED`` naming a directory that holds
+superb/wav2vec2-base-superb-er loads it into the ``wav2vec2`` tower
+(``models/pretrained.py::load_audio_classifier``; the head stays drawn),
+as JAX does. A missing pickle raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ from mme_tpu_torch.data.records import PickleDatasetConfig, build_audio_dataset
 from mme_tpu_torch.data.synthetic import synthetic_audio_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.audio import Wav2Vec2Classifier, Wav2Vec2Spec
+from mme_tpu_torch.models.pretrained import (AUDIO_SUPERB,
+                                             load_audio_classifier,
+                                             pretrained_root)
 
 
 def tiny_spec(spec: Wav2Vec2Spec) -> Wav2Vec2Spec:
@@ -47,6 +51,23 @@ def tiny_spec(spec: Wav2Vec2Spec) -> Wav2Vec2Spec:
         conv_strides=(5, 2, 2),
         encoder=dataclasses.replace(spec.encoder, hidden=64, heads=4,
                                     layers=2, intermediate=128))
+
+
+def load_weights(net: Wav2Vec2Classifier, spec: Wav2Vec2Spec,
+                 seed: int) -> None:
+    """Load ``net`` with weights drawn from ``seed``; for the full-size
+    conv stack with ``MME_PRETRAINED`` naming a directory, its ``wav2vec2``
+    tower from the superb checkpoint found there (JAX's gate,
+    ``mme_tpu/cli/audio_nn_wav2vec.py``)."""
+    variables = init_variables(net, seed)
+    root = pretrained_root()
+    if root and tuple(spec.conv_dims) == (512,) * 7:
+        variables["params"], ok = load_audio_classifier(variables["params"],
+                                                        spec, root)
+        if ok:
+            print(f"loaded pretrained audio tower from {root} "
+                  f"({AUDIO_SUPERB})", flush=True)
+    net.load_state_dict(from_flax(**variables), strict=True)
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -61,10 +82,6 @@ def main(argv: Optional[Sequence[str]] = None,
     if cfg.dataset == "synthetic" or os.environ.get("MME_TINY"):
         spec = tiny_spec(spec)
         audio_len = 4000
-    full_size = tuple(spec.conv_dims) == (512,) * 7
-    if os.environ.get("MME_PRETRAINED") and full_size:
-        raise NotImplementedError("MME_PRETRAINED needs the pretrained-weight "
-                                  "import (ROADMAP Queue 1 item 6)")
     pkl = resolve_pickle(cfg.dataset)
     if pkl is not None:
         rcfg = PickleDatasetConfig(label_col=cfg.label_task,
@@ -79,8 +96,7 @@ def main(argv: Optional[Sequence[str]] = None,
         train_ds, val_ds, test_ds = mk(128, 0), mk(32, 1), mk(32, 2)
 
     net = Wav2Vec2Classifier(spec, cfg.output_dim, cfg.dropout, device=dev)
-    net.load_state_dict(from_flax(**init_variables(net, cfg.seed)),
-                        strict=True)
+    load_weights(net, spec, cfg.seed)
     return run_classifier(
         cfg, BatchModel(net, ("waveform", "audio_mask")), train_ds, val_ds,
         test_ds, batch_iter=make_bucket_iter(audio_len), id2label=id2label,

@@ -21,10 +21,14 @@ Knobs: ``--mask`` off gives no SpecAugment and the fixed visual keep-mask;
 PreFormer and the audio tower; ``MME_SCAN_LAYERS=1`` has no eager
 counterpart and changes nothing. ``-m`` picks the fusion model from
 ``models/fusion.py::FUSION_MODELS`` (an unknown name gives ``TAVModel``, as
-in JAX); ``-m TAVMoE`` trains with the MoE aux loss in the objective. What
+in JAX); ``-m TAVMoE`` trains with the MoE aux loss in the objective.
+``MME_PRETRAINED`` naming a directory of local checkpoints loads the three
+pretrained towers and the PreFormer's copies of their embedding stages into
+the full-width ``TAVModel`` (``models/pretrained.py::load_tav``), as JAX
+does; any other model or width, or no such directory, loads nothing. What
 the port lacks raises ``NotImplementedError``: ``MME_SP`` / ``MME_PP``
-above 1 (ROADMAP Queue 1 item 7) and ``MME_PRETRAINED`` (item 6). A missing
-pickle raises ``FileNotFoundError``.
+above 1 (ROADMAP Queue 1 item 7). A missing pickle raises
+``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from mme_tpu_torch.data.records import (PickleDatasetConfig,
                                         build_tav_dataset, get_tokenizer)
 from mme_tpu_torch.data.synthetic import synthetic_tav_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
-from mme_tpu_torch.models.fusion import FUSION_MODELS, TAVSpec
+from mme_tpu_torch.models.fusion import FUSION_MODELS, TAVModel, TAVSpec
+from mme_tpu_torch.models.pretrained import load_tav, pretrained_root
 from mme_tpu_torch.train.build_tav import (make_video_keep_transform,
                                            modality_embedding_trainable_mask)
 
@@ -54,9 +59,6 @@ def _refuse_unported() -> None:
         if int(os.environ.get(var, "0") or 0) > 1:
             raise NotImplementedError(
                 f"{var} > 1 needs the parallel axes (ROADMAP Queue 1 item 7)")
-    if os.environ.get("MME_PRETRAINED"):
-        raise NotImplementedError("MME_PRETRAINED needs the pretrained-weight "
-                                  "import (ROADMAP Queue 1 item 6)")
 
 
 def tav_spec(cfg) -> Tuple[TAVSpec, int, int]:
@@ -87,11 +89,19 @@ def tav_spec(cfg) -> Tuple[TAVSpec, int, int]:
 def build_model(cfg, spec: TAVSpec, device: DeviceLike = "cuda"):
     """``-m``'s fusion model (an unknown name gives ``TAVModel``, as JAX's
     ``FUSION_MODELS.get(name, TAVModel)``) with weights drawn from
-    ``--seed``."""
+    ``--seed``; for ``TAVModel`` at width 768 with ``MME_PRETRAINED``
+    naming a directory, the towers found there replace their drawn
+    weights (``load_tav``; one ``loaded pretrained tower: <id>`` line
+    each)."""
     model_cls = FUSION_MODELS.get(cfg.model, FUSION_MODELS["MAE_encoder"])
     model = model_cls(spec, device=device)
-    model.load_state_dict(
-        from_flax(init_params(spec, cfg.seed, model=cfg.model)), strict=True)
+    params = init_params(spec, cfg.seed, model=cfg.model)
+    root = pretrained_root()
+    if root and spec.hidden == 768 and model_cls is TAVModel:
+        params, loaded = load_tav(params, spec, root)
+        for name in loaded:
+            print(f"loaded pretrained tower: {name}", flush=True)
+    model.load_state_dict(from_flax(params), strict=True)
     if os.environ.get("MME_SCAN_LAYERS") == "1":
         print("MME_SCAN_LAYERS: no eager counterpart; layers run one by one "
               "with the same numbers", flush=True)

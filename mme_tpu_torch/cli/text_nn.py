@@ -18,10 +18,12 @@ card::
     python -m mme_tpu_torch.cli.text_nn --dataset synthetic -m LSTM -e 1 -b 8
 
 and on the CPU only through ``main(argv, device="cpu")``. Weights are drawn
-from ``--seed`` (``convert.init_variables``). What the port lacks raises
-``NotImplementedError`` before any work: ``MME_PRETRAINED`` with the
-full-size BERT model (JAX loads the pretrained text tower there; ROADMAP
-Queue 1 item 6). A missing pickle raises ``FileNotFoundError``.
+from ``--seed`` (``convert.init_variables``); for the BERT model with the
+full 50 265-word vocabulary, ``MME_PRETRAINED`` naming a directory that
+holds j-hartmann/emotion-english-distilroberta-base loads its encoder
+into the ``bert`` tower (``models/pretrained.py::load_text_classifier``;
+the head stays drawn), as JAX does. A missing pickle raises
+``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -42,8 +44,27 @@ from mme_tpu_torch.data.records import (PickleDatasetConfig,
                                         build_text_dataset, get_tokenizer)
 from mme_tpu_torch.data.synthetic import synthetic_text_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.models.pretrained import (TEXT_EMOTION,
+                                             load_text_classifier,
+                                             pretrained_root)
 from mme_tpu_torch.models.text import (BertClassifier, LSTMClassifier,
                                        TextEncoderSpec)
+
+
+def load_weights(net, spec: TextEncoderSpec, seed: int) -> None:
+    """Load ``net`` with weights drawn from ``seed``; for a
+    ``BertClassifier`` with the full vocabulary and ``MME_PRETRAINED``
+    naming a directory, its ``bert`` tower from the checkpoint found there
+    (JAX's gate, ``mme_tpu/cli/text_nn.py``)."""
+    variables = init_variables(net, seed)
+    root = pretrained_root()
+    if root and isinstance(net, BertClassifier) and spec.vocab_size == 50265:
+        variables["params"], ok = load_text_classifier(variables["params"],
+                                                       spec, root)
+        if ok:
+            print(f"loaded pretrained text tower from {root} "
+                  f"({TEXT_EMOTION})", flush=True)
+    net.load_state_dict(from_flax(**variables), strict=True)
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -60,10 +81,6 @@ def main(argv: Optional[Sequence[str]] = None,
             spec, vocab_size=512,
             encoder=dataclasses.replace(spec.encoder, hidden=64, heads=4,
                                         layers=2, intermediate=128))
-    if (not lstm and os.environ.get("MME_PRETRAINED")
-            and spec.vocab_size == 50265):
-        raise NotImplementedError("MME_PRETRAINED needs the pretrained-weight "
-                                  "import (ROADMAP Queue 1 item 6)")
     pkl = resolve_pickle(cfg.dataset)
 
     gvocab, table = None, None
@@ -81,8 +98,7 @@ def main(argv: Optional[Sequence[str]] = None,
         vocab = spec.vocab_size
         net = BertClassifier(spec, cfg.output_dim, cfg.dropout, device=dev)
         inputs = ("input_ids", "text_mask")
-    net.load_state_dict(from_flax(**init_variables(net, cfg.seed)),
-                        strict=True)
+    load_weights(net, spec, cfg.seed)
     if table is not None:
         set_embedding_table(net, table)
         print(f"loaded GloVe vectors {table.shape} into LSTM embedding",

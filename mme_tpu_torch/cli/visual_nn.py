@@ -15,10 +15,11 @@ columns and ``{name}``, the clip's basename). Runs on the card::
     python -m mme_tpu_torch.cli.visual_nn --dataset synthetic -m ResNet -e 1 -b 8
 
 and on the CPU only through ``main(argv, device="cpu")``. Weights are drawn
-from ``--seed`` (``convert.init_variables``). What the port lacks raises
-``NotImplementedError``: for ``-m ResNet``, ``MME_PRETRAINED`` (the
-slow_r50 import, ROADMAP Queue 1 item 6). A missing pickle raises
-``FileNotFoundError``.
+from ``--seed`` (``convert.init_variables``); for ``-m ResNet``, at any
+size, ``MME_PRETRAINED`` naming a directory that holds a slow_r50
+checkpoint loads its backbone and BatchNorm statistics
+(``models/pretrained.py::load_slow_r50``; ``proj`` and the classifier stay
+drawn), as JAX does. A missing pickle raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from mme_tpu_torch.convert import from_flax, init_variables
 from mme_tpu_torch.data.dataset import ArrayDataset
 from mme_tpu_torch.data.records import PickleDatasetConfig, build_video_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.models.pretrained import load_slow_r50, pretrained_root
 from mme_tpu_torch.models.video import Conv3DClassifier, SlowR50
 
 
@@ -49,6 +51,23 @@ def synthetic_video(n: int, frames: int, size: int, num_classes: int,
     return ArrayDataset({"video": video}, labels.astype(np.int64))
 
 
+def load_weights(net, stages: Sequence[int], seed: int) -> None:
+    """Load ``net`` with weights drawn from ``seed``; for ``SlowR50`` (the
+    BatchNorm model) with ``MME_PRETRAINED`` naming a directory, its
+    backbone and running statistics from the slow_r50 checkpoint found
+    there (JAX's gate, ``mme_tpu/cli/visual_nn.py``)."""
+    variables = init_variables(net, seed)
+    root = pretrained_root()
+    if root and isinstance(net, SlowR50):
+        params, stats, ok = load_slow_r50(variables["params"],
+                                          variables["batch_stats"], root,
+                                          stages)
+        if ok:
+            variables = {"params": params, "batch_stats": stats}
+            print("loaded pretrained slow_r50 backbone", flush=True)
+    net.load_state_dict(from_flax(**variables), strict=True)
+
+
 def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = "cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
@@ -61,9 +80,6 @@ def main(argv: Optional[Sequence[str]] = None,
     stages = (1, 1, 1, 1) if tiny else (3, 4, 6, 3)
     resnet = cfg.model.lower() == "resnet"
 
-    if resnet and os.environ.get("MME_PRETRAINED"):
-        raise NotImplementedError("MME_PRETRAINED needs the slow_r50 weight "
-                                  "import (ROADMAP Queue 1 item 6)")
     pkl = resolve_pickle(cfg.dataset)
     if pkl is not None:
         rcfg = PickleDatasetConfig(label_col=cfg.label_task, seed=cfg.seed)
@@ -78,8 +94,7 @@ def main(argv: Optional[Sequence[str]] = None,
 
     net = (SlowR50(cfg.output_dim, stage_sizes=stages, device=dev) if resnet
            else Conv3DClassifier(cfg.output_dim, device=dev))
-    net.load_state_dict(from_flax(**init_variables(net, cfg.seed)),
-                        strict=True)
+    load_weights(net, stages, cfg.seed)
     return run_classifier(cfg, BatchModel(net, ("video",)), train_ds, val_ds,
                           test_ds, id2label=id2label, device=dev)
 

@@ -27,13 +27,14 @@ optimizer the flax layout's rows and columns of every leaf;
 :func:`init_variables` draws a flax-layout ``params`` (and
 ``batch_stats``) tree of any port model with numpy at flax's default
 initializer scales, for runs without JAX and without pretrained weights;
-:func:`init_params` does it for a ``FUSION_MODELS`` entry.
+:func:`init_params` does it for a ``FUSION_MODELS`` entry, and
+:func:`flax_shapes` gives the tree's shapes alone.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -232,6 +233,24 @@ def factored_views(model: nn.Module, min_size: Optional[int] = None):
             views.append((lambda t, s=shape: t.reshape(-1, s[-1]),
                           lambda v, s=shape: v.reshape(s)))
     return views
+
+
+class ShapeDtype(NamedTuple):
+    """A leaf with a shape and a dtype and no values."""
+    shape: Tuple[int, ...]
+    dtype: np.dtype
+
+
+def flax_shapes(model: nn.Module) -> Dict[str, Any]:
+    """The flax-layout ``params`` tree of ``model`` (built on any device,
+    ``meta`` included) with a :class:`ShapeDtype` leaf each, drawing
+    nothing: what ``jax.eval_shape`` gives for a flax model's init, and
+    what ``models/pretrained.py::merge_params`` takes as its target."""
+    tree: Dict[str, Any] = {}
+    for path, p, kind, heads in _leaves(model):
+        _set(tree, path, ShapeDtype(_flax_shape(p.shape, kind, heads),
+                                    np.dtype(np.float32)))
+    return tree
 
 
 def init_variables(model: nn.Module, seed: int = 0) -> Dict[str, Any]:

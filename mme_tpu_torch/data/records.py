@@ -41,14 +41,14 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def find_checkpoint_dir(root: str, repo_id: str) -> Optional[str]:
-    """Locate ``repo_id`` under ``root`` (full id or basename); the port's
-    copy of ``mme_tpu/models/pretrained.py::find_checkpoint_dir``."""
-    for cand in (repo_id, repo_id.split("/")[-1]):
-        d = os.path.join(root, cand)
-        if os.path.isdir(d):
-            return d
-    return None
+def __getattr__(name: str):
+    # ``records.find_checkpoint_dir`` is the weights' lookup in
+    # models/pretrained.py, imported only when asked for: a served bundle
+    # reaches this module (through ops/video.py) without the model code
+    if name == "find_checkpoint_dir":
+        from mme_tpu_torch.models.pretrained import find_checkpoint_dir
+        return find_checkpoint_dir
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class HashTokenizer:
@@ -88,6 +88,7 @@ def get_tokenizer(name: Optional[str] = "j-hartmann/emotion-english-distilrobert
         source = name
         root = os.environ.get("MME_PRETRAINED")
         if root:
+            from mme_tpu_torch.models.pretrained import find_checkpoint_dir
             local = find_checkpoint_dir(root, name)
             if local and os.path.exists(os.path.join(local,
                                                      "tokenizer_config.json")):

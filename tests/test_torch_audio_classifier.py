@@ -288,16 +288,15 @@ def test_audio_cli_runs_on_cpu(tmp_path, monkeypatch):
 
 
 def test_audio_cli_refusals(tmp_path, monkeypatch):
-    """What the port lacks raises before any work: ``MME_PRETRAINED`` with
-    the full-size tower (ROADMAP Queue 1 item 6); a missing pickle raises
-    ``FileNotFoundError``. ``MME_PRETRAINED`` with the tiny tower changes
-    nothing in JAX, and is not refused. (A pickle is read:
-    tests/test_torch_pickle_cli.py.)"""
+    """A missing pickle raises ``FileNotFoundError`` before any work, with
+    or without ``MME_PRETRAINED`` (which the full-size tower now loads
+    from, as in JAX: tests/test_torch_pretrained.py) and with the tiny
+    tower. (A pickle is read: tests/test_torch_pickle_cli.py.)"""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError):
         audio_nn_wav2vec.main(["--dataset", "missing"], device="cpu")
     monkeypatch.setenv("MME_PRETRAINED", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError):
         audio_nn_wav2vec.main(["--dataset", "missing"], device="cpu")
     monkeypatch.setenv("MME_TINY", "1")
     with pytest.raises(FileNotFoundError):

@@ -574,14 +574,15 @@ def test_cli_runs_on_cpu(cli, argv, tmp_path, monkeypatch):
 
 
 def test_cli_refusals(tmp_path, monkeypatch):
-    """What the port lacks raises before any work: ``visual_nn -m
-    ResNet`` with ``MME_PRETRAINED`` (ROADMAP Queue 1 item 6); a missing
-    pickle raises ``FileNotFoundError``. (A pickle is read:
+    """A missing pickle raises ``FileNotFoundError`` before any work, for
+    ``visual_nn -m ResNet`` with ``MME_PRETRAINED`` naming a directory
+    too (which it now loads slow_r50 from, as in JAX:
+    tests/test_torch_pretrained.py). (A pickle is read:
     tests/test_torch_pickle_cli.py.)"""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError):
         visual_nn.main(["--dataset", "missing"], device="cpu")
     monkeypatch.setenv("MME_PRETRAINED", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        visual_nn.main(["--dataset", "synthetic", "-m", "ResNet"],
+    with pytest.raises(FileNotFoundError):
+        visual_nn.main(["--dataset", "missing", "-m", "ResNet"],
                        device="cpu")

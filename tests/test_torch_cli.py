@@ -164,12 +164,21 @@ def test_main_prints_reference_keyed_dicts(tmp_path, monkeypatch, capsys):
     ("env", "MME_DP", "item 7"), ("env", "MME_SP", "item 7"),
     ("env", "MME_PP", "item 7"), ("env", "MME_COORDINATOR", "item 7"),
     ("env", "MME_NUM_PROCESSES", "item 7"),
-    ("env", "MME_PRETRAINED", "item 6")])
-def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch):
+    ("env", "MME_PRETRAINED", None)])
+def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch, capsys):
+    """The knobs of ROADMAP Queue 1 item 7 raise. ``MME_PRETRAINED`` (item
+    6) is no longer among them: naming no directory, it loads nothing and
+    raises nothing, as in JAX (tests/test_torch_pretrained.py loads)."""
     _, what, item = case
     monkeypatch.chdir(tmp_path)
     argv = ["--dataset", "synthetic", "-e", "1", "-b", "8"]
     monkeypatch.setenv(what, {"MME_MESH": "on"}.get(what, "2"))
+    if item is None:
+        monkeypatch.setattr(tav_nn, "run_classifier",
+                            lambda cfg, model, *a, **k: {"model": model})
+        assert type(tav_nn.main(argv, device="cpu")["model"]) is TAVModel
+        assert "loaded pretrained" not in capsys.readouterr().out
+        return
     with pytest.raises(NotImplementedError, match=item):
         tav_nn.main(argv, device="cpu")
 

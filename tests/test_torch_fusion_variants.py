@@ -5,7 +5,8 @@ tree per model and the same numpy-seeded batch; the MoE trunk's aux loss
 through ``make_train_step`` / ``make_eval_step``, ``Predictor``, a bundle
 and the ``tav_nn`` CLI.
 
-The weights are drawn once per file (module fixture) by
+The weights are drawn once per model and file (a module fixture that
+computes a model's reference when a test first asks for it) by
 ``convert.init_params(model=name)``, whose leaf set and shapes are held to
 JAX's ``model.init`` (traced by ``jax.eval_shape``, never run); both
 packages apply them in eval mode, JAX under ``jax.jit``. The batch carries
@@ -94,21 +95,32 @@ def _j_apply(model, params, jb):
     return jax.jit(run)(params, jb)
 
 
-@pytest.fixture(scope="module")
-def ref():
+class _PerModel(dict):
     """Per model: the flax-layout weights, JAX's init shapes, the fp32
-    logits and aux of JAX on one batch."""
-    batch = _batch()
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    out = {}
-    for name in NAMES:
+    logits and aux of JAX on one batch, computed when a test first asks
+    for the model (an xdist worker compiles only the JAX programs of the
+    models its tests take)."""
+
+    def __init__(self, jb):
+        super().__init__()
+        self.jb = jb
+
+    def __missing__(self, name):
         model = j_fusion.FUSION_MODELS[name](J_SPEC)
         shapes = jax.eval_shape(
-            lambda: model.init(jax.random.PRNGKey(0), jb))["params"]
+            lambda: model.init(jax.random.PRNGKey(0), self.jb))["params"]
         params = init_params(SPEC, 0, model=name)
-        logits, aux = _j_apply(model, params, jb)
-        out[name] = (params, shapes, np.asarray(logits), float(aux))
-    return batch, jb, out
+        logits, aux = _j_apply(model, params, self.jb)
+        self[name] = (params, shapes, np.asarray(logits), float(aux))
+        return self[name]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """(the batch, the batch as JAX arrays, :class:`_PerModel`)."""
+    batch = _batch()
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    return batch, jb, _PerModel(jb)
 
 
 def _port(name, params, spec=SPEC):

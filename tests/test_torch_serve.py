@@ -120,7 +120,7 @@ import wave as wavemod
 # any import of these now raises: the JAX side, and the media libraries the
 # card's machine lacks
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mme_tpu", "pandas",
-             "cv2", "PIL", "transformers"):
+             "cv2", "PIL", "transformers", "safetensors", "ml_dtypes"):
     sys.modules[name] = None
 import mme_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(mme_tpu_torch.__path__,
@@ -190,6 +190,28 @@ assert np.abs(y - resample_numpy(x / 32768.0, 44100, 16000)).max() < 1e-5
 ids, mask = records.tokenize_texts(["a b c"], 8,
                                    records.get_tokenizer(None, 100))
 assert ids.shape == (1, 8) and mask.sum() == 5
+# a .safetensors checkpoint through the port's own reader, and a BF16
+# tensor, which numpy has no dtype for, refused as safetensors.numpy does
+import json, struct
+from mme_tpu_torch.models import pretrained
+os.makedirs("ckpt")
+tensors = {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
+           "b": np.array([1, -2], np.int64), "c": np.array(True)}
+chip_smoke.write_safetensors(os.path.join("ckpt", "model.safetensors"),
+                             tensors, {"format": "pt"})
+got = pretrained.load_local_state_dict("ckpt")
+assert got.keys() == tensors.keys()
+assert all(got[k].dtype == v.dtype and np.array_equal(got[k], v)
+           for k, v in tensors.items())
+head = json.dumps({"w": {"dtype": "BF16", "shape": [2],
+                         "data_offsets": [0, 4]}}).encode()
+with open("bf16.safetensors", "wb") as f:
+    f.write(struct.pack("<Q", len(head)) + head + bytes(4))
+try:
+    pretrained.load_local_state_dict("bf16.safetensors")
+    raise AssertionError("a BF16 tensor was read")
+except TypeError as e:
+    assert str(e) == "data type 'bfloat16' not understood", e
 assert len(mods) >= 57, mods
 print(len(mods), "modules")
 """
@@ -199,9 +221,12 @@ def test_port_runs_with_jax_blocked(tmp_path):
     """Every port module imports, and serving, the train step, a
     one-epoch synthetic run of the TAV CLI and of ``images_nn``, the audio
     classifier and SlowR50 on drawn weights, and the WAV decoder built from
-    the port's own source work, with JAX, flax, optax, orbax, mme_tpu and
-    the media libraries (pandas, cv2, PIL, transformers) blocked (the CLIs
-    write their checkpoints under tmp_path)."""
+    the port's own source work, and a ``.safetensors`` checkpoint loads
+    through ``models/pretrained.py`` (a BF16 tensor refused as
+    ``safetensors.numpy`` refuses it), with JAX, flax, optax, orbax,
+    mme_tpu, ml_dtypes, safetensors and the media libraries (pandas, cv2,
+    PIL, transformers) blocked (the CLIs write their checkpoints under
+    tmp_path)."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
                          cwd=str(tmp_path),

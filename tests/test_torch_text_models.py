@@ -339,10 +339,10 @@ def test_text_cli_lstm_with_glove_runs_on_cpu(tmp_path, monkeypatch):
 
 
 def test_text_cli_refusals(tmp_path, monkeypatch):
-    """What the port lacks raises before any work: ``MME_PRETRAINED`` with
-    the full-size BERT model (ROADMAP Queue 1 item 6); a missing pickle
-    raises ``FileNotFoundError``. The LSTM loads no pretrained weights in
-    JAX, and is not refused for them, nor is the tiny BERT. (A pickle is
+    """A missing pickle raises ``FileNotFoundError`` before any work: for
+    the BERT model and the LSTM, with and without ``MME_PRETRAINED``
+    (which the full-size BERT model now loads from, as in JAX:
+    tests/test_torch_pretrained.py), full-size and tiny. (A pickle is
     read: tests/test_torch_pickle_cli.py.)"""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError):
@@ -350,7 +350,7 @@ def test_text_cli_refusals(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         text_nn.main(["--dataset", "missing", "-m", "LSTM"], device="cpu")
     monkeypatch.setenv("MME_PRETRAINED", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError):
         text_nn.main(["--dataset", "missing"], device="cpu")
     with pytest.raises(FileNotFoundError):
         text_nn.main(["--dataset", "missing", "-m", "LSTM"], device="cpu")
