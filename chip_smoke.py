@@ -109,10 +109,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    utterances per second beside leg (4)'s bare step, peak memory,
    checkpoint size, the host ms of each save's blocking part, of each
    ``wait()`` and of each restore, free disk space and the phase's time;
-   then runs one more epoch under ``torch.profiler`` (device activity
-   only) for the device's busy share of it. The eval-only run also sets
-   ``MME_PREDICT_OUT`` and ``MME_EXPORT_BUNDLE`` to a temporary directory:
-   phase 7's first leg.
+   the training run goes under ``torch.profiler`` (device activity only)
+   for the device's busy share of its two epochs. The eval-only run also
+   sets ``MME_PREDICT_OUT`` and ``MME_EXPORT_BUNDLE`` to a temporary
+   directory: phase 7's first leg.
 7. The serving front ends at full width, on phase 6's trained model (bf16
    compute over fp32 weights, batch 8):
    (1) the eval-only run's exports: one prediction row per test utterance,
@@ -312,15 +312,55 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        of each against its file, SlowR50's BatchNorm buffers against the
        file's running statistics, one served batch of 8 each.
 
+13. The parallel axes, part one: two ranks on the one card. NCCL refuses
+   two ranks on one GPU, so they join a gloo group (``MME_DIST_BACKEND=
+   gloo``) and every collective and ring hop of a CUDA tensor goes through
+   pinned host memory; the ranks are processes of a
+   ``parallel/launch.py::RankPool`` started through the env contract
+   (``MME_COORDINATOR`` on a free local port, ``MME_NUM_PROCESSES=2``,
+   ``MME_PROCESS_ID``), each on ``cuda:0``, each call under a time limit.
+   Full-width ``TAVSpec(output_dim=7)`` weights from one seed:
+   (1) on this process, the single-rank fp32 step (global batch 4, no
+       dropout) whose loss, grad norm and updated parameters the ranks are
+       held to, and the single-rank fp32 ``Predictor``'s probabilities on
+       phase 4's requests;
+   (2) dp=2, fp32: ``replicate`` broadcasts rank 0's weights, each rank
+       steps on its 2 rows: loss and grad norm as phase 5 holds them, every
+       parameter after the AdamW update within 2.5·lr of the single-rank
+       one, 54 K1 and K2;
+   (3) dp=2, bf16 at the global batch of 8 with every knob on: 1 warm-up
+       and 2 timed steps, ms per step, the all-reduce's share of a step
+       (timed around it, synchronised), each rank's peak memory (the two
+       must fit the card), one step's launches (54 K1, K2, K5a, K5b, the
+       spec's K4a/K4b at 4 rows, one K3);
+   (4) sp=2 through the CLI path (``tav_nn.tav_spec``, ``parallel_spec``
+       with ``MME_SP=2`` and ``MME_SP_TOWER`` fusion, then video,
+       ``build_model``) in fp32 without dropout, beside the unsharded model
+       on the same weights: the eval probabilities within
+       ``SERVE_TOL[fp32]``, the training loss and grad norm as phase 5
+       holds them, every gradient leaf within ``P13_GRAD_RTOL`` of its
+       largest element, K1 and K2 per call equal to ring layers × 2 hops
+       plus the other towers' layers (66), one global pre-pass per ring
+       layer (12); the ring's training forward and backward timed beside
+       the unsharded model's;
+   (5) mesh serving: ``Predictor(mesh=dp2)`` on phase 4's requests, each
+       rank computing 4 rows of a chunk, against (1)'s probabilities;
+   (6) back on this process, K1 per hop and K2's kernels per hop with the
+       one global pre-pass at the local shapes the ranks fed the ring, in
+       fp32 and bf16, against their plain versions and against the whole
+       sequence; a fully masked row's dV as a per-block pre-pass would give
+       it (too large) beside the ring's. Prints the phase's seconds.
+
 Then one JSON line of per-kernel results (seven kernels;
 ``launches_<model>`` gives phases 8, 9 and 10's counts: a served chunk
 with both knobs on for a forward kernel, a bf16 train step for the
 others, the MTL's fp32 step, 0 for a model without a train leg;
 ``launches_data_path`` phase 11's whole run and
 ``launches_data_path_step`` one of its train steps per bucket bound,
-``launches_pretrained`` phase 12's train run), the card's name and power
-limit, and last the line
-``{"ok": true, "device": {...}}``.
+``launches_pretrained`` phase 12's train run, ``launches_parallel_dp``
+a bf16 dp=2 step of rank 0 and ``launches_parallel_sp_{fusion,video}`` a
+fp32 sp=2 training forward and backward of rank 0), the card's name and
+power limit, and last the line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -1786,41 +1826,19 @@ def busy_share(prof, wall_s: float) -> float:
     return busy / 1e6 / wall_s
 
 
-def profiled_epoch(params, spec: TAVSpec) -> dict:
-    """One epoch of ``run_classifier`` as phase 6 runs it (4 steps, 2
-    validations and their saves, the best reload, then the test pass)
-    under ``torch.profiler`` with device activity only: its wall time and
-    the device's busy share of it."""
-    directory = tempfile.mkdtemp(prefix="mme_loop_prof_")
-    try:
-        cfg = ExperimentConfig(**dict(LOOP_CFG, epoch=1),
-                               checkpoint_dir=directory, text_max_len=70,
-                               audio_max_samples=96000)
-        model, *data = loop_inputs(params, spec, "cuda", 70, 96000)
-        transform = make_video_keep_transform(spec, random_mask=True)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            run_classifier(cfg, model, *data, batch_transform=transform,
-                           device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-    finally:
-        shutil.rmtree(directory, ignore_errors=True)
-    return {"wall_s": wall, "device_busy_share": busy_share(prof, wall)}
-
-
 def loop_run(params, spec: TAVSpec, device: str, directory: str,
              text_len: int = 70, audio_len: int = 96000,
-             front_ends: Optional[str] = None) -> dict:
+             front_ends: Optional[str] = None,
+             profile: bool = False) -> dict:
     """Phase 6's runs on ``device`` (the CPU runs them at a tiny size):
     ``run_classifier`` trains and tests; the best checkpoint is restored
     into fresh tensors; a save is followed by a train step before its
     ``wait()``; ``MME_EVAL_ONLY=1`` tests the checkpoint again, and with
     ``front_ends`` (a directory) writes the serving exports there too:
     ``MME_PREDICT_OUT`` rows and an ``MME_EXPORT_BUNDLE`` bundle (phase 7's
-    first leg). Checks all but the kernel launches and returns what it
+    first leg). ``profile``: the training run under ``torch.profiler``
+    (device activity only), for the device's busy share of its two
+    epochs. Checks all but the kernel launches and returns what it
     measured."""
     cfg = ExperimentConfig(**LOOP_CFG, checkpoint_dir=directory,
                            text_max_len=text_len, audio_max_samples=audio_len)
@@ -1831,11 +1849,18 @@ def loop_run(params, spec: TAVSpec, device: str, directory: str,
     ckpts = TimedCheckpoints(directory)
 
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    summary = run_classifier(cfg, model, train_ds, val_ds, test_ds,
-                             batch_transform=transform, checkpoints=ckpts,
-                             device=device)
-    loop_s = time.perf_counter() - t0
+    prof = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
+        else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        summary = run_classifier(cfg, model, train_ds, val_ds, test_ds,
+                                 batch_transform=transform,
+                                 checkpoints=ckpts, device=device)
+        if profile:
+            torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    busy = busy_share(prof, loop_s) if profile else None
     launches = dict(kernels.LAUNCHES)
     with open(os.path.join(directory, "metrics.jsonl")) as f:
         logs = [json.loads(line) for line in f]
@@ -1892,7 +1917,7 @@ def loop_run(params, spec: TAVSpec, device: str, directory: str,
     eval_rel = (abs(again["test/loss"] - summary["test/loss"])
                 / abs(summary["test/loss"]))
     out = {
-        "loop_s": loop_s, "launches": launches,
+        "loop_s": loop_s, "device_busy_share": busy, "launches": launches,
         "utt_per_s_loop": [d["train/steps_per_sec"] * cfg.batch_size
                            for d in train_logs],
         "epochs": [d["epoch"] for d in train_logs],
@@ -1933,11 +1958,8 @@ def train_loop(params, card: str, step_ms: float, front_dir: str
     try:
         torch.cuda.reset_peak_memory_stats()
         out = loop_run(params, spec, "cuda", directory,
-                       front_ends=front_dir)
+                       front_ends=front_dir, profile=True)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        shutil.rmtree(directory, ignore_errors=True)
-        torch.cuda.empty_cache()
-        epoch = profiled_epoch(params, spec)
     finally:
         for k in LOOP_ENV:
             del os.environ[k]
@@ -1950,7 +1972,6 @@ def train_loop(params, card: str, step_ms: float, front_dir: str
         **out, "expected_launches": want,
         "bare_step_ms_fused_adam": step_ms,
         "utt_per_s_bare_step": 8e3 / step_ms,
-        "profiled_epoch": epoch,
         "max_memory_allocated_gb": peak, "free_disk_gb_before": free_gb,
         "phase_s": time.perf_counter() - t0, "card": card}}), flush=True)
     if any(n.get(k, 0) != v for k, v in want.items()):
@@ -4663,6 +4684,549 @@ def pretrained(card: str) -> dict:
     return launches
 
 
+
+# phase 13: the parallel axes, part one, as two ranks on the one card. NCCL
+# refuses two ranks on one GPU, so the ranks join a gloo group
+# (MME_DIST_BACKEND=gloo): every collective and every ring hop of a CUDA
+# tensor is staged through pinned host memory (parallel/mesh.py's
+# ``_gloo_host`` branch). Each rank sits on cuda:0 in a process of its own
+# (parallel/launch.py::RankPool through the env contract).
+P13_SEED = SEED + 130
+P13_WORLD = 2
+P13_ENV = {"MME_DIST_BACKEND": "gloo"}
+P13_RANK_TIMEOUT_S = 300
+P13_FP32_BATCH = 4          # the global batch of the fp32 dp step
+P13_BF16_BATCH = 8          # the global batch of the timed bf16 dp steps
+P13_SP_BATCH = 2
+P13_LR = 1e-4
+P13_BF16_ENV = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1",
+                "MME_FUSED_LN": "1", "MME_FUSED_MLP": "1"}
+P13_TOWERS = ("fusion", "video")
+# fp32 dp=2 step against the single-rank step from the same state: the
+# loss and grad norm as phase 5 holds kernels against MME_FLASH=0; after
+# one AdamW step an element moves by at most lr·(1 + weight decay) either
+# way, so an element whose tiny gradient changed sign (fp32 sums of the
+# two ranks' partials in another order) moves 2·lr apart
+P13_PARAM_TOL = 2.5 * P13_LR
+# sp=2 against the unsharded model in fp32: the logits as served fp32
+# probabilities are held (SERVE_TOL), each gradient leaf within this share
+# of its largest element (the ring merges hops in fp32 in another order)
+P13_GRAD_RTOL = 1e-3
+
+
+def _rank_setup() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _save_tree(tree: dict, path: str) -> None:
+    """A flax-layout tree of numpy leaves as one torch file of tensors
+    keyed by their '/'-joined paths."""
+    flat = {}
+
+    def walk(t, prefix):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = torch.from_numpy(
+                    np.ascontiguousarray(v))
+
+    walk(tree, ())
+    torch.save(flat, path)
+
+
+def _p13_params(path: str) -> dict:
+    """The phase's weights (drawn once, by the parent, from P13_SEED), read
+    back from ``path`` as a flax-layout tree of numpy leaves."""
+    tree: dict = {}
+    for key, t in torch.load(path, weights_only=True, mmap=True).items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = t.numpy()
+    return tree
+
+
+def _p13_spec(dtype=torch.float32, quiet: bool = True) -> TAVSpec:
+    spec = TAVSpec(output_dim=7)
+    if quiet:
+        spec = without_noise(spec)
+    return dataclasses.replace(spec.with_compute_dtype(dtype),
+                               share_audio_frontend=True)
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def p13_dp_fp32(ref: dict) -> dict:
+    """A rank of the fp32 dp=2 step: the same weights (broadcast from rank
+    0 by ``replicate``) and this rank's 2 rows of the global batch of 4;
+    loss, grad norm and every parameter after the update against the
+    single-rank step saved at ``ref["path"]``."""
+    from mme_tpu_torch.parallel import distributed
+    from mme_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+    _rank_setup()
+    t0 = time.perf_counter()
+    spec = _p13_spec()
+    mesh = make_mesh(P13_WORLD, 1)
+    cfg = ExperimentConfig(batch_size=P13_FP32_BATCH,
+                           learning_rate=P13_LR, text_max_len=70,
+                           audio_max_samples=96000)
+    model, state, step, _ = build_tav(spec, cfg, 1000,
+                                      params=_p13_params(ref["weights"]),
+                                      remat=False, use_accum=False,
+                                      device="cuda", mesh=mesh)
+    replicate(model, mesh)
+    batch, labels, mask, cw = train_inputs(spec, P13_FP32_BATCH,
+                                           P13_SEED + 1)
+    local = shard_batch({**batch, "_labels": labels, "_mask": mask}, mesh)
+    labels, mask = local.pop("_labels"), local.pop("_mask")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    _, loss, cm, norm = step(state, local, labels, mask, cw, 1.0, True,
+                             SEED)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = torch.load(ref["path"], map_location="cuda", weights_only=True)
+    diff = max((p.detach() - want[n]).abs().max().item()
+               for n, p in model.named_parameters())
+    out = {"rank": distributed.rank(), "device": str(state.params[0].device),
+           "transport": mesh.world.transport(state.params[0]),
+           "loss": loss.item(), "grad_norm": float(norm),
+           "cm_sum": int(cm.sum()), "max_param_diff": diff,
+           "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    del model, state, step, want
+    _free()
+    return out
+
+
+def p13_dp_bf16(weights: str, steps: int, warmup: int) -> dict:
+    """A rank of the bf16 dp=2 steps at the global batch of 8 with every
+    knob on: ms per step (host clock, synchronised), the all-reduce's
+    share of it, launches of one step, this rank's peak memory."""
+    from mme_tpu_torch.parallel import distributed
+    from mme_tpu_torch.parallel.mesh import AxisGroup, make_mesh, shard_batch
+    _rank_setup()
+    t0 = time.perf_counter()
+    spec = _p13_spec(torch.bfloat16, quiet=False)
+    mesh = make_mesh(P13_WORLD, 1)
+    reduce_ms = []
+    plain = AxisGroup.all_reduce_many
+
+    def timed(self, tensors):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain(self, tensors)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    os.environ.update(P13_BF16_ENV)
+    AxisGroup.all_reduce_many = timed
+    try:
+        cfg = ExperimentConfig(batch_size=P13_BF16_BATCH,
+                               learning_rate=5e-6, text_max_len=70,
+                               audio_max_samples=96000)
+        model, state, step, _ = build_tav(
+            spec, cfg, 1000, params=_p13_params(weights), remat=False,
+            use_accum=False, device="cuda", mesh=mesh)
+        batch, labels, mask, cw = train_inputs(spec, P13_BF16_BATCH,
+                                               P13_SEED + 2)
+        local = shard_batch({**batch, "_labels": labels, "_mask": mask},
+                            mesh)
+        labels, mask = local.pop("_labels"), local.pop("_mask")
+        local = to_device(local, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for i in range(warmup + steps):
+            reduce_ms.clear()
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, loss, _, _ = step(state, local, labels, mask, cw, 1.0, True,
+                                 SEED + i)
+            torch.cuda.synchronize()
+            if i >= warmup:
+                ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(loss.item())
+                shares = sum(reduce_ms) / ms[-1]
+        launches = dict(kernels.LAUNCHES)
+        n_ln = sum(fused_ln_shapes(spec, P13_BF16_BATCH // P13_WORLD)
+                   .values())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        AxisGroup.all_reduce_many = plain
+        for k in P13_BF16_ENV:
+            del os.environ[k]
+    out = {"rank": distributed.rank(), "ms_per_step": ms,
+           "all_reduce_ms_last": sum(reduce_ms),
+           "all_reduce_share_last": shares,
+           "losses": losses, "launches": launches,
+           "expected_layer_norm": n_ln, "peak_gb": peak,
+           "seconds": time.perf_counter() - t0}
+    del model, state, step
+    _free()
+    return out
+
+
+def _ring_shapes(record: list):
+    """Wrap the ring's K1 calls to note their (q, k) shapes."""
+    from mme_tpu_torch.ops import ring_attention as ra
+    plain = ra.flash_attention_fwd
+
+    def noted(q, k, v, bias):
+        record.append((tuple(q.shape), tuple(k.shape), str(q.dtype)))
+        return plain(q, k, v, bias)
+
+    ra.flash_attention_fwd = noted
+    return lambda: setattr(ra, "flash_attention_fwd", plain)
+
+
+def p13_sp(tower: str) -> dict:
+    """A rank of sp=2 through the CLI path: ``tav_nn.tav_spec`` at full
+    width, ``parallel_spec`` with ``MME_SP=2 MME_SP_TOWER=tower``,
+    ``build_model``; the unsharded model on the same weights beside it.
+    fp32, dropout and SpecAugment off, the fixed keep-mask. The eval
+    logits, then one training forward and backward: loss, every gradient
+    leaf, and K1/K2 launches per rank against ring layers × hops plus the
+    unsharded layers."""
+    from mme_tpu_torch.parallel import distributed
+    _rank_setup()
+    t0 = time.perf_counter()
+    env = {"MME_SP": str(P13_WORLD), "MME_SP_TOWER": tower}
+    os.environ.update(env)
+    try:
+        cfg = ExperimentConfig(output_dim=7, dataset="chip_smoke_p13",
+                               seed=P13_SEED, batch_size=P13_SP_BATCH,
+                               dropout=0.0)
+        base, _, _ = tav_nn.tav_spec(cfg)
+        base = without_noise(base)
+        spec, mesh = tav_nn.parallel_spec(cfg, base)
+        model = tav_nn.build_model(cfg, spec, "cuda")
+    finally:
+        for k in env:
+            del os.environ[k]
+    ref = TAVModel(base, device="cuda")
+    ref.load_state_dict(model.state_dict())
+    batch, labels, mask, cw = train_inputs(base, P13_SP_BATCH, P13_SEED + 3)
+    batch = make_video_keep_transform(base, random_mask=False)(
+        None, to_device(batch, "cuda"))
+    labels, mask, cw = (torch.as_tensor(x, device="cuda")
+                        for x in (labels, mask, cw))
+    shapes: list = []
+    undo = _ring_shapes(shapes)
+    try:
+        model.eval()
+        ref.eval()
+        with torch.no_grad():
+            kernels.reset_launches()
+            logits = model(batch)
+            torch.cuda.synchronize()
+            fwd_launches = dict(kernels.LAUNCHES)
+            want_logits = ref(batch)
+        model.train()
+        ref.train()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        loss = cross_entropy(model(batch), labels, cw, mask)
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        step_launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        undo()
+    want_loss = cross_entropy(ref(batch), labels, cw, mask)
+    want = torch.autograd.grad(want_loss, list(ref.parameters()),
+                               allow_unused=True)
+
+    def step_ms(m):
+        """Host ms of one synchronised training forward and backward
+        (the mean of 2, after the ones above)."""
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            torch.autograd.grad(cross_entropy(m(batch), labels, cw, mask),
+                                list(m.parameters()), allow_unused=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    ring_ms, whole_ms = step_ms(model), step_ms(ref)
+    worst, worst_name = 0.0, None
+    norm2 = norm2_ref = 0.0
+    for (name, p), g, w in zip(model.named_parameters(), grads, want):
+        g = torch.zeros_like(p) if g is None else g
+        w = torch.zeros_like(p) if w is None else w
+        norm2 += g.double().square().sum().item()
+        norm2_ref += w.double().square().sum().item()
+        share = ((g - w).abs().max().item()
+                 / max(w.abs().max().item(), 1e-30))
+        if w.abs().max().item() > 0 and share > worst:
+            worst, worst_name = share, name
+    ring_layers = (spec.fusion.layers if tower == "fusion"
+                   else getattr(spec, tower).encoder.layers)
+    layers = (spec.text.encoder.layers + spec.audio.encoder.layers
+              + spec.video.encoder.layers + spec.fusion.layers)
+    per_call = layers - ring_layers + ring_layers * P13_WORLD
+    probs = torch.softmax(logits.float(), -1)
+    want_probs = torch.softmax(want_logits.float(), -1)
+    out = {"rank": distributed.rank(), "tower": tower,
+           "transport": mesh.axis("sp").transport(logits),
+           "ring_layers": ring_layers, "hops": P13_WORLD,
+           "expected_k1_k2": per_call, "expected_prepass": ring_layers,
+           "launches_forward": fwd_launches, "launches_step": step_launches,
+           "logit_max_diff": (logits - want_logits).abs().max().item(),
+           "prob_max_diff": (probs - want_probs).abs().max().item(),
+           "loss": loss.item(), "loss_unsharded": want_loss.item(),
+           "grad_norm": norm2 ** 0.5, "grad_norm_unsharded": norm2_ref ** 0.5,
+           "worst_grad_share": worst, "worst_grad_leaf": worst_name,
+           "ring_shapes": sorted(set(shapes)), "peak_gb": peak,
+           "ring_step_ms": ring_ms, "unsharded_step_ms": whole_ms,
+           "seconds": time.perf_counter() - t0}
+    del model, ref, grads, want
+    _free()
+    return out
+
+
+def p13_serve(weights: str, reqs: list) -> dict:
+    """A rank of mesh serving: ``Predictor(mesh=dp2)`` over chunks of 8,
+    fp32, this rank's 4 rows of each; the probabilities gathered."""
+    from mme_tpu_torch.parallel import distributed
+    from mme_tpu_torch.parallel.mesh import make_mesh
+    _rank_setup()
+    t0 = time.perf_counter()
+    spec = _p13_spec()
+    model = TAVModel(spec, device="cuda")
+    model.load_state_dict(from_flax(_p13_params(weights)))
+    pred = Predictor(model, batch_size=8, device="cuda",
+                     mesh=make_mesh(P13_WORLD, 1))
+    kernels.reset_launches()
+    probs = [pred(r)[1] for r in reqs]
+    launches = dict(kernels.LAUNCHES)
+    out = {"rank": distributed.rank(), "probs": probs,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    del model, pred
+    _free()
+    return out
+
+
+def ring_hop_hold(B: int, L: int, H: int, D: int, dtype, seed: int) -> dict:
+    """K1 per hop and K2's two kernels per hop with the one global
+    pre-pass, on this process, at a ring's local shapes (P13_WORLD blocks
+    of L keys): each against its plain version, then the merged hops'
+    O / LSE and the summed gradients against the whole sequence's plain
+    forward and backward. Batch row 1 has every key masked (the model's
+    mask bias), row 0 a random key mask and a padded tail at -1e30: the
+    pre-pass must restore row 1's log n of the whole context, which a
+    per-block pre-pass would not."""
+    from mme_tpu_torch.ops.flash_attention import (flash_bwd_prepass,
+                                                   flash_bwd_prepass_plain)
+    from mme_tpu_torch.ops.ring_attention import finish_merge, merge_block
+    n = P13_WORLD
+    S = n * L
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, L, H, D, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, L, H, D, generator=g, device="cuda").to(dtype)
+    keep = torch.rand(B, S, generator=g, device="cuda") > 0.3
+    keep[1] = False
+    bias = additive_mask(keep)[:, 0, 0, :].contiguous()
+    bias[0, S - 3:] = -1e30
+    blocks = [(k[:, i * L:(i + 1) * L], v[:, i * L:(i + 1) * L],
+               bias[:, i * L:(i + 1) * L].contiguous()) for i in range(n)]
+    tol = TOL[dtype]
+
+    def merged(fwd):
+        m = torch.full((B, H, L), float("-inf"), device="cuda")
+        l = torch.zeros((B, H, L), device="cuda")
+        acc = torch.zeros((B, L, H, D), device="cuda")
+        for kb, vb, bb in blocks:
+            o_i, lse_i = fwd(q, kb, vb, bb)
+            m, l, acc = merge_block(m, l, acc, o_i, lse_i)
+        return finish_merge(m, l, acc, dtype)
+
+    kernels.reset_launches()
+    out, lse = merged(flash_attention_fwd)
+    k1_launches = kernels.LAUNCHES["flash_fwd"]
+    out_p, lse_p = merged(flash_attention_fwd_plain)
+    whole_o, whole_lse = flash_attention_fwd_plain(q, k, v, bias)
+    fwd_err = (out.float() - out_p.float()).abs().max().item()
+    whole_err = (out.float() - whole_o.float()).abs().max().item()
+    lse_err = ((lse - lse_p).abs() / lse_p.abs().clamp(min=1.0)
+               ).max().item()
+    rows = flash_bwd_prepass(out, do, lse, bias)
+    rows_p = flash_bwd_prepass_plain(out, do, lse, bias)
+    pre_err = max((a - b).abs().max().item() for a, b in zip(rows, rows_p))
+    got, plain = [], []
+    for kb, vb, bb in blocks:
+        got.append(flash_attention_bwd(q, kb, vb, bb, out, lse, do, rows))
+        plain.append(flash_attention_bwd_plain(q, kb, vb, bb, out, lse, do,
+                                               rows_p))
+    torch.cuda.synchronize()
+
+    def summed(parts):
+        return (sum(p[0].float() for p in parts),
+                torch.cat([p[1] for p in parts], 1),
+                torch.cat([p[2] for p in parts], 1))
+
+    ok_b, share, bwd_err = grads_close(summed(got), summed(plain), dtype)
+    whole = flash_attention_bwd_plain(q, k, v, bias, out, lse, do)
+    ok_w, share_w, _ = grads_close(summed(got), whole, dtype)
+    # the masked row's dV under a pre-pass per block: n times too large
+    per_block = [flash_attention_bwd_plain(q, kb, vb, bb, out, lse, do)
+                 for kb, vb, bb in blocks]
+    dv_block = summed(per_block)[2][1].float().abs().max().item()
+    dv_ring = summed(got)[2][1].float().abs().max().item()
+    k1_ms = cuda_ms(lambda: flash_attention_fwd(q, *blocks[0]))
+    k1_plain_ms = cuda_ms(lambda: flash_attention_fwd_plain(q, *blocks[0]),
+                          iters=5)
+    k2_ms = cuda_ms(lambda: flash_attention_bwd(q, *blocks[0], out, lse, do,
+                                                rows))
+    k2_plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, *blocks[0], out, lse, do, rows_p), iters=5)
+    res = {"B": B, "L": L, "S": S, "H": H, "D": D, "dtype": str(dtype)[6:],
+           "k1_launches": k1_launches, "fwd_max_err": fwd_err,
+           "lse_rel_err": lse_err, "vs_whole_sequence": whole_err,
+           "prepass_max_err": pre_err, "bwd_max_err": bwd_err,
+           "bwd_share_of_tol": share, "vs_whole_share_of_tol": share_w,
+           "masked_row_max_dv_ring": dv_ring,
+           "masked_row_max_dv_per_block_prepass": dv_block,
+           "k1_hop_ms": k1_ms, "k1_hop_plain_ms": k1_plain_ms,
+           "k2_hop_ms": k2_ms, "k2_hop_plain_ms": k2_plain_ms}
+    print(json.dumps({"ring_hop_hold": res}), flush=True)
+    excess = ((out.float() - out_p.float()).abs()
+              - tol["rtol"] * out_p.float().abs()).max().item()
+    if not (ok_b and ok_w and excess <= tol["atol"] and lse_err <= tol["lse"]
+            and k1_launches == n and dv_block > 1.5 * dv_ring):
+        raise SystemExit(f"the ring's K1/K2 hops disagree with their plain "
+                         f"versions at B={B} L={L} {dtype}")
+    return res
+
+
+def parallel_axes(card: str) -> dict:
+    """Phase 13: the single-rank references on this process, then two
+    ranks on the card (a pool of two processes, gloo): the fp32 dp=2 step,
+    bf16 dp=2 steps with every knob, sp=2 on the fusion trunk and on the
+    video tower through the CLI path, mesh serving; then the ring's hops
+    held on this process at the local shapes the ranks fed K1."""
+    from mme_tpu_torch.parallel.launch import RankPool
+    t0 = time.perf_counter()
+    _rank_setup()
+    spec = _p13_spec()
+    params = init_params(spec, P13_SEED)
+    directory = tempfile.mkdtemp(prefix="mme_p13_")
+    weights = os.path.join(directory, "weights.pt")
+    _save_tree(params, weights)
+    try:
+        # the single-rank fp32 step on the global batch of 4
+        cfg = ExperimentConfig(batch_size=P13_FP32_BATCH,
+                               learning_rate=P13_LR, text_max_len=70,
+                               audio_max_samples=96000)
+        model, state, step, _ = build_tav(spec, cfg, 1000, params=params,
+                                          remat=False, use_accum=False,
+                                          device="cuda")
+        batch, labels, mask, cw = train_inputs(spec, P13_FP32_BATCH,
+                                               P13_SEED + 1)
+        _, loss, _, norm = step(state, batch, labels, mask, cw, 1.0, True,
+                                SEED)
+        ref = {"path": os.path.join(directory, "ref.pt"),
+               "weights": weights, "loss": loss.item(),
+               "grad_norm": float(norm)}
+        torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+                   ref["path"])
+        model.load_state_dict(from_flax(params))
+        single = Predictor(model, batch_size=8, device="cuda")
+        reqs = requests(spec)
+        want_probs = [single(r)[1] for r in reqs]
+        del model, state, step, single, params
+        _free()
+        ref_s = time.perf_counter() - t0
+
+        t = time.perf_counter()
+        with RankPool(P13_WORLD, device="cuda", env=P13_ENV,
+                      timeout_s=P13_RANK_TIMEOUT_S) as pool:
+            spawn_s = time.perf_counter() - t
+            dp = pool.run(f"{os.path.abspath(__file__)}:p13_dp_fp32", ref)
+            bf16 = pool.run(f"{os.path.abspath(__file__)}:p13_dp_bf16",
+                            weights, 2, 1)
+            sp = {tw: pool.run(f"{os.path.abspath(__file__)}:p13_sp", tw)
+                  for tw in P13_TOWERS}
+            served = pool.run(f"{os.path.abspath(__file__)}:p13_serve",
+                              weights, reqs)
+        ranks_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    local = sorted({q for rs in sp.values()
+                    for q, _, _ in rs[0]["ring_shapes"]})
+    holds = [ring_hop_hold(B, L, H, D, dtype, P13_SEED + i)
+             for i, (B, L, H, D) in enumerate(local)
+             for dtype in (torch.float32, torch.bfloat16)]
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    served_diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                      for r in served for a, b in zip(r["probs"],
+                                                      want_probs))
+    out = {"reference_s": ref_s, "spawn_s": spawn_s, "ranks_s": ranks_s,
+           "reference": {k: ref[k] for k in ("loss", "grad_norm")},
+           "dp_fp32": dp, "dp_bf16": bf16, "sp": sp,
+           "served_prob_max_diff": served_diff,
+           "served_launches": [r["launches"] for r in served],
+           "ring_hops": holds, "card_gb": total_gb,
+           "phase_s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"parallel_axes": {
+        **out, "served_probs": None}}), flush=True)
+    n_ln = bf16[0]["expected_layer_norm"]
+    chunks = sum(-(-len(r["input_ids"]) // 8) for r in reqs)
+    checks = {
+        "dp_fp32": all(
+            abs(r["loss"] - ref["loss"]) <= TRAIN_LOSS_RTOL * abs(ref["loss"])
+            and abs(r["grad_norm"] - ref["grad_norm"])
+            <= TRAIN_NORM_RTOL * ref["grad_norm"]
+            and r["max_param_diff"] <= P13_PARAM_TOL
+            and r["cm_sum"] == P13_FP32_BATCH
+            and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
+            == LAUNCHES_PER_CHUNK and r["transport"] == "gloo-host"
+            for r in dp),
+        "dp_bf16": all(
+            all(np.isfinite(r["losses"]))
+            and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
+            == r["launches"]["fused_mlp_fwd"]
+            == r["launches"]["fused_mlp_bwd"] == LAUNCHES_PER_CHUNK
+            and r["launches"]["layer_norm_fwd"]
+            == r["launches"]["layer_norm_bwd"] == n_ln
+            and r["launches"]["adam_update"] == 1 for r in bf16)
+        and sum(r["peak_gb"] for r in bf16) < total_gb,
+        "sp": all(
+            r["prob_max_diff"] <= SERVE_TOL[torch.float32]
+            and abs(r["loss"] - r["loss_unsharded"])
+            <= TRAIN_LOSS_RTOL * abs(r["loss_unsharded"])
+            and abs(r["grad_norm"] - r["grad_norm_unsharded"])
+            <= TRAIN_NORM_RTOL * r["grad_norm_unsharded"]
+            and r["worst_grad_share"] <= P13_GRAD_RTOL
+            and r["launches_forward"]["flash_fwd"] == r["expected_k1_k2"]
+            and r["launches_step"]["flash_fwd"] == r["expected_k1_k2"]
+            and r["launches_step"]["flash_bwd"] == r["expected_k1_k2"]
+            and r["launches_step"]["flash_bwd_prepass"]
+            == r["expected_prepass"] and r["transport"] == "gloo-host"
+            for rs in sp.values() for r in rs),
+        "serve": served_diff <= SERVE_TOL[torch.float32] and all(
+            r["launches"]["flash_fwd"] == chunks * LAUNCHES_PER_CHUNK
+            for r in served)}
+    if not all(checks.values()):
+        raise SystemExit(f"phase 13 (the parallel axes) failed: {checks}")
+    return {"dp": bf16[0]["launches"],
+            "sp": {tw: rs[0]["launches_step"] for tw, rs in sp.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4721,6 +5285,8 @@ def main() -> int:
     data = data_path(card)
     torch.cuda.empty_cache()
     pre = pretrained(card)
+    torch.cuda.empty_cache()
+    par = parallel_axes(card)
 
     def family_launches(name):
         """launches_<model> of phases 8, 9 and 10: one served chunk with
@@ -4738,6 +5304,9 @@ def main() -> int:
             str(bound): step.get(name, 0)
             for bound, step in sorted(data["per_step"].items())}
         out["launches_pretrained"] = pre.get(name, 0)
+        out["launches_parallel_dp"] = par["dp"].get(name, 0)
+        out.update({f"launches_parallel_sp_{tw}": par["sp"][tw].get(name, 0)
+                    for tw in P13_TOWERS})
         return out
 
     def entry(name, route, source, replaces, result):

@@ -33,7 +33,8 @@ import numpy as np
 from mme_tpu_torch.cli.common import (BatchModel, make_bucket_iter,
                                       pickle_splits, resolve_pickle,
                                       run_classifier)
-from mme_tpu_torch.config import arg_parse, config_from_args
+from mme_tpu_torch.config import (arg_parse, config_from_args,
+                                  refuse_tensor_parallel)
 from mme_tpu_torch.convert import from_flax, init_variables
 from mme_tpu_torch.data.records import PickleDatasetConfig, build_audio_dataset
 from mme_tpu_torch.data.synthetic import synthetic_audio_dataset
@@ -75,6 +76,7 @@ def main(argv: Optional[Sequence[str]] = None,
     dev = resolve_device(device)
     args = arg_parse("audio_nn_wav2vec", argv)
     cfg = config_from_args(args)
+    refuse_tensor_parallel(cfg)
     np.random.seed(cfg.seed)
 
     spec = Wav2Vec2Spec.base()

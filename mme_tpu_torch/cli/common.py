@@ -15,10 +15,15 @@ then the loop and the test pass, and after it the serving exports:
 ``MME_EXPORT_BUNDLE`` (a deployment bundle of the trained model,
 ``serve.py::export_bundle``).
 
-Knobs that need parts the port does not have yet raise
-``NotImplementedError`` before any work: ``MME_MESH`` or more than one
-device through ``MME_MP`` / ``MME_DP`` (the parallel axes and mesh
-serving, ROADMAP Queue 1 item 7).
+Meshes. In a multi-process run (``parallel/distributed.py``) the port
+builds JAX's auto dp mesh over the ranks when ``MME_MESH`` is on (the
+default) and the global batch divides by dp; ``MME_DP`` sets dp through
+``cfg.mesh``; a caller's mesh (``tav_nn``'s ``("dp", "sp")``) wins. On one
+rank the run is unmeshed, as JAX's on one device. Ranks cannot sit idle,
+so a world of more than one rank without such a mesh raises
+``ValueError`` (JAX trains on a device subset instead). ``MME_MP`` above 1
+raises ``NotImplementedError`` before any work: tensor parallelism is
+ROADMAP Queue 1 item 7 part two.
 """
 
 from __future__ import annotations
@@ -31,13 +36,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from mme_tpu_torch.config import ExperimentConfig
+from mme_tpu_torch.config import ExperimentConfig, refuse_tensor_parallel
 from mme_tpu_torch.convert import factored_views
 from mme_tpu_torch.data.dataset import ArrayDataset, BucketedBatchIter
 from mme_tpu_torch.data.records import (PickleDatasetConfig, apply_filters,
                                         build_label_map, split_dataframe)
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.evals.metrics import Metrics
+from mme_tpu_torch.models.layers import whole_attention
+from mme_tpu_torch.parallel import distributed
+from mme_tpu_torch.parallel.mesh import Mesh, barrier, make_mesh, replicate
 from mme_tpu_torch.serve import Predictor, export_bundle
 from mme_tpu_torch.train.checkpoint import CheckpointManager
 from mme_tpu_torch.train.losses import class_weights_from_counts, make_loss_fn
@@ -164,15 +172,26 @@ class BatchModel(nn.Module):
         return out.float()
 
 
-def _refuse_unported(cfg: ExperimentConfig) -> None:
-    if os.environ.get("MME_MESH", "off") != "off":
-        raise NotImplementedError("MME_MESH needs the parallel axes, "
-                                  "ROADMAP Queue 1 item 7, not ported yet")
-    if cfg.mesh.model > 1 or cfg.mesh.data > 1:
-        raise NotImplementedError(
-            f"MME_MP={cfg.mesh.model} / MME_DP={cfg.mesh.data} ask for more "
-            "than one device; the parallel axes (ROADMAP Queue 1 item 7) "
-            "are not ported yet")
+def auto_mesh(cfg: ExperimentConfig) -> Optional[Mesh]:
+    """JAX's auto dp mesh over the world's ranks: None on one rank; with
+    ``MME_MESH`` on (the default) a ``("dp", "mp")`` mesh of dp =
+    ``cfg.mesh.data`` (-1: every rank) when the global batch divides by
+    it. More than one rank without such a mesh raises."""
+    world = distributed.world_size()
+    if world == 1:
+        return None
+    dp = cfg.mesh.data if cfg.mesh.data != -1 else world
+    if os.environ.get("MME_MESH", "on") == "off":
+        why = "MME_MESH=off"
+    elif dp != world:
+        why = f"dp={dp} leaves ranks of the world's {world} idle"
+    elif cfg.batch_size % dp:
+        why = f"batch_size={cfg.batch_size} not divisible by dp={dp}"
+    else:
+        mesh = make_mesh(dp, 1)
+        print(f"mesh: dp={dp} mp=1 over {world} ranks", flush=True)
+        return mesh
+    raise ValueError(f"{world} ranks and no dp mesh: {why}")
 
 
 def run_classifier(cfg: ExperimentConfig, model: nn.Module,
@@ -184,7 +203,8 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
                    id2label: Optional[Dict[int, str]] = None,
                    checkpoints: Optional[CheckpointManager] = None,
                    has_aux_loss: bool = False,
-                   device: DeviceLike = "cuda") -> Dict[str, Any]:
+                   device: DeviceLike = "cuda",
+                   mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """Train ``model`` with the full policy stack, evaluate it on
     ``test_ds`` and return the test summary.
 
@@ -199,10 +219,19 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
     ``MME_LOG_NORMS``, ``MME_LOG_HISTS``, ``MME_RUN_DIR``,
     ``MME_EVAL_ONLY`` (restore the best checkpoint and only evaluate),
     ``MME_RESUME``, ``MME_DUMP_PREDICTIONS``, ``MME_PREDICT_OUT``,
-    ``MME_EXPORT_BUNDLE``."""
-    _refuse_unported(cfg)
-    dev = resolve_device(device)
+    ``MME_EXPORT_BUNDLE``, ``MME_MESH``. ``mesh``: a caller's mesh (its
+    ``dp`` axis splits the batch); else :func:`auto_mesh`. ``device``:
+    ``cuda`` is this rank's card (``distributed.rank_device``)."""
+    refuse_tensor_parallel(cfg)
+    if mesh is None:
+        mesh = auto_mesh(cfg)
+    elif cfg.batch_size % mesh.shape.get("dp", 1):
+        raise ValueError(f"batch_size={cfg.batch_size} not divisible by "
+                         f"dp={mesh.shape['dp']}")
+    dev = resolve_device(distributed.rank_device(device))
     model.to(dev)
+    if mesh is not None:
+        replicate(model, mesh)
     num_classes = cfg.output_dim
     if id2label is None:
         id2label = label_names(cfg.dataset, cfg.label_task, num_classes)
@@ -230,17 +259,21 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
         model, tx, num_classes=num_classes, loss_fn=loss_fn,
         log_module_norms=os.environ.get("MME_LOG_NORMS") == "1",
         log_histograms=os.environ.get("MME_LOG_HISTS") == "1",
-        has_aux_loss=has_aux_loss)
+        has_aux_loss=has_aux_loss, mesh=mesh)
     eval_step = make_eval_step(model, num_classes=num_classes,
-                               loss_fn=loss_fn, has_aux_loss=has_aux_loss)
+                               loss_fn=loss_fn, has_aux_loss=has_aux_loss,
+                               mesh=mesh)
 
-    # a JSONL metrics trail next to the checkpoints (MME_RUN_DIR moves it)
+    # a JSONL metrics trail next to the checkpoints (MME_RUN_DIR moves it);
+    # rank 0 logs, the others stay quiet
     run_dir = os.environ.get("MME_RUN_DIR", cfg.checkpoint_dir)
-    logger = RunLogger(run_dir)
+    writer = distributed.is_writer()
+    logger = RunLogger(run_dir) if writer else None
 
     def _log(d: Dict[str, Any]) -> None:
-        print_log(d)
-        logger.log(d)
+        if writer:
+            print_log(d)
+            logger.log(d)
 
     cb = LoopCallbacks(log=_log)
     kwargs = {}
@@ -260,36 +293,43 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
                               checkpoints=ckpts, callbacks=cb,
                               use_weighted_loss=cfg.loss == "NewCrossEntropy",
                               resume=bool(os.environ.get("MME_RESUME")),
-                              batch_iter=batch_iter, **kwargs)
+                              batch_iter=batch_iter, mesh=mesh, **kwargs)
     dump_path = None
     if os.environ.get("MME_DUMP_PREDICTIONS"):
         dump_path = os.path.join(run_dir, f"{cfg.model}Test.txt")
     summary = evaluate(eval_step, state, test_ds, cfg, metric,
                        callbacks=cb, dump_path=dump_path,
-                       batch_iter=batch_iter, **kwargs)
-    print_log(summary)
+                       batch_iter=batch_iter, mesh=mesh, **kwargs)
+    if writer:
+        print_log(summary)
     _serving_exports(cfg, model, test_ds, batch_transform, id2label, dev,
-                     _log)
-    logger.finish()
+                     _log, mesh)
+    if writer:
+        logger.finish()
     return summary
 
 
 def _serving_exports(cfg: ExperimentConfig, model: nn.Module,
                      test_ds: ArrayDataset, batch_transform,
                      id2label: Dict[int, str], dev: torch.device,
-                     log) -> None:
+                     log, mesh: Optional[Mesh] = None) -> None:
     """``MME_PREDICT_OUT``: ``Predictor.predict_dataset`` rows over the test
     split, through the run's ``batch_transform``, as JSONL.
     ``MME_EXPORT_BUNDLE``: a bundle of the trained model on ``dev``; its
     example goes through the same transform (generator seeded with 0), so
     its features are the transformed ones (normalised float video and
-    ``video_keep`` for the TAV model)."""
+    ``video_keep`` for the TAV model). Under a mesh every rank serves its
+    rows of the predictions (``Predictor(mesh=...)``) and rank 0 writes;
+    rank 0 exports the bundle with the attention core whole
+    (``MultiHeadAttention.seq_parallel`` off while it traces)."""
+    writer = distributed.is_writer()
     predict_out = os.environ.get("MME_PREDICT_OUT")
     if predict_out:
         was_training = model.training
-        predictor = Predictor(model, batch_size=cfg.batch_size, device=dev)
+        predictor = Predictor(model, batch_size=cfg.batch_size, device=dev,
+                              mesh=mesh)
         rows = 0
-        with open(predict_out, "w") as fh:
+        with open(predict_out if writer else os.devnull, "w") as fh:
             for row in predictor.predict_dataset(
                     test_ds, id2label, batch_transform=batch_transform):
                 fh.write(json.dumps(row) + "\n")
@@ -297,14 +337,19 @@ def _serving_exports(cfg: ExperimentConfig, model: nn.Module,
         model.train(was_training)
         log({"predict_out": predict_out, "rows": rows})
     export_dir = os.environ.get("MME_EXPORT_BUNDLE")
-    if export_dir:
+    if export_dir and not writer:
+        barrier()          # rank 0 exports
+    elif export_dir:
         example = {k: np.asarray(v[:cfg.batch_size])
                    for k, v in test_ds.features.items()}
         if batch_transform is not None:
             example = {k: v.cpu().numpy() for k, v in batch_transform(
                 torch.Generator(device=dev).manual_seed(0),
                 to_device(example, dev)).items()}
-        info = export_bundle(model, example, export_dir,
-                             batch_size=cfg.batch_size, id2label=id2label,
-                             device=dev)
+        with whole_attention(model):
+            info = export_bundle(model, example, export_dir,
+                                 batch_size=cfg.batch_size,
+                                 id2label=id2label, device=dev)
         log({"export_bundle": export_dir, **info})
+        if mesh is not None:
+            barrier()

@@ -25,7 +25,8 @@ import numpy as np
 from torch import nn
 
 from mme_tpu_torch.cli.common import BatchModel, run_classifier
-from mme_tpu_torch.config import arg_parse, config_from_args
+from mme_tpu_torch.config import (arg_parse, config_from_args,
+                                  refuse_tensor_parallel)
 from mme_tpu_torch.convert import from_flax, init_variables
 from mme_tpu_torch.data.synthetic import synthetic_image_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
@@ -45,6 +46,7 @@ def main(argv: Optional[Sequence[str]] = None,
     dev = resolve_device(device)
     args = arg_parse("images_nn", argv)
     cfg = config_from_args(args)
+    refuse_tensor_parallel(cfg)
     if cfg.output_dim == 7 and "hateful" in cfg.dataset.lower():
         cfg = cfg.replace(output_dim=2)
     np.random.seed(cfg.seed)

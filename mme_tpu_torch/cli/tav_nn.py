@@ -25,10 +25,13 @@ in JAX); ``-m TAVMoE`` trains with the MoE aux loss in the objective.
 ``MME_PRETRAINED`` naming a directory of local checkpoints loads the three
 pretrained towers and the PreFormer's copies of their embedding stages into
 the full-width ``TAVModel`` (``models/pretrained.py::load_tav``), as JAX
-does; any other model or width, or no such directory, loads nothing. What
-the port lacks raises ``NotImplementedError``: ``MME_SP`` / ``MME_PP``
-above 1 (ROADMAP Queue 1 item 7). A missing pickle raises
-``FileNotFoundError``.
+does; any other model or width, or no such directory, loads nothing.
+``MME_SP=<n>`` runs one tower's attention as ring attention over ``n``
+ranks (``MME_SP_TOWER``: fusion, the default, video, audio or text) on a
+``("dp", "sp")`` mesh of the world's ranks; the rest of the ranks form
+dp (:func:`parallel_spec`). ``MME_PP`` above 1 raises
+``NotImplementedError`` before any work: pipeline parallelism is ROADMAP
+Queue 1 item 7 part two. A missing pickle raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ import torch
 
 from mme_tpu_torch.cli.common import (make_bucket_iter, pickle_splits,
                                       resolve_pickle, run_classifier)
-from mme_tpu_torch.config import arg_parse, config_from_args
+from mme_tpu_torch.config import (arg_parse, config_from_args,
+                                  refuse_tensor_parallel)
 from mme_tpu_torch.convert import from_flax, init_params
 from mme_tpu_torch.data.records import (PickleDatasetConfig,
                                         build_tav_dataset, get_tokenizer)
@@ -50,15 +54,54 @@ from mme_tpu_torch.data.synthetic import synthetic_tav_dataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.models.fusion import FUSION_MODELS, TAVModel, TAVSpec
 from mme_tpu_torch.models.pretrained import load_tav, pretrained_root
+from mme_tpu_torch.parallel import distributed
+from mme_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mme_tpu_torch.train.build_tav import (make_video_keep_transform,
                                            modality_embedding_trainable_mask)
 
 
+TOWERS = ("fusion", "video", "audio", "text")
+
+
 def _refuse_unported() -> None:
-    for var in ("MME_SP", "MME_PP"):
-        if int(os.environ.get(var, "0") or 0) > 1:
-            raise NotImplementedError(
-                f"{var} > 1 needs the parallel axes (ROADMAP Queue 1 item 7)")
+    if int(os.environ.get("MME_PP", "0") or 0) > 1:
+        raise NotImplementedError(
+            "MME_PP > 1: pipeline parallelism comes with ROADMAP Queue 1 "
+            "item 7 part two (tp, pp, ep)")
+
+
+def parallel_spec(cfg, spec: TAVSpec) -> Tuple[TAVSpec, Optional[Mesh]]:
+    """``MME_SP=<n>`` (above 1): a ``("dp", "sp")`` mesh of the world's
+    ranks with sp = n, and ``MME_SP_TOWER``'s encoder (fusion, the default,
+    video, audio or text) set to run its attention as ring attention over
+    ``sp``, with the batch split over dp. Execution changes, parameters do
+    not. Otherwise (spec, None)."""
+    sp = int(os.environ.get("MME_SP", "0") or 0)
+    if sp <= 1:
+        return spec, None
+    tower = os.environ.get("MME_SP_TOWER", "fusion")
+    if tower not in TOWERS:
+        raise ValueError(f"MME_SP_TOWER={tower!r} is not one of {TOWERS}")
+    world = distributed.world_size()
+    if world % sp:
+        raise ValueError(f"{world} ranks not divisible by MME_SP={sp}")
+    dp = world // sp
+    if cfg.batch_size % dp:
+        raise ValueError(f"batch {cfg.batch_size} not divisible by dp={dp}")
+    mesh = make_mesh(dp, sp, axis_names=("dp", "sp"))
+
+    def seq(enc):
+        return dataclasses.replace(enc, seq_mesh=mesh, seq_axis="sp",
+                                   batch_axis="dp")
+
+    if tower == "fusion":
+        spec = dataclasses.replace(spec, fusion=seq(spec.fusion))
+    else:
+        sub = getattr(spec, tower)
+        spec = dataclasses.replace(spec, **{tower: dataclasses.replace(
+            sub, encoder=seq(sub.encoder))})
+    print(f"{tower} tower sp={sp} dp={dp} (ring attention)", flush=True)
+    return spec, mesh
 
 
 def tav_spec(cfg) -> Tuple[TAVSpec, int, int]:
@@ -111,10 +154,12 @@ def build_model(cfg, spec: TAVSpec, device: DeviceLike = "cuda"):
 def train(cfg, model, spec: TAVSpec, audio_len: int, train_ds, val_ds,
           test_ds, id2label: Optional[Dict[int, str]] = None,
           bucketed: bool = False,
-          device: DeviceLike = "cuda") -> Dict[str, Any]:
+          device: DeviceLike = "cuda",
+          mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """``run_classifier`` with the CLI's batch transform, trainable mask
     and length buckets (``bucketed``: on unless ``MME_BUCKETS=off``;
-    otherwise only with ``MME_BUCKETS``)."""
+    otherwise only with ``MME_BUCKETS``). ``mesh``: :func:`parallel_spec`'s
+    (None: ``run_classifier``'s auto dp mesh)."""
     return run_classifier(
         cfg, model, train_ds, val_ds, test_ds,
         batch_transform=make_video_keep_transform(spec,
@@ -123,17 +168,19 @@ def train(cfg, model, spec: TAVSpec, audio_len: int, train_ds, val_ds,
             model, spec.learn_pos_embeddings),
         batch_iter=make_bucket_iter(audio_len, default_on=bucketed),
         id2label=id2label, has_aux_loss=cfg.model == "TAVMoE",
-        device=device)
+        device=device, mesh=mesh)
 
 
 def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = "cuda") -> Dict[str, Any]:
-    dev = resolve_device(device)
     args = arg_parse("tav_nn", argv)
     cfg = config_from_args(args)
+    refuse_tensor_parallel(cfg)
     _refuse_unported()
+    dev = resolve_device(distributed.rank_device(device))
     np.random.seed(cfg.seed)
     spec, audio_len, text_len = tav_spec(cfg)
+    spec, mesh = parallel_spec(cfg, spec)
 
     pkl = resolve_pickle(cfg.dataset)
     if pkl is not None:
@@ -163,7 +210,7 @@ def main(argv: Optional[Sequence[str]] = None,
     # length buckets: on by default for a pickle's real lengths; synthetic
     # records have one length
     return train(cfg, model, spec, audio_len, train_ds, val_ds, test_ds,
-                 id2label, bucketed=pkl is not None, device=dev)
+                 id2label, bucketed=pkl is not None, device=dev, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -36,7 +36,8 @@ import numpy as np
 
 from mme_tpu_torch.cli.common import (BatchModel, pickle_splits,
                                       resolve_pickle, run_classifier)
-from mme_tpu_torch.config import arg_parse, config_from_args
+from mme_tpu_torch.config import (arg_parse, config_from_args,
+                                  refuse_tensor_parallel)
 from mme_tpu_torch.convert import from_flax, init_variables
 from mme_tpu_torch.data.glove import (load_glove_txt, set_embedding_table,
                                       tokenize_with_vocab)
@@ -72,6 +73,7 @@ def main(argv: Optional[Sequence[str]] = None,
     dev = resolve_device(device)
     args = arg_parse("text_nn", argv)
     cfg = config_from_args(args)
+    refuse_tensor_parallel(cfg)
     np.random.seed(cfg.seed)
 
     lstm = cfg.model.lower() == "lstm"

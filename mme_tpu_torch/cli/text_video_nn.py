@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from mme_tpu_torch.cli.common import BatchModel, run_classifier
-from mme_tpu_torch.config import arg_parse, config_from_args
+from mme_tpu_torch.config import (arg_parse, config_from_args,
+                                  refuse_tensor_parallel)
 from mme_tpu_torch.convert import from_flax, init_variables
 from mme_tpu_torch.data.dataset import ArrayDataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
@@ -79,6 +80,7 @@ def main(argv: Optional[Sequence[str]] = None,
     dev = resolve_device(device)
     args = arg_parse("text_video_nn", argv)
     cfg = config_from_args(args)
+    refuse_tensor_parallel(cfg)
     np.random.seed(cfg.seed)
 
     mtl = cfg.model == "1MTL"

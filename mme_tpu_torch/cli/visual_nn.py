@@ -31,7 +31,8 @@ import numpy as np
 
 from mme_tpu_torch.cli.common import (BatchModel, pickle_splits,
                                       resolve_pickle, run_classifier)
-from mme_tpu_torch.config import arg_parse, config_from_args
+from mme_tpu_torch.config import (arg_parse, config_from_args,
+                                  refuse_tensor_parallel)
 from mme_tpu_torch.convert import from_flax, init_variables
 from mme_tpu_torch.data.dataset import ArrayDataset
 from mme_tpu_torch.data.records import PickleDatasetConfig, build_video_dataset
@@ -73,6 +74,7 @@ def main(argv: Optional[Sequence[str]] = None,
     dev = resolve_device(device)
     args = arg_parse("visual_nn", argv)
     cfg = config_from_args(args)
+    refuse_tensor_parallel(cfg)
     np.random.seed(cfg.seed)
 
     tiny = cfg.dataset == "synthetic" or bool(os.environ.get("MME_TINY"))

@@ -6,11 +6,11 @@ the loop policy fields ``log_val`` and ``checkpoint_dir``, and the
 ``MeshConfig`` / ``PrecisionConfig`` trees kept as data; ``arg_parse``,
 ``config_from_args`` and ``apply_sweep_overrides``.
 
-Two parts of JAX's ``config_from_args`` have no counterpart here. The
-multi-host runtime (``MME_COORDINATOR`` / ``MME_NUM_PROCESSES``) waits for
-the port's parallel axes and raises ``NotImplementedError`` when asked for.
-``MME_PRNG`` picks a JAX random-number implementation and is ignored: the
-port draws from ``torch.Generator``s.
+``config_from_args`` joins the multi-process runtime when
+``MME_COORDINATOR`` / ``MME_NUM_PROCESSES`` ask for it
+(``parallel/distributed.py``), as JAX's does. ``MME_PRNG`` picks a JAX
+random-number implementation and is ignored: the port draws from
+``torch.Generator``s.
 """
 
 from __future__ import annotations
@@ -20,6 +20,10 @@ import os
 from argparse import ArgumentParser
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+from mme_tpu_torch.parallel.distributed import maybe_initialize
 
 
 def hidden_layer_count(string: str) -> List[int]:
@@ -167,15 +171,24 @@ def arg_parse(description: str, argv: Optional[Sequence[str]] = None):
     return parser.parse_args(argv)
 
 
+def refuse_tensor_parallel(cfg: "ExperimentConfig") -> None:
+    """``MME_MP`` above 1 raises: tensor parallelism is ROADMAP Queue 1
+    item 7 part two."""
+    if cfg.mesh.model > 1:
+        raise NotImplementedError(
+            f"MME_MP={cfg.mesh.model}: tensor parallelism comes with ROADMAP "
+            "Queue 1 item 7 part two (tp, pp, ep)")
+
+
 def config_from_args(args: Any, **overrides: Any) -> ExperimentConfig:
     """A typed config from an argparse namespace (or any attribute bag).
-    ``MME_MP=<n>`` / ``MME_DP=<n>`` fill ``cfg.mesh`` as in JAX; a
-    multi-host run (``MME_COORDINATOR`` / ``MME_NUM_PROCESSES``) raises."""
-    for var in ("MME_COORDINATOR", "MME_NUM_PROCESSES"):
-        if os.environ.get(var):
-            raise NotImplementedError(
-                f"{var} asks for a multi-host run; the port has no "
-                "multi-host runtime yet (ROADMAP Queue 1 item 7)")
+    ``MME_MP=<n>`` / ``MME_DP=<n>`` fill ``cfg.mesh`` as in JAX (every CLI
+    then calls :func:`refuse_tensor_parallel`). A multi-process run
+    (``MME_COORDINATOR`` / ``MME_NUM_PROCESSES`` / ``MME_PROCESS_ID``)
+    joins its process group here (``parallel/distributed.py::
+    maybe_initialize``), before any work, as JAX's does; its backend
+    follows ``MME_DIST_BACKEND`` or the card."""
+    maybe_initialize(device="cuda" if torch.cuda.is_available() else "cpu")
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
     kw.update(overrides)

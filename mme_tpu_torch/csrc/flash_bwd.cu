@@ -16,9 +16,10 @@
 //
 // O and LSE come from the caller ([B, H, Sq] fp32 for LSE), so a ring of
 // K/V blocks can pass those of the whole context. `corr` restores what LSE
-// lost for a row whose every key carries the finite -0.7 f32max mask bias:
-// LSE = fl(max + log n) has lost log n to rounding, and the pre-pass
-// writes corr = log n of the bias row for every row with LSE < -1e30 (0
+// lost for a row whose every key carries a mask bias (the finite -0.7
+// f32max, or the -1e30 of a key mask or of a ring's padding): LSE =
+// fl(max + log n) has lost log n to rounding, and the pre-pass writes
+// corr = log n of the bias row for every row with LSE <= -1e30 (0
 // elsewhere), so that P is the uniform 1/n of the non-flash path. Keys past
 // Sk are excluded by index; a row with the sentinel LSE 1e30 (every score
 // -inf) gets P = 0 and no gradient.
@@ -122,7 +123,7 @@ __device__ __forceinline__ float block_reduce(float x, float* red,
 
 // delta and corr [B, H, Sq] of batch row blockIdx.y, one thread per
 // (query, head) pair. log n is computed only in blocks that hold a row
-// with LSE < -1e30.
+// with LSE <= -1e30.
 template <typename T, int D>
 __global__ void __launch_bounds__(kPrepassThreads)
     flash_bwd_prepass(const PrepassParams p) {
@@ -159,7 +160,7 @@ __global__ void __launch_bounds__(kPrepassThreads)
     p.delta[row] = acc;
   }
   if (p.bias == nullptr) return;
-  const bool need = valid && p.lse[row] < -kLseMasked;
+  const bool need = valid && p.lse[row] <= -kLseMasked;
   float log_n = 0.f;
   if (__syncthreads_or(need)) {
     const float* bias = p.bias + b * p.bias_sb;
@@ -803,29 +804,24 @@ extern "C" int mme_flash_bwd_prepass(
                      static_cast<cudaStream_t>(stream));
 }
 
-// Returns a cudaError_t value: 0 when the three launches were accepted.
-// The caller checks shapes, strides and alignment before calling.
-// `strides` holds, in elements, (batch, sequence, head) strides of q, k, v,
-// O, dO, dQ, dK, dV in that order: 24 values. `delta` and `corr` ([B, H,
-// Sq] fp32) are written by the pre-pass; `corr` is null when `bias` is.
-extern "C" int mme_flash_bwd(
-    const void* q, const void* k, const void* v, const void* out,
-    const void* d_o, const void* bias, const void* lse, void* delta,
-    void* corr, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
-    int D, int is_bf16, const long long* strides, long long bias_sb,
-    float scale, void* stream) {
+// The dK/dV and dQ launches alone, from `delta` and `corr` ([B, H, Sq]
+// fp32) that the caller computed: a ring of K/V blocks computes them once
+// from the global O, LSE and key bias, and calls this once per block.
+// `corr` may be null (no correction). Arguments as mme_flash_bwd's.
+extern "C" int mme_flash_bwd_main(
+    const void* q, const void* k, const void* v, const void* d_o,
+    const void* bias, const void* lse, const void* delta, const void* corr,
+    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
+    int is_bf16, const long long* strides, long long bias_sb, float scale,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* s = strides;
-  const long long pre[6] = {s[9], s[10], s[11], s[12], s[13], s[14]};
-  int err = run_prepass(out, d_o, bias, lse, delta, corr, B, Sq, Sk, H, D,
-                        is_bf16, pre, bias_sb, st);
-  if (err != 0) return err;
   Params p;
   p.q = q; p.k = k; p.v = v; p.d_o = d_o;
   p.bias = static_cast<const float*>(bias);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  p.corr = bias != nullptr ? static_cast<const float*>(corr) : nullptr;
+  p.corr = static_cast<const float*>(corr);
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H;
   p.q_sb = s[0]; p.q_ss = s[1]; p.q_sh = s[2];
@@ -845,4 +841,27 @@ extern "C" int mme_flash_bwd(
     if (D == 128) return launch_fma<128>(p, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Returns a cudaError_t value: 0 when the three launches were accepted.
+// The caller checks shapes, strides and alignment before calling.
+// `strides` holds, in elements, (batch, sequence, head) strides of q, k, v,
+// O, dO, dQ, dK, dV in that order: 24 values. `delta` and `corr` ([B, H,
+// Sq] fp32) are written by the pre-pass; `corr` is null when `bias` is.
+extern "C" int mme_flash_bwd(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* d_o, const void* bias, const void* lse, void* delta,
+    void* corr, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
+    int D, int is_bf16, const long long* strides, long long bias_sb,
+    float scale, void* stream) {
+  const long long* s = strides;
+  const long long pre[6] = {s[9], s[10], s[11], s[12], s[13], s[14]};
+  const int err = run_prepass(out, d_o, bias, lse, delta, corr, B, Sq, Sk,
+                              H, D, is_bf16, pre, bias_sb,
+                              static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
+  return mme_flash_bwd_main(q, k, v, d_o, bias, lse, delta,
+                            bias != nullptr ? corr : nullptr, dq, dk, dv, B,
+                            Sq, Sk, H, D, is_bf16, strides, bias_sb, scale,
+                            stream);
 }

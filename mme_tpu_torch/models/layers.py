@@ -6,8 +6,11 @@ post-LN ``EncoderBlock`` and ``TransformerEncoder``; plus ``Dense``,
 ``Embed`` and ``Conv``, the port's counterparts of flax's ``nn.Dense``,
 ``nn.Embed`` and ``nn.Conv``.
 ``Mlp`` takes the fused kernel of ``ops/fused_mlp.py`` where ``MME_FUSED_MLP``
-opts in. The sequence/pipeline-parallel and scan-over-layers branches of the
-JAX module are not ported yet.
+opts in. ``EncoderSpec.seq_mesh`` / ``seq_axis`` run the attention core as
+ring attention over that axis of a mesh of ranks (sequence parallelism,
+``ops/ring_attention.py``); the pipeline-parallel branch (``pp_mesh``)
+comes with the rest of the parallel axes, and scan-over-layers has no
+eager counterpart.
 
 Mixed precision follows flax's policy: parameters stay fp32 (or whatever
 dtype the caller stored them in) and are cast to the compute dtype where
@@ -28,8 +31,9 @@ through ``mme_tpu_torch/convert.py``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +44,7 @@ from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.ops.attention import dot_product_attention_shd
 from mme_tpu_torch.ops.fused_mlp import fused_mlp, use_fused_mlp
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
+from mme_tpu_torch.parallel.mesh import batch_rand
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +68,13 @@ class EncoderSpec:
     early_div: bool = False
     dtype: torch.dtype = torch.float32
     remat: bool = False               # recompute each block in the backward
+    # sequence parallelism: with both set, the attention core runs as ring
+    # attention over ``seq_mesh``'s ``seq_axis`` (a ``parallel/mesh.py::
+    # Mesh``); the activations outside it stay whole on every rank
+    seq_mesh: Optional[object] = None
+    seq_axis: Optional[str] = None
+    # the mesh axis the batch is split over when sp composes with dp
+    batch_axis: Optional[str] = None
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -88,7 +100,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         raise ValueError("dropout in training mode needs the step's "
                          "torch.Generator (rng=...); call .eval() for the "
                          "deterministic forward")
-    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    keep = batch_rand(x.shape, rng, x.device) >= rate
     return torch.where(keep, x * (1.0 / (1.0 - rate)),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -196,7 +208,19 @@ class MultiHeadAttention(nn.Module):
     ``qkv_bias`` is a [3, H, D] parameter masked by the spec's mode:
     ``"qv"`` is VideoMAE's learned q/v bias with a frozen zero k bias,
     ``"none"`` has no parameter at all. q, k and v go to attention as
-    strided views of the projection's output, with no copy."""
+    strided views of the projection's output, with no copy.
+
+    With the spec's ``seq_mesh`` and ``seq_axis`` (an axis of more than one
+    rank) the core is ring attention: the sequence is padded to a multiple
+    of the axis size (padded keys get a -1e30 bias, padded query rows are
+    cut off after), each rank takes its block of q, k and v
+    (``parallel/mesh.py::seq_shard``, whose backward gathers the blocks'
+    gradients, so the qkv projection's weight gradient sees the whole
+    sequence), and the blocks' outputs are gathered whole again
+    (``seq_gather``, whose backward keeps this rank's slice). Only
+    per-key biases [B, 1, 1, S] are taken. Every rank of the axis ends
+    the backward with the single-rank gradients. ``seq_parallel = False``
+    runs the core whole on this rank (a serving export from one rank)."""
 
     def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
         super().__init__()
@@ -219,6 +243,37 @@ class MultiHeadAttention(nn.Module):
         else:
             self.qkv_bias = None
         self.out = Dense(s.hidden, s.hidden, dtype=s.dtype, device=dev)
+        self.seq_mesh, self.seq_axis = s.seq_mesh, s.seq_axis
+        self.batch_axis = s.batch_axis
+        self.seq_parallel = (s.seq_mesh is not None and s.seq_axis is not None
+                             and s.seq_mesh.shape[s.seq_axis] > 1)
+
+    def _ring_core(self, q, k, v, bias):
+        from mme_tpu_torch.ops.ring_attention import ring_attention
+        from mme_tpu_torch.parallel.mesh import seq_gather, seq_shard
+
+        B, S = q.shape[0], q.shape[1]
+        key_bias = None
+        if bias is not None:
+            if not (bias.dim() == 4 and bias.shape[1] == 1
+                    and bias.shape[2] == 1):
+                raise ValueError("ring attention takes per-key biases "
+                                 f"[B, 1, 1, S] only; got {tuple(bias.shape)}")
+            key_bias = bias[:, 0, 0, :].float()
+        ax = self.seq_mesh.axis(self.seq_axis)
+        pad = (-S) % ax.size
+        if pad:
+            if key_bias is None:
+                key_bias = torch.zeros((B, S), dtype=torch.float32,
+                                       device=q.device)
+            key_bias = F.pad(key_bias, (0, pad), value=-1e30)
+            q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        q, k, v = (seq_shard(t, ax) for t in (q, k, v))
+        if key_bias is not None:
+            key_bias = seq_shard(key_bias, ax)
+        out = ring_attention(q, k, v, self.seq_mesh, self.seq_axis,
+                             key_bias=key_bias, batch_axis=self.batch_axis)
+        return seq_gather(out, ax)[:, :S]
 
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
@@ -230,11 +285,31 @@ class MultiHeadAttention(nn.Module):
             b = (self.qkv_bias.to(dt) * self.qkv_bias_mask.to(dt)).reshape(-1)
         qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), b)
         qkv = qkv.view(B, S, 3, self.heads, self.head_dim)
-        out = dot_product_attention_shd(qkv[:, :, 0], qkv[:, :, 1],
-                                        qkv[:, :, 2], bias)
+        if self.seq_parallel:
+            out = self._ring_core(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                  bias)
+        else:
+            out = dot_product_attention_shd(qkv[:, :, 0], qkv[:, :, 1],
+                                            qkv[:, :, 2], bias)
         # on the attention output, not on the probabilities (as in JAX)
         out = dropout(out, self.attention_dropout, self.training, rng)
         return self.out(out.reshape(B, S, self.heads * self.head_dim))
+
+
+@contextlib.contextmanager
+def whole_attention(model: nn.Module) -> Iterator[None]:
+    """Inside, every ``MultiHeadAttention`` of ``model`` runs its core
+    whole on this rank (a serving export traced on one rank of an sp
+    mesh); the weights and the function are the same."""
+    mods = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
+    saved = [m.seq_parallel for m in mods]
+    for m in mods:
+        m.seq_parallel = False
+    try:
+        yield
+    finally:
+        for m, s in zip(mods, saved):
+            m.seq_parallel = s
 
 
 class Mlp(nn.Module):

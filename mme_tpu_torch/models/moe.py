@@ -21,9 +21,13 @@ Port of ``mme_tpu/models/moe.py``: ``MoESpec``, ``_capacity``,
   returns ``(x, aux_sum)`` and nothing is kept in module state, so one
   forward never adds to another's aux.
 
-Expert parallelism (``MoESpec.ep_axis``) comes with the parallel axes
-(ROADMAP Queue 1 item 7): any value but None raises. Blocks are not
-rematerialised, as in JAX's ``MoETransformerEncoder``.
+Under a dp step the aux loss is the global batch's: the router's token
+fractions and mean probabilities are summed over the ranks before their
+bilinear product (``parallel/mesh.py::batch_sum``); the expert capacity is
+per sequence, so routing does not change. Expert parallelism
+(``MoESpec.ep_axis``) comes with ROADMAP Queue 1 item 7 part two: any
+value but None raises. Blocks are not rematerialised, as in JAX's
+``MoETransformerEncoder``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from mme_tpu_torch.models.layers import (Dense, EncoderBlock, EncoderSpec,
                                          MultiHeadAttention, activation,
                                          dropout, empty_param)
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
+from mme_tpu_torch.parallel.mesh import batch_count, batch_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +81,11 @@ def router_gates(logits: torch.Tensor, top_k: int
         # GShard renormalisation; not for top-1, whose single weight would
         # become 1.0 and cut the router's task-loss gradient (Switch)
         gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
-    frac = (gates > 0).float().mean(dim=(0, 1))
-    mean_prob = probs.mean(dim=(0, 1))
+    # over every token of the global batch (a dp step sums the ranks'
+    # before the bilinear product; one process: the plain means)
+    tokens = batch_count(probs.shape[0]) * probs.shape[1]
+    frac = batch_sum((gates > 0).float().sum(dim=(0, 1))) / tokens
+    mean_prob = batch_sum(probs.sum(dim=(0, 1))) / tokens
     return gates, (frac * mean_prob).sum() * E
 
 
@@ -105,8 +113,8 @@ class MoEMlp(nn.Module):
         super().__init__()
         if moe.ep_axis is not None:
             raise NotImplementedError(
-                f"MoESpec.ep_axis={moe.ep_axis!r}: expert parallelism needs "
-                "the parallel axes (ROADMAP Queue 1 item 7)")
+                f"MoESpec.ep_axis={moe.ep_axis!r}: expert parallelism comes "
+                "with ROADMAP Queue 1 item 7 part two (tp, pp, ep)")
         dev = resolve_device(device)
         s = spec
         E, H, inter = moe.num_experts, s.hidden, s.intermediate

@@ -11,7 +11,10 @@ batch's statistics and updates the buffers as flax does,
 ``ra = momentum · ra + (1 − momentum) · batch``, with the **biased** batch
 variance; ``torch.nn.BatchNorm*`` stores the unbiased n/(n−1) estimate
 instead, so its running variance drifts from JAX's. In eval mode it
-normalises with the buffers.
+normalises with the buffers. Under a dp step the batch statistics are the
+global batch's, as flax's inside one jitted step over a sharded batch: the
+sums of x and x² are summed over the ranks (``parallel/mesh.py::
+batch_sum``, differentiably) before the mean and variance.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.parallel.mesh import batch_axis, batch_count, batch_sum
 
 
 def _stats(x: torch.Tensor, dims: Sequence[int]
@@ -31,6 +35,18 @@ def _stats(x: torch.Tensor, dims: Sequence[int]
     xf = x.float()
     mean = xf.mean(dim=dims, keepdim=True)
     mean2 = (xf * xf).mean(dim=dims, keepdim=True)
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
+def _global_stats(x: torch.Tensor, dims: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_stats` over the global batch: the ranks' sums of x and x²
+    are summed before the ratios (every rank holds as many rows)."""
+    xf = x.float()
+    n = batch_count(x.shape[0]) * (x.numel() // (x.shape[0] * x.shape[1]))
+    sums = batch_sum(torch.stack([xf.sum(dim=dims, keepdim=True),
+                                  (xf * xf).sum(dim=dims, keepdim=True)]))
+    mean, mean2 = sums[0] / n, sums[1] / n
     return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
@@ -62,7 +78,8 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean, var = _stats(x, dims)
+            mean, var = (_stats(x, dims) if batch_axis() is None
+                         else _global_stats(x, dims))
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean.reshape(-1))

@@ -13,6 +13,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from mme_tpu_torch.parallel.mesh import batch_rand
+
 # wav2vec2 conv feature-extractor geometry (all reference checkpoints share it)
 W2V2_KERNELS = (10, 3, 3, 3, 3, 2, 2)
 W2V2_STRIDES = (5, 2, 2, 2, 2, 2, 2)
@@ -58,14 +60,14 @@ def spec_augment_mask(rng: torch.Generator, batch: int, seq_len: int,
         lengths = torch.full((batch,), seq_len, dtype=torch.int32,
                              device=device)
     # spans per row, with HF's stochastic rounding epsilon
-    eps = torch.rand(batch, generator=rng, device=device)
+    eps = batch_rand((batch,), rng, device)
     num_spans = (mask_prob * lengths / mask_length + eps).to(torch.int32)
     num_spans = torch.clamp(num_spans, min=min_masks)
     num_spans = torch.minimum(num_spans, lengths // mask_length)
 
     max_spans = max(int(mask_prob * seq_len / mask_length) + min_masks + 1, 1)
     hi = torch.clamp(lengths - mask_length + 1, min=1)   # starts in [0, hi)
-    u = torch.rand(batch, max_spans, generator=rng, device=device)
+    u = batch_rand((batch, max_spans), rng, device)
     starts = (u * hi[:, None]).to(torch.int32)
     span_active = (torch.arange(max_spans, device=device)[None, :]
                    < num_spans[:, None])

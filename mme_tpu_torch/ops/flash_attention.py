@@ -61,6 +61,8 @@ _SIGNATURES = {
                       + [_P, _L, ctypes.c_float, _P]),
     "mme_flash_bwd_prepass": (KERNEL_BWD, [_P] * 6 + [_I] * 6
                               + [_P, _L, _P]),
+    "mme_flash_bwd_main": (KERNEL_BWD, [_P] * 11 + [_I] * 6
+                           + [_P, _L, ctypes.c_float, _P]),
 }
 
 
@@ -215,17 +217,20 @@ def _masked_row_correction(bias_k: Optional[torch.Tensor],
                            lse: torch.Tensor) -> Optional[torch.Tensor]:
     """log n for the rows whose LSE lost it, else 0: [B, H, Sq] fp32.
 
-    A row whose every key carries a mask bias of about -1e38 has logits
-    equal to the bias itself (the scores vanish below its fp32 spacing), so
-    its true logsumexp is that of the bias row, max + log n, while the
-    stored LSE is the max alone. The backward computes
+    A row whose every key carries a mask bias (about -1e38, or the -1e30 of
+    a key mask or of a ring's padded keys) has logits equal to the bias
+    itself (the scores vanish below its fp32 spacing), so its true
+    logsumexp is that of the bias row, max + log n, while the stored LSE is
+    the max alone: LSE <= -1e30 in fp32. The backward computes
     ``P = exp((s - LSE) - correction)``. No sentinel row (LSE = +1e30) and
-    no row with a real key (LSE of ordinary size) is touched."""
+    no row with a real key (LSE of ordinary size) is touched. ``bias_k``
+    may be longer than the k/v block the backward sees: the ring passes
+    the whole context's row, so that n is the context's key count."""
     if bias_k is None:
         return None
     m = bias_k.amax(dim=-1, keepdim=True)
     log_n = torch.log(torch.exp(bias_k - m).sum(dim=-1))          # [B]
-    return torch.where(lse < -LSE_MASKED, log_n[:, None, None],
+    return torch.where(lse <= -LSE_MASKED, log_n[:, None, None],
                        torch.zeros((), dtype=lse.dtype, device=lse.device))
 
 
@@ -303,20 +308,26 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               bias_k: Optional[torch.Tensor],
                               out: torch.Tensor, lse: torch.Tensor,
-                              do: torch.Tensor
+                              do: torch.Tensor,
+                              rows: Optional[Tuple[torch.Tensor,
+                                                   Optional[torch.Tensor]]]
+                              = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_fwd_plain` from its saved
     output and LSE, in the kernel's arithmetic: fp32 score recompute,
     P = exp(s - LSE) rounded to dO's dtype for dV, dS = P (dP - delta)
-    rounded to q's dtype for dK and dQ, fp32 sums. No bias gradient."""
+    rounded to q's dtype for dK and dQ, fp32 sums. No bias gradient.
+    ``rows``: the pre-pass's (delta, corr), computed by the caller, in
+    place of this call's own."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     if bias_k is not None:
         logits = logits + bias_k.float()[:, None, None, :]
     x = logits - lse[..., None]
-    delta, corr = flash_bwd_prepass_plain(out, do, lse, bias_k)
+    delta, corr = (flash_bwd_prepass_plain(out, do, lse, bias_k)
+                   if rows is None else rows)
     if corr is not None:
         x = x - corr[..., None]
     p = torch.exp(x)
@@ -330,7 +341,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias_k: Optional[torch.Tensor], out: torch.Tensor,
-                        lse: torch.Tensor, do: torch.Tensor
+                        lse: torch.Tensor, do: torch.Tensor,
+                        rows: Optional[Tuple[torch.Tensor,
+                                             Optional[torch.Tensor]]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of ``softmax(q kᵀ/√D + bias_k) v`` for the output gradient
     ``do``, from the forward's ``out`` and ``lse`` (which may be those of a
@@ -340,9 +353,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last one), bias_k [B, Sk] fp32 or None, lse [B, H, Sq] fp32 →
     (dq, dk, dv), contiguous, in the inputs' dtype. A CUDA tensor launches
     the kernels on the current stream (the pre-pass, dK/dV, dQ); a CPU
-    tensor takes the plain version."""
+    tensor takes the plain version.
+
+    ``rows=(delta, corr)`` ([B, H, Sq] fp32, corr may be None) skips the
+    pre-pass: the dK/dV and dQ kernels read the caller's. The ring of
+    ``ops/ring_attention.py`` computes them once from the global O, LSE and
+    key bias (:func:`flash_bwd_prepass`), because the masked-row correction
+    of one k/v block would restore that block's key count, not the
+    context's."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, bias_k, out, lse, do)
+        return flash_attention_bwd_plain(q, k, v, bias_k, out, lse, do, rows)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
     strides = _check(q, k, v, bias_k, "flash_attention_bwd")
@@ -359,23 +379,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Sk, H, D), dtype=v.dtype, device=q.device)
-    # delta, and the masked-row correction when there is a bias: written
-    # by the first launch
-    rows = torch.empty((1 if bias_k is None else 2, B, H, Sq),
-                       dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*strides, *(
         s for x in (out, do, dq, dk, dv) for s in x.stride()[:3]))
+    bias_ptr = None if bias_k is None else bias_k.data_ptr()
+    bias_sb = 0 if bias_k is None else bias_k.stride(0)
+    is_bf16 = int(q.dtype == torch.bfloat16)
     guard, stream = kernels.launch_context(q.device)
-    with guard:
-        err = _fn("mme_flash_bwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            do.data_ptr(), None if bias_k is None else bias_k.data_ptr(),
-            lse.data_ptr(), rows[0].data_ptr(),
-            None if bias_k is None else rows[1].data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, Sq, Sk, H, D, int(q.dtype == torch.bfloat16), strides,
-            0 if bias_k is None else bias_k.stride(0), 1.0 / D ** 0.5,
-            stream)
+    if rows is None:
+        # delta, and the masked-row correction when there is a bias:
+        # written by the first launch
+        buf = torch.empty((1 if bias_k is None else 2, B, H, Sq),
+                          dtype=torch.float32, device=q.device)
+        with guard:
+            err = _fn("mme_flash_bwd")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                do.data_ptr(), bias_ptr, lse.data_ptr(), buf[0].data_ptr(),
+                None if bias_k is None else buf[1].data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, Sq, Sk, H, D, is_bf16, strides, bias_sb, 1.0 / D ** 0.5,
+                stream)
+    else:
+        delta, corr = rows
+        for name, x in (("delta", delta), ("corr", corr)):
+            if x is not None and (x.shape != (B, H, Sq)
+                                  or x.dtype != torch.float32
+                                  or x.device != q.device
+                                  or not x.is_contiguous()):
+                raise ValueError(f"flash_attention_bwd: {name} must be "
+                                 f"contiguous fp32 [B, H, Sq] = "
+                                 f"[{B}, {H}, {Sq}] on {q.device}")
+        with guard:
+            err = _fn("mme_flash_bwd_main")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                bias_ptr, lse.data_ptr(), delta.data_ptr(),
+                None if corr is None else corr.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, Sq, Sk, H, D, is_bf16, strides, bias_sb, 1.0 / D ** 0.5,
+                stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed: cudaError {err}")
     kernels.LAUNCHES[KERNEL_BWD] += 1

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from mme_tpu_torch.parallel.mesh import batch_rand
+
 IEMOCAP_LEFT_BOX = (120, 2, 245, 355)    # (top, left, height, width)
 IEMOCAP_RIGHT_BOX = (120, 362, 245, 355)
 
@@ -51,7 +53,7 @@ def random_flip(generator: Optional[torch.Generator], video: torch.Tensor,
     (do_h, do_v) bools [B] instead of the draws."""
     B = video.shape[0]
     if masks is None:
-        u = torch.rand(2, B, generator=generator, device=video.device)
+        u = batch_rand((2, B), generator, video.device, batch_dim=1)
         masks = (u[0] < p_horizontal, u[1] < p_vertical)
     do_h, do_v = (m.to(video.device).view(B, 1, 1, 1, 1) for m in masks)
     out = torch.where(do_h, video.flip(3), video)

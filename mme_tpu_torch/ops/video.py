@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from mme_tpu_torch.data.records import IMAGENET_MEAN, IMAGENET_STD
+from mme_tpu_torch.parallel.mesh import batch_rand
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -34,7 +35,7 @@ def balanced_keep_mask(batch: int, num_tokens: int, keep_k: int,
     """Random bool keep-mask [batch, num_tokens] with exactly ``keep_k``
     True per row: the ``keep_k`` largest of uniform scores (top-k, so ties
     cannot change the count)."""
-    scores = torch.rand(batch, num_tokens, generator=generator, device=device)
+    scores = batch_rand((batch, num_tokens), generator, device)
     idx = scores.topk(keep_k, dim=-1).indices
     keep = torch.zeros(batch, num_tokens, dtype=torch.bool, device=device)
     return keep.scatter_(1, idx, True)

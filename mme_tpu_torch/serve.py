@@ -6,8 +6,10 @@ Port of ``mme_tpu/serve.py`` (``_pad_rows``, ``_batched_call``,
 ``ExportedPredictor``). Requests come as dicts of numpy arrays with a common
 leading dim; they are padded up to ``batch_size`` rows per chunk and the
 padding is masked back out of the response. uint8 video is normalised on
-the device. Mesh serving (``Predictor(mesh=...)``) is not ported yet; it
-comes with the parallel axes (ROADMAP Queue 1 item 7).
+the device. Mesh serving (``Predictor(mesh=..., batch_axis="dp")``): every
+rank of the mesh runs the same chunks, computes its rows of each along the
+batch axis, and the predictions and probabilities are gathered to every
+rank; ``batch_size`` must divide by that axis' size, as in JAX.
 
 A bundle is the deterministic forward ``(argmax, fp32 softmax)`` of the
 logits (a model's aux output is dropped) exported by ``torch.export`` on the
@@ -41,6 +43,7 @@ from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.ops import (flash_attention, fused_mlp,  # noqa: F401
                                layer_norm)
 from mme_tpu_torch.ops.video import normalize_uint8_video
+from mme_tpu_torch.parallel.mesh import Mesh
 
 BUNDLE_FORWARD = "forward.pt2"
 BUNDLE_META = "meta.json"
@@ -109,12 +112,21 @@ class Predictor:
 
     ``device``: where the model runs; ``cuda`` unless the caller asks for
     the CPU. ``param_dtype=torch.bfloat16`` stores the weights in bf16 —
-    half the memory; logits and probabilities stay fp32."""
+    half the memory; logits and probabilities stay fp32. ``mesh``: serve
+    across its ranks, each computing its rows of every chunk along
+    ``batch_axis`` (every rank holds the same weights and makes the same
+    calls); the results are gathered to every rank."""
 
     def __init__(self, model: nn.Module, batch_size: int = 8,
                  device: DeviceLike = "cuda",
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 mesh: Optional[Mesh] = None, batch_axis: str = "dp"):
         self.batch_size = int(batch_size)
+        self._axis = None if mesh is None else mesh.axis(batch_axis)
+        if self._axis is not None and self.batch_size % self._axis.size:
+            raise ValueError(
+                f"batch_size {self.batch_size} must divide by "
+                f"{batch_axis}={self._axis.size} for mesh serving")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         if param_dtype is not None:
@@ -124,11 +136,18 @@ class Predictor:
 
     def _run(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[np.ndarray, np.ndarray]:
+        ax = self._axis
+        if ax is not None and ax.size > 1:
+            per = self.batch_size // ax.size
+            batch = {k: v[ax.index * per:(ax.index + 1) * per]
+                     for k, v in batch.items()}
         v = batch.get("video")
         if v is not None and v.dtype == torch.uint8:
             batch = dict(batch, video=normalize_uint8_video(v))
         with torch.inference_mode():
             preds, probs = self._serving(batch)
+            if ax is not None and ax.size > 1:
+                preds, probs = ax.all_gather(preds), ax.all_gather(probs)
         return preds.cpu().numpy(), probs.cpu().numpy()
 
     def _forward(self, chunk: Dict[str, np.ndarray]

@@ -23,6 +23,7 @@ from mme_tpu_torch.models.fusion import TAVModel, TAVSpec
 from mme_tpu_torch.ops.video import (balanced_keep_mask,
                                      normalize_uint8_video,
                                      uniform_keep_mask)
+from mme_tpu_torch.parallel.mesh import Mesh
 from mme_tpu_torch.train.schedules import cosine_warm_restarts
 from mme_tpu_torch.train.steps import (TrainState, make_eval_step,
                                        make_optimizer, make_train_step)
@@ -114,7 +115,7 @@ def _with_remat(spec: TAVSpec, remat: Union[bool, str]) -> TAVSpec:
 def build_tav(spec: TAVSpec, cfg: ExperimentConfig, steps_per_epoch: int,
               params: Optional[Dict[str, Any]] = None,
               remat: Union[bool, str] = True, use_accum: bool = True,
-              device: DeviceLike = "cuda"
+              device: DeviceLike = "cuda", mesh: Optional[Mesh] = None
               ) -> Tuple[TAVModel, TrainState, Callable, Callable]:
     """Returns (model, state, train_step, eval_step).
 
@@ -124,7 +125,8 @@ def build_tav(spec: TAVSpec, cfg: ExperimentConfig, steps_per_epoch: int,
     backward pass; ``"av"`` only the audio and video encoders' (the
     activation hogs: 24 layers of about 300 frames, 12 layers of 1464
     tokens); False none. The conv feature extractor's remat follows the
-    audio encoder's or ``spec.audio.remat_conv``."""
+    audio encoder's or ``spec.audio.remat_conv``. ``mesh``: the steps
+    split the batch over its ``dp`` axis (``train/steps.py``)."""
     dev = resolve_device(device)
     spec = _with_remat(spec, remat)
     model = TAVModel(spec, device=dev)
@@ -140,6 +142,7 @@ def build_tav(spec: TAVSpec, cfg: ExperimentConfig, steps_per_epoch: int,
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     state = TrainState.create(model.parameters(), tx, use_accum=use_accum,
                               generator=gen)
-    train_step = make_train_step(model, tx, num_classes=spec.output_dim)
-    eval_step = make_eval_step(model, num_classes=spec.output_dim)
+    train_step = make_train_step(model, tx, num_classes=spec.output_dim,
+                                 mesh=mesh)
+    eval_step = make_eval_step(model, num_classes=spec.output_dim, mesh=mesh)
     return model, state, train_step, eval_step

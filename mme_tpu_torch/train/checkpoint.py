@@ -31,6 +31,11 @@ and slows the training thread's kernel launches while it runs. The zip
 records are written without their CRC-32, whose computation takes most of
 ``torch.save``'s time; the process-wide switch is off only while a
 checkpoint is written.
+
+In a multi-process run (``parallel/distributed.py``) the ranks share the
+directory and hold the same state: only rank 0 writes (best saves, the
+latest slot, the meta files), and a restore first lets rank 0 publish its
+write, then waits at a barrier, then reads on every rank.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.serialization import config as serialization_config
 
+from mme_tpu_torch.parallel import distributed
+from mme_tpu_torch.parallel.mesh import barrier
 from mme_tpu_torch.train.steps import TrainState
 
 STATE_FILE = "state.pt"
@@ -234,6 +241,9 @@ class CheckpointManager:
         self._pending_meta: Optional[Dict[str, Any]] = None
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        # rank 0 writes; another rank only notes that a best was saved
+        self._writes = distributed.is_writer()
+        self._noted_best = False
         self._gc_orphans()
 
     # foreign-host dirs must be this stale (newest mtime under the tree)
@@ -319,6 +329,8 @@ class CheckpointManager:
     def wait(self) -> None:
         """Barrier on an in-flight save. Once its data is durable, publish
         its meta; a failed write raises here and publishes nothing."""
+        if not self._writes:
+            return
         if self._writer is not None:
             self._writer.join()
             self._writer = None
@@ -344,6 +356,9 @@ class CheckpointManager:
         """Save a new best. Returns once the state's tensors are copied on
         their device; with async saves the host copy and the write overlap
         the next steps, and the pointer flips at the next :meth:`wait`."""
+        if not self._writes:
+            self._noted_best = True
+            return
         self.wait()  # the previous write lands and its meta publishes
         name = None
         while name is None or os.path.exists(
@@ -364,7 +379,7 @@ class CheckpointManager:
             self.wait()  # blocking mode publishes at once
 
     def has_best(self) -> bool:
-        return (self._pending_meta is not None or
+        return (self._pending_meta is not None or self._noted_best or
                 os.path.exists(os.path.join(self.directory,
                                             "best_meta.json")))
 
@@ -376,6 +391,8 @@ class CheckpointManager:
 
     def save_latest(self, state: TrainState, meta: Dict[str, Any]) -> None:
         """Write the state into the latest slot, durable before return."""
+        if not self._writes:
+            return
         self.wait()
         _write(*_snapshot(state), self.latest_path)
         with open(os.path.join(self.directory, "latest_meta.json"),
@@ -389,14 +406,22 @@ class CheckpointManager:
     def clear_latest(self) -> None:
         """Remove the preemption slot, so a later resume never prefers a
         stale preempted state to the newer best."""
+        if not self._writes:
+            return
         meta = os.path.join(self.directory, "latest_meta.json")
         if os.path.exists(meta):
             os.remove(meta)
         shutil.rmtree(self.latest_path, ignore_errors=True)
 
+    def _published(self) -> None:
+        """Rank 0's write is durable and its meta published, on every
+        rank."""
+        self.wait()
+        barrier()
+
     def restore_latest(self, target_state: TrainState
                        ) -> Tuple[TrainState, Dict[str, Any]]:
-        self.wait()
+        self._published()
         state = load_payload(target_state, _load(self.latest_path))
         with open(os.path.join(self.directory, "latest_meta.json")) as f:
             meta = json.load(f)
@@ -405,7 +430,7 @@ class CheckpointManager:
     def restore_best(self, target_state: TrainState
                      ) -> Tuple[TrainState, Dict[str, Any]]:
         """Copy the best state into ``target_state``'s tensors."""
-        self.wait()  # the write about to be read must be durable
+        self._published()  # the write about to be read must be durable
         state = load_payload(target_state, _load(self.best_path))
         with open(os.path.join(self.directory, "best_meta.json")) as f:
             meta = json.load(f)

@@ -22,8 +22,17 @@ point (JAX saves before it), and it is exact when the signal falls on a
 step that applied its update: the accumulation buffer is stripped in every
 checkpoint, so a dialog cut in the middle restarts empty.
 
-Differences from JAX. There is no ``mesh`` argument (the port has no
-parallel axes yet). JAX's ``_restore_flex`` fallback for checkpoints written
+Under a mesh (``mesh=``) every rank builds the same global batches from
+the same seeded order and keeps its rows along ``dp``
+(``parallel/data.py::shard_batches``); the host bookkeeping (dialog
+accumulation, dumps) reads the global batch's mask and labels. Every branch
+on a metric (the best save, patience and the epoch break, the SIGTERM
+save) reads rank 0's value (``parallel/mesh.py::agree``), so all ranks
+take it together, and the loss and confusion matrices the metrics come
+from are the global batch's. Only rank 0 writes checkpoints and dumps
+(``train/checkpoint.py``); every rank restores.
+
+Differences from JAX. JAX's ``_restore_flex`` fallback for checkpoints written
 before stripping existed is dropped: the port has no such checkpoints. The
 state is mutated in place (``train/steps.py``), so stripping or hydrating
 the buffer replaces only that field on a shallow copy of the state, and a
@@ -57,6 +66,9 @@ from mme_tpu_torch.data.dataset import ArrayDataset, batches
 from mme_tpu_torch.data.prefetch import prefetch_batches
 from mme_tpu_torch.evals.dumps import dump_predictions
 from mme_tpu_torch.evals.metrics import Metrics
+from mme_tpu_torch.parallel import distributed
+from mme_tpu_torch.parallel.data import global_rows, shard_batches
+from mme_tpu_torch.parallel.mesh import Mesh, agree, batch_reduction
 from mme_tpu_torch.train.checkpoint import CheckpointManager
 from mme_tpu_torch.train.losses import epoch_parity_weights
 from mme_tpu_torch.train.policies import (DialogAccumulator, dialog_counts,
@@ -96,15 +108,20 @@ def _device_of(state: Any) -> torch.device:
 
 
 def _batch_iter(ds: ArrayDataset, order: np.ndarray, batch_size: int,
-                device: torch.device, batch_iter=None, skip: int = 0):
+                device: torch.device, batch_iter=None, skip: int = 0,
+                mesh: Optional[Mesh] = None):
     """Host-gathered batches, their features prefetched to ``device``
     unless ``MME_PREFETCH=0``, the first ``skip`` left out. ``batch_iter``
     plugs in another iterator (length bucketing,
-    ``data/dataset.py::BucketedBatchIter``)."""
+    ``data/dataset.py::BucketedBatchIter``). Under a mesh each batch is
+    this rank's rows along ``dp``, with the global batch's
+    ``GlobalRows`` in place of the indices."""
     src = (batch_iter(ds, order, batch_size) if batch_iter is not None
            else batches(ds, order, batch_size))
     if skip:
         src = itertools.islice(src, skip, None)
+    if mesh is not None:
+        src = shard_batches(src, mesh)
     if os.environ.get("MME_PREFETCH", "1") != "0":
         src = prefetch_batches(src, device)
     yield from src
@@ -117,29 +134,34 @@ def run_validation(eval_step, state: TrainState, ds: ArrayDataset,
                    rng: int, name: str,
                    callbacks: LoopCallbacks,
                    dump_path: Optional[str] = None,
-                   batch_iter=None) -> Tuple[float, Dict[str, Any]]:
+                   batch_iter=None, mesh: Optional[Mesh] = None
+                   ) -> Tuple[float, Dict[str, Any]]:
     """One pass over ``ds`` with the deterministic forward; logs and
     returns the mean batch loss and the ``name``-keyed summary.
-    ``dump_path`` appends per-sample "label , pred" lines."""
+    ``dump_path`` appends per-sample "label , pred" lines (rank 0)."""
     metric.reset_metrics()
     device = _device_of(state)
+    dp = None if mesh is None else mesh.axis("dp")
     loss_acc, cm_acc, steps = None, None, 0
     order = np.arange(len(ds))
-    for i, (batch, labels, mask, _) in enumerate(_batch_iter(
-            ds, order, cfg.batch_size, device, batch_iter)):
-        batch = batch_transform(_generator(fold_seed(rng, i), device),
-                                to_device(batch, device))
+    for i, (batch, labels, mask, idx) in enumerate(_batch_iter(
+            ds, order, cfg.batch_size, device, batch_iter, mesh=mesh)):
+        with batch_reduction(dp):
+            batch = batch_transform(_generator(fold_seed(rng, i), device),
+                                    to_device(batch, device))
         loss, cm, preds = eval_step(batch, labels, mask, class_weights)
         # accumulate on the device: a float() here would sync every batch
         loss_acc = loss if loss_acc is None else loss_acc + loss
         cm_acc = cm if cm_acc is None else cm_acc + cm
         steps += 1
-        if dump_path is not None:
-            dump_predictions(dump_path, np.asarray(labels),
-                             preds.cpu().numpy(), np.asarray(mask))
+        if dump_path is not None and distributed.is_writer():
+            rows = global_rows(idx, labels, mask)
+            dump_predictions(dump_path, rows.labels, preds.cpu().numpy(),
+                             rows.mask)
     if cm_acc is not None:
         metric.merge(cm_acc)
-    avg = (float(loss_acc) if loss_acc is not None else 0.0) / max(steps, 1)
+    avg = agree((float(loss_acc) if loss_acc is not None else 0.0)
+                / max(steps, 1), mesh)
     d = metric.summary(name, include_confusion=True)
     d[f"{name}/loss"] = avg
     callbacks.log(d)
@@ -174,11 +196,14 @@ def train_network(train_step, eval_step, state: TrainState,
                   callbacks: LoopCallbacks = LoopCallbacks(),
                   use_weighted_loss: bool = True,
                   resume: bool = False,
-                  batch_iter=None) -> TrainState:
+                  batch_iter=None,
+                  mesh: Optional[Mesh] = None) -> TrainState:
     """Train with the reference policy stack; returns the best state (its
     tensors are ``state``'s own). ``resume=True`` restores the ``latest``
-    slot of ``checkpoints`` if there is one, else the best."""
+    slot of ``checkpoints`` if there is one, else the best. ``mesh``: the
+    batch is split over its ``dp`` axis (module docstring)."""
     device = _device_of(state)
+    dp = None if mesh is None else mesh.axis("dp")
     cw = torch.as_tensor(np.asarray(class_weights, np.float32),
                          device=device)
     host_rng = np.random.default_rng(cfg.seed)
@@ -241,23 +266,26 @@ def train_network(train_step, eval_step, state: TrainState,
         t0 = time.time()
         for bi, (batch, labels, mask, idx) in enumerate(
                 _batch_iter(train_ds, order, cfg.batch_size, device,
-                            batch_iter, skip), start=skip):
+                            batch_iter, skip, mesh), start=skip):
             if use_dialog_accum:
                 # sequential order: batch position == dataset index. The
                 # update applies when a sample of this batch ends a dialog;
                 # the step averages the accumulated gradients, so the loss
                 # stays unscaled
                 apply_update = False
-                for j in range(int(np.asarray(mask).sum())):
+                valid = global_rows(idx, labels, mask).mask
+                for j in range(int(np.asarray(valid).sum())):
                     _size, boundary = accum.step(bi * cfg.batch_size + j)
                     apply_update = apply_update or boundary
                 apply_update = apply_update or (bi + 1 == iters)
             else:
                 apply_update = True
 
-            tbatch = batch_transform(
-                _generator(fold_seed(rng, state.step, _TRANSFORM), device),
-                to_device(batch, device))
+            with batch_reduction(dp):
+                tbatch = batch_transform(
+                    _generator(fold_seed(rng, state.step, _TRANSFORM),
+                               device),
+                    to_device(batch, device))
             state, loss, cm, grad_norm = train_step(
                 state, tbatch, labels, mask, step_weights, 1.0,
                 apply_update, rng)
@@ -297,7 +325,7 @@ def train_network(train_step, eval_step, state: TrainState,
                     eval_step, state, val_ds, cfg, metric, step_weights,
                     batch_transform,
                     fold_seed(rng, state.step, _VALIDATION), "val",
-                    callbacks, batch_iter=batch_iter)
+                    callbacks, batch_iter=batch_iter, mesh=mesh)
                 if val_loss < prev_val_loss:
                     patience_iter = 0
                     prev_val_loss = val_loss
@@ -311,7 +339,7 @@ def train_network(train_step, eval_step, state: TrainState,
                         epoch_broken = True
                         break
 
-            if preempt["flag"]:
+            if agree(float(preempt["flag"]), mesh):
                 checkpoints.save_latest(
                     _strip_accum(state),
                     {"epoch": epoch, "batch": bi + 1,
@@ -346,9 +374,11 @@ def evaluate(eval_step, state: TrainState, test_ds: ArrayDataset,
              rng: int = 0,
              callbacks: LoopCallbacks = LoopCallbacks(),
              dump_path: Optional[str] = None,
-             batch_iter=None) -> Dict[str, Any]:
+             batch_iter=None,
+             mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """The test pass: unweighted loss and the ``test``-keyed summary."""
     _, summary = run_validation(eval_step, state, test_ds, cfg, metric, None,
                                 batch_transform, rng, "test", callbacks,
-                                dump_path=dump_path, batch_iter=batch_iter)
+                                dump_path=dump_path, batch_iter=batch_iter,
+                                mesh=mesh)
     return summary

@@ -5,6 +5,12 @@ Port of ``mme_tpu/train/losses.py``. Every loss has the signature
 ``(logits, labels, class_weights, sample_mask)``; the batch loss of the
 weighted cross entropy is ``sum_i w[y_i]·nll_i / sum_i w[y_i]``, and
 ``sample_mask`` (1/0) leaves padded batch rows out.
+
+Every sum over the batch goes through ``parallel/mesh.py::batch_sum``, so
+under a dp step each rank's loss is the global batch's: the numerator and
+the denominator of the cross entropy, and the soft tp / fp / fn counts of
+the F-beta and precision losses, are summed over the ranks (differentiably)
+before the ratio, as one process holding the whole batch computes them.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from mme_tpu_torch.parallel.mesh import batch_sum
 
 
 def class_weights_from_counts(counts: np.ndarray) -> np.ndarray:
@@ -34,7 +42,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
          else torch.ones_like(nll))
     if sample_mask is not None:
         w = w * sample_mask.to(w.dtype)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-9)
+    return batch_sum((nll * w).sum()) / torch.clamp(batch_sum(w.sum()),
+                                                    min=1e-9)
 
 
 def epoch_parity_weights(class_weights: torch.Tensor, epoch: int,
@@ -56,9 +65,9 @@ def _soft_pr(logits: torch.Tensor, labels: torch.Tensor,
         m = sample_mask.float()[:, None]
         probs = probs * m
         onehot = onehot * m
-    tp = (onehot * probs).sum(dim=0)
-    fp = ((1.0 - onehot) * probs).sum(dim=0)
-    fn = (onehot * (1.0 - probs)).sum(dim=0)
+    tp, fp, fn = batch_sum(torch.stack([
+        (onehot * probs).sum(dim=0), ((1.0 - onehot) * probs).sum(dim=0),
+        (onehot * (1.0 - probs)).sum(dim=0)]))
     return tp / (tp + fp + epsilon), tp / (tp + fn + epsilon)
 
 

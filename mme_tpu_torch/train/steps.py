@@ -20,6 +20,20 @@ and update their running ones in place; the eval step runs it in eval mode
 on the running ones. ``TrainState.buffers`` holds the model's persistent
 buffers by name (:func:`model_buffers`), as JAX's state holds
 ``batch_stats``, so checkpoints carry them beside the parameters.
+
+Under a mesh (``mesh=``, its ``dp`` axis) each rank holds its rows of the
+global batch and both steps give, on every rank, the numbers of one
+process holding the whole batch, as JAX's one jitted step over a sharded
+array does. The forward and the loss run inside
+``parallel/mesh.py::batch_reduction``, so the loss's sums, BatchNorm's
+statistics and the MoE router's fractions are the global batch's and the
+random draws are the global batch's rows. Every rank back-propagates that
+replicated loss; the ranks' gradients sum to dp times the global gradient
+(``mesh.all_reduce_sum``), and the ranks of an sp axis hold equal ones, so
+the step averages them over every rank of the mesh before the norm, the
+clip and the update (K3 included), which then run unchanged on each rank's
+replica, on the same bits. The confusion matrix is all-reduced; the
+eval step's predictions are gathered in rank order.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import torch
 from torch import nn
 
 from mme_tpu_torch.evals.metrics import confusion_matrix
+from mme_tpu_torch.parallel.mesh import Mesh, batch_reduction
 from mme_tpu_torch.train.losses import cross_entropy
 from mme_tpu_torch.train.optim import (AdamWState, Optimizer, View, adamw,
                                        adamw_factored, adamw_lowmem,
@@ -177,7 +192,8 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
                     grads_dtype: Optional[torch.dtype] = None,
                     log_module_norms: bool = False,
                     log_histograms: bool = False,
-                    has_aux_loss: bool = False) -> Callable:
+                    has_aux_loss: bool = False,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Build the train step around ``model(batch, rng) -> logits``, or
     ``-> (logits, aux_loss)`` with ``has_aux_loss`` (the MoE
     load-balancing term, added to the loss before it is scaled; the loss
@@ -199,9 +215,12 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
     and for every top-level module ``k`` the norms ``grad/k`` and
     ``param/k`` (the parameters before this step's update);
     ``log_histograms`` adds ``hist/grad/k`` and ``hist/param/k``
-    (:func:`magnitude_histogram`)."""
+    (:func:`magnitude_histogram`).
+
+    ``mesh``: the batch is split over its ``dp`` axis (module docstring)."""
     if loss_fn is None:
         loss_fn = cross_entropy
+    dp = None if mesh is None else mesh.axis("dp")
     if grads_dtype is None:
         grads_dtype = {"bf16": torch.bfloat16}.get(
             os.environ.get("MME_GRADS", ""))
@@ -217,17 +236,26 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
         class_weights = torch.as_tensor(class_weights, device=device)
 
         model.train()
-        out = model(batch, rng=gen)
-        logits, aux = out if has_aux_loss else (out, None)
-        loss = loss_fn(logits, labels, class_weights, sample_mask)
-        if aux is not None:
-            loss = loss + aux
-        scaled_loss = loss * loss_scale
-        grads = torch.autograd.grad(scaled_loss, params, allow_unused=True)
+        with batch_reduction(dp):
+            out = model(batch, rng=gen)
+            logits, aux = out if has_aux_loss else (out, None)
+            loss = loss_fn(logits, labels, class_weights, sample_mask)
+            if aux is not None:
+                loss = loss + aux
+            scaled_loss = loss * loss_scale
+            grads = torch.autograd.grad(scaled_loss, params,
+                                        allow_unused=True)
         # a parameter the forward did not reach (SpecAugment's embedding
         # with its probability at 0) has a zero gradient, as in JAX
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
+        if mesh is not None and mesh.size > 1:
+            # over every rank: the dp ranks' partial gradients sum to dp
+            # times the global one, and the sp ranks' are equal; the mean
+            # keeps every replica on the same bits
+            world = mesh.world
+            grads = [g.div_(world.size)
+                     for g in world.all_reduce_many(grads)]
         if grads_dtype is not None:
             grads = [g.to(grads_dtype) if g.dtype == torch.float32 else g
                      for g in grads]
@@ -267,6 +295,8 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
         with torch.no_grad():
             cm = confusion_matrix(logits.argmax(dim=-1), labels, num_classes,
                                   sample_mask)
+            if dp is not None and dp.size > 1:
+                cm = dp.all_reduce(cm)
         state.step += 1
         return state, scaled_loss.detach(), cm, grad_norm
 
@@ -275,16 +305,20 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
 
 def make_eval_step(model: nn.Module, num_classes: int,
                    loss_fn: Optional[Callable] = None,
-                   has_aux_loss: bool = False) -> Callable:
+                   has_aux_loss: bool = False,
+                   mesh: Optional[Mesh] = None) -> Callable:
     """Eval: ``loss, cm, preds = step(batch, labels, sample_mask,
     class_weights)`` with the deterministic forward (eval mode: BatchNorms
     on their running statistics) and no gradients. The parameters and
     statistics are the model's, so the JAX step's ``params`` and
     ``batch_stats`` arguments have no counterpart. ``has_aux_loss``: the
     model returns ``(logits, aux)``; aux is a training regulariser and
-    stays out of the eval (selection) loss."""
+    stays out of the eval (selection) loss. ``mesh``: the batch is split
+    over its ``dp`` axis; loss and ``cm`` are the global batch's and
+    ``preds`` the global batch's, gathered in rank order."""
     if loss_fn is None:
         loss_fn = cross_entropy
+    dp = None if mesh is None else mesh.axis("dp")
 
     def step(batch: Dict[str, Any], labels, sample_mask, class_weights=None):
         device = next(model.parameters()).device
@@ -294,13 +328,16 @@ def make_eval_step(model: nn.Module, num_classes: int,
         if class_weights is not None:
             class_weights = torch.as_tensor(class_weights, device=device)
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), batch_reduction(dp):
             logits = model(batch)
             if has_aux_loss:
                 logits = logits[0]
             loss = loss_fn(logits, labels, class_weights, sample_mask)
             preds = logits.argmax(dim=-1)
             cm = confusion_matrix(preds, labels, num_classes, sample_mask)
+            if dp is not None and dp.size > 1:
+                cm = dp.all_reduce(cm)
+                preds = dp.all_gather(preds)
         return loss, cm, preds
 
     return step

@@ -160,27 +160,47 @@ def test_main_prints_reference_keyed_dicts(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("case", [
-    ("env", "MME_MESH", "item 7"), ("env", "MME_MP", "item 7"),
-    ("env", "MME_DP", "item 7"), ("env", "MME_SP", "item 7"),
-    ("env", "MME_PP", "item 7"), ("env", "MME_COORDINATOR", "item 7"),
-    ("env", "MME_NUM_PROCESSES", "item 7"),
+    ("env", "MME_MESH", "unmeshed"), ("env", "MME_MP", "part two"),
+    ("env", "MME_DP", "unmeshed"), ("env", "MME_SP", "not divisible"),
+    ("env", "MME_PP", "part two"),
+    ("env", "MME_COORDINATOR", "MME_PROCESS_ID"),
+    ("env", "MME_NUM_PROCESSES", "MME_PROCESS_ID"),
     ("env", "MME_PRETRAINED", None)])
 def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch, capsys):
-    """The knobs of ROADMAP Queue 1 item 7 raise. ``MME_PRETRAINED`` (item
-    6) is no longer among them: naming no directory, it loads nothing and
-    raises nothing, as in JAX (tests/test_torch_pretrained.py loads)."""
-    _, what, item = case
+    """Of ROADMAP Queue 1 item 7's knobs only part two's raise
+    ``NotImplementedError`` before any work (``MME_MP``, ``MME_PP``). On one
+    process ``MME_MESH=on`` and ``MME_DP`` run unmeshed, as JAX does on one
+    device; ``MME_SP=2`` cannot split one rank (``ValueError``), and half
+    of the multi-process env contract raises ``ValueError`` naming what is
+    missing. ``MME_PRETRAINED`` naming no directory loads nothing and raises
+    nothing, as in JAX (tests/test_torch_pretrained.py loads)."""
+    _, what, expect = case
     monkeypatch.chdir(tmp_path)
     argv = ["--dataset", "synthetic", "-e", "1", "-b", "8"]
     monkeypatch.setenv(what, {"MME_MESH": "on"}.get(what, "2"))
-    if item is None:
-        monkeypatch.setattr(tav_nn, "run_classifier",
-                            lambda cfg, model, *a, **k: {"model": model})
+    seen = {}
+    train = tav_nn.run_classifier
+
+    def capture(cfg, model, *a, **k):
+        seen.update(model=model, mesh=k["mesh"], auto=common.auto_mesh(cfg))
+        if expect == "unmeshed":           # the run itself, on one rank
+            return train(cfg, model, *a, **k)
+        return {"model": model}
+
+    monkeypatch.setattr(tav_nn, "run_classifier", capture)
+    if expect is None:
         assert type(tav_nn.main(argv, device="cpu")["model"]) is TAVModel
         assert "loaded pretrained" not in capsys.readouterr().out
         return
-    with pytest.raises(NotImplementedError, match=item):
+    if expect == "unmeshed":
+        summary = tav_nn.main(argv, device="cpu")
+        assert seen["mesh"] is None and seen["auto"] is None
+        assert np.array(summary["test/confusion_matrix"]).sum() == 16
+        return
+    error = NotImplementedError if expect == "part two" else ValueError
+    with pytest.raises(error, match=expect):
         tav_nn.main(argv, device="cpu")
+    assert not seen          # refused before any work
 
 
 def test_missing_pickle_raises(tmp_path, monkeypatch):

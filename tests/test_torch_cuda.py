@@ -1273,3 +1273,89 @@ def test_zoo_classifier_bf16_kernels_match_plain(cuda, name, monkeypatch):
         want_f["layer_norm_fwd"] = n_ln
     assert count_f == want_f
     assert np.abs(fused - got).max() <= ZOO_PROB_TOL
+
+
+# ---- the ring's hops (ops/ring_attention.py): K1 per block merged, K2's
+# two kernels per block with the one global pre-pass ----
+
+def _ring_blocks(B, L, n, H, D, dtype, mask_value, seed=21):
+    """q [B, L] against n key blocks of L: batch row 1 has every key masked
+    by ``mask_value``, row 0 a random key mask with a -1e30 padded tail."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = n * L
+    q = torch.randn(B, L, H, D, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, L, H, D, generator=g, device="cuda").to(dtype)
+    keep = torch.rand(B, S, generator=g, device="cuda") > 0.3
+    bias = additive_mask(keep)[:, 0, 0, :].contiguous()
+    bias[0, S - 5:] = -1e30
+    bias[1] = mask_value
+    blocks = [(k[:, i * L:(i + 1) * L], v[:, i * L:(i + 1) * L],
+               bias[:, i * L:(i + 1) * L].contiguous()) for i in range(n)]
+    return q, k, v, bias, do, blocks
+
+
+def _merged(fwd, q, blocks, dtype):
+    from mme_tpu_torch.ops.ring_attention import finish_merge, merge_block
+    B, L, H, D = q.shape
+    m = torch.full((B, H, L), float("-inf"), device="cuda")
+    l = torch.zeros((B, H, L), device="cuda")
+    acc = torch.zeros((B, L, H, D), device="cuda")
+    for kb, vb, bb in blocks:
+        m, l, acc = merge_block(m, l, acc, *fwd(q, kb, vb, bb))
+    return finish_merge(m, l, acc, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,L", [(2, 237), (2, 732), (4, 128)])
+@pytest.mark.parametrize("mask_value", [-0.7 * torch.finfo(torch.float32).max,
+                                        -1e30], ids=["model_mask", "key_mask"])
+def test_ring_hops_match_plain_with_global_prepass(cuda, dtype, n, L,
+                                                   mask_value):
+    """K1 per hop merged, the pre-pass once on the whole key-bias row and
+    K2's kernels per hop (``rows=``, no pre-pass of their own; the
+    ``flash_bwd`` count one per hop), against the same arithmetic in the
+    plain versions and against the whole sequence's plain backward: the
+    fully masked row's correction is log n of the whole context."""
+    q, k, v, bias, do, blocks = _ring_blocks(2, L, n, 3, 64, dtype,
+                                             mask_value)
+    out, lse = _merged(flash_attention_fwd, q, blocks, dtype)
+    out_p, lse_p = _merged(flash_attention_fwd_plain, q, blocks, dtype)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), out_p.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    rows = flash_bwd_prepass(out, do, lse, bias)
+    rows_p = flash_bwd_prepass_plain(out, do, lse, bias)
+    torch.testing.assert_close(rows[0], rows_p[0], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(rows[1], rows_p[1], atol=1e-6, rtol=1e-6)
+    assert (rows[1][1] > 0).all() and (rows[1][0] == 0).all()
+    before = dict(kernels.LAUNCHES)
+    got = [flash_attention_bwd(q, kb, vb, bb, out, lse, do, rows)
+           for kb, vb, bb in blocks]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd"] == before["flash_bwd"] + n
+    assert kernels.LAUNCHES["flash_bwd_prepass"] == before[
+        "flash_bwd_prepass"]
+    plain = [flash_attention_bwd_plain(q, kb, vb, bb, out, lse, do, rows_p)
+             for kb, vb, bb in blocks]
+    for a, b in zip(got, plain):
+        _assert_grads_close(a, b, dtype)
+
+    def summed(parts):
+        return (sum(p[0].float() for p in parts).to(dtype),
+                torch.cat([p[1] for p in parts], 1),
+                torch.cat([p[2] for p in parts], 1))
+
+    _assert_grads_close(summed(got), flash_attention_bwd_plain(
+        q, k, v, bias, out, lse, do), dtype)
+    # each block's own pre-pass restores one block's log n: the masked
+    # row's dV comes out n times the ring's
+    per_block = summed([flash_attention_bwd_plain(q, kb, vb, bb, out, lse,
+                                                  do)
+                        for kb, vb, bb in blocks])
+    ratio = (per_block[2][1].float().abs().max()
+             / summed(got)[2][1].float().abs().max()).item()
+    assert abs(ratio - n) < 0.1 * n, ratio

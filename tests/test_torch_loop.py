@@ -95,8 +95,13 @@ def test_config_defaults_and_helpers_match_jax():
 
 @pytest.mark.parametrize("var", ["MME_COORDINATOR", "MME_NUM_PROCESSES"])
 def test_multi_host_config_is_refused(var, monkeypatch):
+    """``config_from_args`` joins the multi-process runtime; half of the
+    env contract is refused before any rendezvous, naming what is
+    missing."""
+    for v in ("MME_COORDINATOR", "MME_NUM_PROCESSES", "MME_PROCESS_ID"):
+        monkeypatch.delenv(v, raising=False)
     monkeypatch.setenv(var, "2")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="MME_PROCESS_ID"):
         config.config_from_args(config.arg_parse("tav_nn", []))
 
 

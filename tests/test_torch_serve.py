@@ -168,6 +168,21 @@ assert slow(torch.rand(2, 2, 32, 32, 3)).shape == (2, 3)
 summary = images_nn.main(["--dataset", "synthetic", "-e", "1", "-b", "16"],
                          device="cpu")
 assert np.array(summary["test/confusion_matrix"]).sum() == 16
+# the parallel axes: the runtime, the mesh and the ring, on one rank
+assert {"mme_tpu_torch.parallel.distributed", "mme_tpu_torch.parallel.mesh",
+        "mme_tpu_torch.parallel.data", "mme_tpu_torch.parallel.launch",
+        "mme_tpu_torch.ops.ring_attention"} <= set(mods)
+from mme_tpu_torch.ops.attention import dot_product_attention_shd
+from mme_tpu_torch.ops.ring_attention import ring_attention
+from mme_tpu_torch.parallel import distributed
+from mme_tpu_torch.parallel.mesh import make_mesh
+assert distributed.maybe_initialize() is False
+one = make_mesh(1, 1, axis_names=("dp", "sp"))
+qkv = torch.randn(3, 2, 8, 2, 64)
+for flash in (False, True):
+    torch.testing.assert_close(
+        ring_attention(*qkv, one, "sp", use_flash=flash),
+        dot_product_attention_shd(*qkv, use_flash=False))
 # the WAV decoder from the port's own source, into a directory of its own,
 # then a file decoded through it and the data path's host pieces
 from mme_tpu_torch.data import records, wavio
@@ -218,7 +233,8 @@ print(len(mods), "modules")
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """Every port module imports, and serving, the train step, a
+    """Every port module imports (the parallel axes' too, with ring
+    attention on a one-rank mesh), and serving, the train step, a
     one-epoch synthetic run of the TAV CLI and of ``images_nn``, the audio
     classifier and SlowR50 on drawn weights, and the WAV decoder built from
     the port's own source work, and a ``.safetensors`` checkpoint loads
