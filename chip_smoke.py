@@ -321,18 +321,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``MME_PROCESS_ID``), each on ``cuda:0``, each call under a time limit.
    Full-width ``TAVSpec(output_dim=7)`` weights from one seed:
    (1) on this process, the single-rank fp32 step (global batch 4, no
-       dropout) whose loss, grad norm and updated parameters the ranks are
-       held to, and the single-rank fp32 ``Predictor``'s probabilities on
-       phase 4's requests;
+       dropout) whose loss, grad norm and gradients (as the optimizer is
+       handed them) the ranks are held to, and the single-rank fp32
+       ``Predictor``'s probabilities on phase 4's requests;
    (2) dp=2, fp32: ``replicate`` broadcasts rank 0's weights, each rank
        steps on its 2 rows: loss and grad norm as phase 5 holds them, every
-       parameter after the AdamW update within 2.5·lr of the single-rank
-       one, 54 K1 and K2;
+       gradient leaf the optimizer is handed (after the all-reduce) within
+       ``P13_GRAD_RTOL`` of its largest element in the single-rank step,
+       54 K1 and K2;
    (3) dp=2, bf16 at the global batch of 8 with every knob on: 1 warm-up
        and 2 timed steps, ms per step, the all-reduce's share of a step
        (timed around it, synchronised), each rank's peak memory (the two
        must fit the card), one step's launches (54 K1, K2, K5a, K5b, the
-       spec's K4a/K4b at 4 rows, one K3);
+       spec's K4a/K4b at 4 rows, one K3); the warm-up's gradient
+       all-reduce held leaf by leaf: one fixed projection of each leaf
+       after it equals the sum of the ranks' projections before it;
    (4) sp=2 through the CLI path (``tav_nn.tav_spec``, ``parallel_spec``
        with ``MME_SP=2`` and ``MME_SP_TOWER`` fusion, then video,
        ``build_model``) in fp32 without dropout, beside the unsharded model
@@ -4703,15 +4706,17 @@ P13_BF16_ENV = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1",
                 "MME_FUSED_LN": "1", "MME_FUSED_MLP": "1"}
 P13_TOWERS = ("fusion", "video")
 # fp32 dp=2 step against the single-rank step from the same state: the
-# loss and grad norm as phase 5 holds kernels against MME_FLASH=0; after
-# one AdamW step an element moves by at most lr·(1 + weight decay) either
-# way, so an element whose tiny gradient changed sign (fp32 sums of the
-# two ranks' partials in another order) moves 2·lr apart
-P13_PARAM_TOL = 2.5 * P13_LR
-# sp=2 against the unsharded model in fp32: the logits as served fp32
-# probabilities are held (SERVE_TOL), each gradient leaf within this share
-# of its largest element (the ring merges hops in fp32 in another order)
+# loss and grad norm as phase 5 holds kernels against MME_FLASH=0, and each
+# gradient leaf within P13_GRAD_RTOL of its largest element (the ranks'
+# partial sums add in another order). sp=2 against the unsharded model in
+# fp32: the logits as served fp32 probabilities are held (SERVE_TOL), each
+# gradient leaf within the same share (the ring merges hops in fp32 in
+# another order)
 P13_GRAD_RTOL = 1e-3
+# the bf16 dp=2 all-reduce: a leaf's projection after it against the sum of
+# the ranks' projections before it, within this many of its dtype's eps
+# times the projection of the leaves' magnitudes (one rounding of a+b)
+P13_REDUCE_EPS = 4.0
 
 
 def _rank_setup() -> None:
@@ -4763,11 +4768,56 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _handed_grads(model: torch.nn.Module, into: dict):
+    """Note, by parameter name, the gradients a training step hands its
+    optimizer (after the dp all-reduce, before the clip)."""
+    from mme_tpu_torch.train.optim import Optimizer
+    names = {id(p): n for n, p in model.named_parameters()}
+    plain = Optimizer.update
+
+    def noted(self, params, grads, state, generator=None):
+        into.update({names[id(p)]: g.detach().clone()
+                     for p, g in zip(params, grads)})
+        return plain(self, params, grads, state, generator)
+
+    Optimizer.update = noted
+    try:
+        yield into
+    finally:
+        Optimizer.update = plain
+
+
+def _worst_grad_share(pairs) -> Tuple[float, Optional[str]]:
+    """Over ``(name, grad, reference)`` triples, the largest
+    ``max|grad - reference| / max|reference|`` among leaves whose
+    reference is not all zero (such a leaf must be all zero too), and its
+    leaf."""
+    worst, worst_name = 0.0, None
+    for name, g, w in pairs:
+        top = w.abs().max().item()
+        share = ((g - w).abs().max().item() / top if top > 0
+                 else float("inf") if g.abs().max().item() > 0 else 0.0)
+        if share > worst:
+            worst, worst_name = share, name
+    return worst, worst_name
+
+
+def _projection(g: torch.Tensor, leaf: int) -> Tuple[float, float]:
+    """A fixed linear functional of a gradient leaf, Σ w·g with w a
+    cosine of the element's index and the leaf's number, and Σ |w·g|, in
+    fp64."""
+    x = g.detach().reshape(-1).double()
+    w = torch.cos(torch.arange(x.numel(), device=x.device,
+                               dtype=torch.float64) * 0.7 + leaf)
+    return (w * x).sum().item(), (w * x).abs().sum().item()
+
+
 def p13_dp_fp32(ref: dict) -> dict:
     """A rank of the fp32 dp=2 step: the same weights (broadcast from rank
     0 by ``replicate``) and this rank's 2 rows of the global batch of 4;
-    loss, grad norm and every parameter after the update against the
-    single-rank step saved at ``ref["path"]``."""
+    loss, grad norm and every gradient leaf the optimizer is handed against
+    the single-rank step's, saved at ``ref["path"]``."""
     from mme_tpu_torch.parallel import distributed
     from mme_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
     _rank_setup()
@@ -4788,29 +4838,51 @@ def p13_dp_fp32(ref: dict) -> dict:
     labels, mask = local.pop("_labels"), local.pop("_mask")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    _, loss, cm, norm = step(state, local, labels, mask, cw, 1.0, True,
-                             SEED)
+    grads: dict = {}
+    with _handed_grads(model, grads):
+        _, loss, cm, norm = step(state, local, labels, mask, cw, 1.0, True,
+                                 SEED)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     want = torch.load(ref["path"], map_location="cuda", weights_only=True)
-    diff = max((p.detach() - want[n]).abs().max().item()
-               for n, p in model.named_parameters())
+    worst, worst_name = _worst_grad_share(
+        (n, grads[n], w) for n, w in want.items())
     out = {"rank": distributed.rank(), "device": str(state.params[0].device),
            "transport": mesh.world.transport(state.params[0]),
            "loss": loss.item(), "grad_norm": float(norm),
-           "cm_sum": int(cm.sum()), "max_param_diff": diff,
+           "cm_sum": int(cm.sum()), "same_leaves": set(grads) == set(want),
+           "worst_grad_share": worst, "worst_grad_leaf": worst_name,
            "launches": launches,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "seconds": time.perf_counter() - t0}
-    del model, state, step, want
+    del model, state, step, want, grads
     _free()
     return out
+
+
+def _reduce_holds(projected: list) -> bool:
+    """Every rank saw the same sums leaf by leaf, and each equals the sum
+    of the ranks' projections before the all-reduce, to one rounding."""
+    first = projected[0]
+    n = len(first["after"])
+    if any(len(p["before"]) != n or p["after"] != first["after"]
+           for p in projected):
+        return False
+    for j in range(n):
+        want = sum(p["before"][j][0] for p in projected)
+        scale = sum(p["before"][j][1] for p in projected)
+        if abs(first["after"][j] - want) > (P13_REDUCE_EPS
+                                            * first["eps"][j] * scale):
+            return False
+    return True
 
 
 def p13_dp_bf16(weights: str, steps: int, warmup: int) -> dict:
     """A rank of the bf16 dp=2 steps at the global batch of 8 with every
     knob on: ms per step (host clock, synchronised), the all-reduce's
-    share of it, launches of one step, this rank's peak memory."""
+    share of it, launches of one step, this rank's peak memory, and the
+    warm-up's first all-reduce projected leaf by leaf (:func:`_projection`)
+    before and after."""
     from mme_tpu_torch.parallel import distributed
     from mme_tpu_torch.parallel.mesh import AxisGroup, make_mesh, shard_batch
     _rank_setup()
@@ -4819,13 +4891,22 @@ def p13_dp_bf16(weights: str, steps: int, warmup: int) -> dict:
     mesh = make_mesh(P13_WORLD, 1)
     reduce_ms = []
     plain = AxisGroup.all_reduce_many
+    projected: dict = {}
 
     def timed(self, tensors):
+        first = not projected
+        if first:
+            projected["before"] = [_projection(g, j)
+                                   for j, g in enumerate(tensors)]
+            projected["eps"] = [torch.finfo(g.dtype).eps for g in tensors]
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = plain(self, tensors)
         torch.cuda.synchronize()
         reduce_ms.append((time.perf_counter() - t) * 1e3)
+        if first:
+            projected["after"] = [_projection(g, j)[0]
+                                  for j, g in enumerate(out)]
         return out
 
     os.environ.update(P13_BF16_ENV)
@@ -4870,7 +4951,7 @@ def p13_dp_bf16(weights: str, steps: int, warmup: int) -> dict:
            "all_reduce_share_last": shares,
            "losses": losses, "launches": launches,
            "expected_layer_norm": n_ln, "peak_gb": peak,
-           "seconds": time.perf_counter() - t0}
+           "projected": projected, "seconds": time.perf_counter() - t0}
     del model, state, step
     _free()
     return out
@@ -4889,6 +4970,18 @@ def _ring_shapes(record: list):
     return lambda: setattr(ra, "flash_attention_fwd", plain)
 
 
+# a rank's draw of the sp calls' weights from P13_SEED, made once: every
+# tower's ``tav_nn.build_model`` loads the same draw (``_drawn_once``)
+_P13_DRAWN: dict = {}
+
+
+def _drawn_once(spec: TAVSpec, seed: int, model: Optional[str] = None):
+    key = (seed, model)
+    if key not in _P13_DRAWN:
+        _P13_DRAWN[key] = init_params(spec, seed, model=model)
+    return _P13_DRAWN[key]
+
+
 def p13_sp(tower: str) -> dict:
     """A rank of sp=2 through the CLI path: ``tav_nn.tav_spec`` at full
     width, ``parallel_spec`` with ``MME_SP=2 MME_SP_TOWER=tower``,
@@ -4902,6 +4995,7 @@ def p13_sp(tower: str) -> dict:
     t0 = time.perf_counter()
     env = {"MME_SP": str(P13_WORLD), "MME_SP_TOWER": tower}
     os.environ.update(env)
+    tav_nn.init_params = _drawn_once
     try:
         cfg = ExperimentConfig(output_dim=7, dataset="chip_smoke_p13",
                                seed=P13_SEED, batch_size=P13_SP_BATCH,
@@ -4911,6 +5005,7 @@ def p13_sp(tower: str) -> dict:
         spec, mesh = tav_nn.parallel_spec(cfg, base)
         model = tav_nn.build_model(cfg, spec, "cuda")
     finally:
+        tav_nn.init_params = init_params
         for k in env:
             del os.environ[k]
     ref = TAVModel(base, device="cuda")
@@ -4961,17 +5056,13 @@ def p13_sp(tower: str) -> dict:
         return float(np.median(times))
 
     ring_ms, whole_ms = step_ms(model), step_ms(ref)
-    worst, worst_name = 0.0, None
-    norm2 = norm2_ref = 0.0
-    for (name, p), g, w in zip(model.named_parameters(), grads, want):
-        g = torch.zeros_like(p) if g is None else g
-        w = torch.zeros_like(p) if w is None else w
-        norm2 += g.double().square().sum().item()
-        norm2_ref += w.double().square().sum().item()
-        share = ((g - w).abs().max().item()
-                 / max(w.abs().max().item(), 1e-30))
-        if w.abs().max().item() > 0 and share > worst:
-            worst, worst_name = share, name
+    leaves = [(name, torch.zeros_like(p) if g is None else g,
+               torch.zeros_like(p) if w is None else w)
+              for (name, p), g, w in zip(model.named_parameters(), grads,
+                                         want)]
+    norm2 = sum(g.double().square().sum().item() for _, g, _ in leaves)
+    norm2_ref = sum(w.double().square().sum().item() for _, _, w in leaves)
+    worst, worst_name = _worst_grad_share(leaves)
     ring_layers = (spec.fusion.layers if tower == "fusion"
                    else getattr(spec, tower).encoder.layers)
     layers = (spec.text.encoder.layers + spec.audio.encoder.layers
@@ -5137,13 +5228,15 @@ def parallel_axes(card: str) -> dict:
                                           device="cuda")
         batch, labels, mask, cw = train_inputs(spec, P13_FP32_BATCH,
                                                P13_SEED + 1)
-        _, loss, _, norm = step(state, batch, labels, mask, cw, 1.0, True,
-                                SEED)
+        grads: dict = {}
+        with _handed_grads(model, grads):
+            _, loss, _, norm = step(state, batch, labels, mask, cw, 1.0,
+                                    True, SEED)
         ref = {"path": os.path.join(directory, "ref.pt"),
                "weights": weights, "loss": loss.item(),
                "grad_norm": float(norm)}
-        torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
-                   ref["path"])
+        torch.save({n: g.cpu() for n, g in grads.items()}, ref["path"])
+        del grads
         model.load_state_dict(from_flax(params))
         single = Predictor(model, batch_size=8, device="cuda")
         reqs = requests(spec)
@@ -5175,9 +5268,11 @@ def parallel_axes(card: str) -> dict:
     served_diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
                       for r in served for a, b in zip(r["probs"],
                                                       want_probs))
+    reduce_ok = _reduce_holds([r.pop("projected") for r in bf16])
     out = {"reference_s": ref_s, "spawn_s": spawn_s, "ranks_s": ranks_s,
            "reference": {k: ref[k] for k in ("loss", "grad_norm")},
-           "dp_fp32": dp, "dp_bf16": bf16, "sp": sp,
+           "dp_fp32": dp, "dp_bf16": bf16, "dp_bf16_reduce_holds": reduce_ok,
+           "sp": sp,
            "served_prob_max_diff": served_diff,
            "served_launches": [r["launches"] for r in served],
            "ring_hops": holds, "card_gb": total_gb,
@@ -5191,7 +5286,7 @@ def parallel_axes(card: str) -> dict:
             abs(r["loss"] - ref["loss"]) <= TRAIN_LOSS_RTOL * abs(ref["loss"])
             and abs(r["grad_norm"] - ref["grad_norm"])
             <= TRAIN_NORM_RTOL * ref["grad_norm"]
-            and r["max_param_diff"] <= P13_PARAM_TOL
+            and r["same_leaves"] and r["worst_grad_share"] <= P13_GRAD_RTOL
             and r["cm_sum"] == P13_FP32_BATCH
             and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
             == LAUNCHES_PER_CHUNK and r["transport"] == "gloo-host"
@@ -5204,7 +5299,8 @@ def parallel_axes(card: str) -> dict:
             and r["launches"]["layer_norm_fwd"]
             == r["launches"]["layer_norm_bwd"] == n_ln
             and r["launches"]["adam_update"] == 1 for r in bf16)
-        and sum(r["peak_gb"] for r in bf16) < total_gb,
+        and sum(r["peak_gb"] for r in bf16) < total_gb
+        and reduce_ok,
         "sp": all(
             r["prob_max_diff"] <= SERVE_TOL[torch.float32]
             and abs(r["loss"] - r["loss_unsharded"])

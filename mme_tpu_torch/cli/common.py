@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mme_tpu_torch.config import ExperimentConfig, refuse_tensor_parallel
+from mme_tpu_torch.config import ExperimentConfig
 from mme_tpu_torch.convert import factored_views
 from mme_tpu_torch.data.dataset import ArrayDataset, BucketedBatchIter
 from mme_tpu_torch.data.records import (PickleDatasetConfig, apply_filters,
@@ -222,7 +222,6 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
     ``MME_EXPORT_BUNDLE``, ``MME_MESH``. ``mesh``: a caller's mesh (its
     ``dp`` axis splits the batch); else :func:`auto_mesh`. ``device``:
     ``cuda`` is this rank's card (``distributed.rank_device``)."""
-    refuse_tensor_parallel(cfg)
     if mesh is None:
         mesh = auto_mesh(cfg)
     elif cfg.batch_size % mesh.shape.get("dp", 1):

@@ -45,7 +45,7 @@ def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = "cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
     args = arg_parse("images_nn", argv)
-    cfg = config_from_args(args)
+    cfg = config_from_args(args, device=device)
     refuse_tensor_parallel(cfg)
     if cfg.output_dim == 7 and "hateful" in cfg.dataset.lower():
         cfg = cfg.replace(output_dim=2)

@@ -91,8 +91,7 @@ def parallel_spec(cfg, spec: TAVSpec) -> Tuple[TAVSpec, Optional[Mesh]]:
     mesh = make_mesh(dp, sp, axis_names=("dp", "sp"))
 
     def seq(enc):
-        return dataclasses.replace(enc, seq_mesh=mesh, seq_axis="sp",
-                                   batch_axis="dp")
+        return dataclasses.replace(enc, seq_mesh=mesh, seq_axis="sp")
 
     if tower == "fusion":
         spec = dataclasses.replace(spec, fusion=seq(spec.fusion))
@@ -174,7 +173,7 @@ def train(cfg, model, spec: TAVSpec, audio_len: int, train_ds, val_ds,
 def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = "cuda") -> Dict[str, Any]:
     args = arg_parse("tav_nn", argv)
-    cfg = config_from_args(args)
+    cfg = config_from_args(args, device=device)
     refuse_tensor_parallel(cfg)
     _refuse_unported()
     dev = resolve_device(distributed.rank_device(device))

@@ -57,7 +57,7 @@ def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = "cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
     args = arg_parse("visual_bert_nn", argv)
-    cfg = config_from_args(args)
+    cfg = config_from_args(args, device=device)
     refuse_tensor_parallel(cfg)
     if cfg.output_dim == 7:
         cfg = cfg.replace(output_dim=2)   # Hateful Memes is binary

@@ -73,7 +73,7 @@ def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = "cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
     args = arg_parse("visual_nn", argv)
-    cfg = config_from_args(args)
+    cfg = config_from_args(args, device=device)
     refuse_tensor_parallel(cfg)
     np.random.seed(cfg.seed)
 

@@ -21,8 +21,7 @@ from argparse import ArgumentParser
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
-import torch
-
+from mme_tpu_torch.device import DeviceLike
 from mme_tpu_torch.parallel.distributed import maybe_initialize
 
 
@@ -180,15 +179,16 @@ def refuse_tensor_parallel(cfg: "ExperimentConfig") -> None:
             "Queue 1 item 7 part two (tp, pp, ep)")
 
 
-def config_from_args(args: Any, **overrides: Any) -> ExperimentConfig:
+def config_from_args(args: Any, device: DeviceLike = "cuda",
+                     **overrides: Any) -> ExperimentConfig:
     """A typed config from an argparse namespace (or any attribute bag).
     ``MME_MP=<n>`` / ``MME_DP=<n>`` fill ``cfg.mesh`` as in JAX (every CLI
     then calls :func:`refuse_tensor_parallel`). A multi-process run
     (``MME_COORDINATOR`` / ``MME_NUM_PROCESSES`` / ``MME_PROCESS_ID``)
     joins its process group here (``parallel/distributed.py::
     maybe_initialize``), before any work, as JAX's does; its backend
-    follows ``MME_DIST_BACKEND`` or the card."""
-    maybe_initialize(device="cuda" if torch.cuda.is_available() else "cpu")
+    follows ``MME_DIST_BACKEND``, else the caller's ``device``."""
+    maybe_initialize(device=device)
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
     kw.update(overrides)

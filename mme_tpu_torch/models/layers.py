@@ -73,8 +73,6 @@ class EncoderSpec:
     # Mesh``); the activations outside it stay whole on every rank
     seq_mesh: Optional[object] = None
     seq_axis: Optional[str] = None
-    # the mesh axis the batch is split over when sp composes with dp
-    batch_axis: Optional[str] = None
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -244,7 +242,6 @@ class MultiHeadAttention(nn.Module):
             self.qkv_bias = None
         self.out = Dense(s.hidden, s.hidden, dtype=s.dtype, device=dev)
         self.seq_mesh, self.seq_axis = s.seq_mesh, s.seq_axis
-        self.batch_axis = s.batch_axis
         self.seq_parallel = (s.seq_mesh is not None and s.seq_axis is not None
                              and s.seq_mesh.shape[s.seq_axis] > 1)
 
@@ -272,7 +269,7 @@ class MultiHeadAttention(nn.Module):
         if key_bias is not None:
             key_bias = seq_shard(key_bias, ax)
         out = ring_attention(q, k, v, self.seq_mesh, self.seq_axis,
-                             key_bias=key_bias, batch_axis=self.batch_axis)
+                             key_bias=key_bias)
         return seq_gather(out, ax)[:, :S]
 
     def forward(self, x: torch.Tensor,

@@ -204,16 +204,14 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mesh: Mesh, axis: str = "sp",
                    key_mask: Optional[torch.Tensor] = None,
                    key_bias: Optional[torch.Tensor] = None,
-                   batch_axis: Optional[str] = None,
                    use_flash: Optional[bool] = None) -> torch.Tensor:
     """Exact attention over the sequence split along ``mesh[axis]``.
 
     q, k, v: this rank's block [B, L, H, D] (the rank at coordinate ``i``
     holds positions ``i·L .. (i+1)·L``). ``key_mask`` [B, L] (1 = attend,
     masked keys get -1e30) or ``key_bias`` [B, L] additive fp32, not both.
-    ``batch_axis``: the mesh axis the batch is split over (dp×sp); each
-    rank's tensors already hold only its rows, so it is checked and
-    otherwise changes nothing. Returns this rank's block of the output
+    Each rank's tensors hold only its rows of the batch, so a dp axis
+    beside ``axis`` needs nothing here. Returns this rank's block of the output
     [B, L, H, D]."""
     if key_mask is not None and key_bias is not None:
         raise ValueError("pass key_mask or key_bias, not both")
@@ -228,8 +226,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.full((), NEG_INF, device=q.device)).float()
     key_bias = key_bias.float().contiguous()
     ax = mesh.axis(axis)
-    if batch_axis is not None:
-        mesh.axis(batch_axis)
     if use_flash is None:
         use_flash = decide_ring_flash(q)
     if use_flash:

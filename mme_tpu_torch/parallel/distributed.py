@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from mme_tpu_torch.device import DeviceLike
+from mme_tpu_torch.device import DeviceLike, resolve_device
 
 BACKENDS = ("nccl", "gloo")
 
@@ -106,7 +106,7 @@ def maybe_initialize(coordinator: Optional[str] = None,
     backend = backend or default_backend(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
-    dev = rank_device(device, process_id)
+    dev = rank_device(resolve_device(device), process_id)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(

@@ -105,6 +105,35 @@ def test_multi_host_config_is_refused(var, monkeypatch):
         config.config_from_args(config.arg_parse("tav_nn", []))
 
 
+@pytest.mark.parametrize("device,backend,rank_device", [
+    ("cpu", "gloo", None), ("cuda", "nccl", "cuda:1")])
+def test_backend_follows_requested_device(device, backend, rank_device,
+                                          monkeypatch):
+    """``config_from_args(device=)`` joins with the backend of the device
+    the caller asked for, not of the card the machine has: a CPU run on a
+    machine with a card takes gloo and leaves the card alone. The rendezvous
+    is stubbed; the host is made to show two cards."""
+    import torch.distributed as dist
+    seen = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: seen.update(set_device=str(d)))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **k: seen.update(k))
+    monkeypatch.setattr(dist, "get_rank", lambda *a: 1)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
+    monkeypatch.delenv("MME_DIST_BACKEND", raising=False)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.setenv("MME_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("MME_NUM_PROCESSES", "2")
+    monkeypatch.setenv("MME_PROCESS_ID", "1")
+    config.config_from_args(config.arg_parse("tav_nn", []), device=device)
+    assert seen["backend"] == backend
+    assert (seen["world_size"], seen["rank"]) == (2, 1)
+    assert seen.get("set_device") == rank_device
+
+
 def _ds(mod, n=23, seed=3):
     rng = np.random.RandomState(seed)
     lengths = rng.randint(100, 1001, n)

@@ -72,7 +72,7 @@ def rank_ring(n, q, k, v, key_mask, key_bias, w, use_flash):
             _block(key_mask, i, n)),
         key_bias=None if key_bias is None else torch.from_numpy(
             _block(key_bias, i, n)),
-        batch_axis="dp", use_flash=use_flash)
+        use_flash=use_flash)
     (out * torch.from_numpy(_block(w, i, n))).sum().backward()
     return (mesh.coords["dp"], i, out.detach().numpy(), ql.grad.numpy(),
             kl.grad.numpy(), vl.grad.numpy())
@@ -90,7 +90,7 @@ def rank_encoder(n, spec_kw, params, x, keep, proj, flash):
     torch.set_num_threads(1)
     mesh = _mesh(n)
     spec = dataclasses.replace(EncoderSpec(**spec_kw), seq_mesh=mesh,
-                               seq_axis="sp", batch_axis="dp")
+                               seq_axis="sp")
     enc = TransformerEncoder(spec, device="cpu").eval()
     enc.load_state_dict(from_flax(params), strict=True)
     xt = torch.from_numpy(x).requires_grad_()
