@@ -93,13 +93,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``TAVModel`` (dropout 0.1, shared audio frontend) through the CLI's
    ``cli/common.py::run_classifier`` with ``MME_OPT_STATE=bf16
    MME_FUSED_ADAM=1`` on synthetic records (70 tokens, 96 000 samples, a
-   16x224x224 clip; 32 / 8 / 8 utterances), batch 8, two epochs,
+   16x224x224 clip; 16 / 8 / 8 utterances), batch 8, two epochs,
    validation every 2 steps, random keep-masks and SpecAugment, checkpoints
    in a temporary directory deleted at the end. Epoch 0 runs the weighted
    sampler and plain loss; epoch 1 runs in order with class weights and
    dialog accumulation (dialogs of 16: two batches per update). Checks:
    finite losses in both epochs; 54 K1 launches per train step and eval
-   batch, 54 K2 per train step, one K3 per applied update (6 for 8
+   batch, 54 K2 per train step, one K3 per applied update (3 for 4
    steps); no saved state carries the accumulation buffer; the best
    checkpoint restored into fresh tensors equals the state the loop
    returned bit for bit; a save followed by a train step before its
@@ -330,15 +330,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        ``P13_GRAD_RTOL`` of its largest element in the single-rank step,
        54 K1 and K2;
    (3) dp=2, bf16 at the global batch of 8 with every knob on: 1 warm-up
-       and 2 timed steps, ms per step, the all-reduce's share of a step
+       and 1 timed step, ms per step, the all-reduce's share of a step
        (timed around it, synchronised), each rank's peak memory (the two
        must fit the card), one step's launches (54 K1, K2, K5a, K5b, the
        spec's K4a/K4b at 4 rows, one K3); the warm-up's gradient
        all-reduce held leaf by leaf: one fixed projection of each leaf
        after it equals the sum of the ranks' projections before it;
    (4) sp=2 through the CLI path (``tav_nn.tav_spec``, ``parallel_spec``
-       with ``MME_SP=2`` and ``MME_SP_TOWER`` fusion, then video,
-       ``build_model``) in fp32 without dropout, beside the unsharded model
+       with ``MME_SP=2``, ``MME_SHARE_FRONTEND=1`` and ``MME_SP_TOWER``
+       fusion, then video, ``build_model`` on the phase's weights) in fp32
+       without dropout, beside the unsharded model
        on the same weights: the eval probabilities within
        ``SERVE_TOL[fp32]``, the training loss and grad norm as phase 5
        holds them, every gradient leaf within ``P13_GRAD_RTOL`` of its
@@ -352,7 +353,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        one global pre-pass at the local shapes the ranks fed the ring, in
        fp32 and bf16, against their plain versions and against the whole
        sequence; a fully masked row's dV as a per-block pre-pass would give
-       it (too large) beside the ring's. Prints the phase's seconds.
+       it (too large) beside the ring's, and SDPA's forward and backward
+       at the same shapes. Prints the phase's seconds. Its weights are
+       phase 5's draw (one draw of 623.8 M parameters saved).
+
+14. The parallel axes, part two, on phase 13's two ranks and references:
+   (1) tp, fp32: a ``("dp", "mp")`` mesh of dp=1 and mp=2,
+       ``build_tav(mesh=...)`` cutting the weights by JAX's rule (the qkv
+       heads and fc1 column-parallel, attention/out and fc2
+       row-parallel: 6 of 12 and 8 of 16 heads, F 1536 of 3072 and 2048
+       of 4096 a rank); phase 4's first request served across the mesh
+       against (13)(1)'s probabilities (``SERVE_TOL[fp32]``, 54 K1 a
+       chunk), then one step on the global batch of 4: loss and grad norm
+       as phase 5 holds them, every gathered gradient leaf within
+       ``P13_GRAD_RTOL`` of its largest single-rank element, 54 K1/K2;
+   (2) tp, bf16 at the global batch of 8 with every knob: one timed step
+       (no warm-up: gloo's host reductions take ~0.9 of it), the mp
+       reductions' count, GB, ms and share, each rank's peak, one step's
+       launches (54 K1, K2, K5a, K5b on the local shapes, the spec's K4
+       at full rows, one K3 over the shards' 725 leaves);
+   (3) ep: ``TAVMoE`` at full width with its experts cut over dp=2
+       (``MoESpec(ep_axis="dp", ep_mesh=...)``), its single-rank
+       reference on this process first: a served chunk (each rank 4 rows,
+       12 K1) against the single-rank probabilities, one fp32 step on 2
+       rows a rank (loss, grad norm, every gathered gradient leaf), then a
+       second step with its ``all_to_all`` ms and share;
+   (4) back here, K1/K2 at every local-heads shape the ranks fed (fp32
+       at 4 and 8 rows, bf16 at 8), K5a/K5b at the local F slices (bf16)
+       and K3 over the shards' leaves, each against its plain version,
+       timed beside it, SDPA or the unfused MLP, with its bound.
+   ``python3 chip_smoke.py --parallel`` runs the build and phases 13 and
+   14 alone, and prints no result lines.
 
 Then one JSON line of per-kernel results (seven kernels;
 ``launches_<model>`` gives phases 8, 9 and 10's counts: a served chunk
@@ -362,8 +393,11 @@ others, the MTL's fp32 step, 0 for a model without a train leg;
 ``launches_data_path_step`` one of its train steps per bucket bound,
 ``launches_pretrained`` phase 12's train run, ``launches_parallel_dp``
 a bf16 dp=2 step of rank 0 and ``launches_parallel_sp_{fusion,video}`` a
-fp32 sp=2 training forward and backward of rank 0), the card's name and
-power limit, and last the line ``{"ok": true, "device": {...}}``.
+fp32 sp=2 training forward and backward of rank 0,
+``launches_parallel_tp`` a bf16 mp=2 step of rank 0 and
+``launches_parallel_ep`` an fp32 ep=2 step of rank 0), before it each
+phase's seconds (``phase_seconds``), the card's name and power limit, and
+last the line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -1196,6 +1230,38 @@ def mlp_hold(name, n, h, f, dt, act, seed) -> Tuple[float, float]:
     return err_fwd, err_bwd
 
 
+def mlp_times(name, n, h, f, layers, seed) -> dict:
+    """K5a and K5b at one bf16 shape (gelu), each timed beside its plain
+    version and the unfused PyTorch MLP's forward or backward, with its
+    bound and TFLOP/s."""
+    x, w1, b1, w2, b2, do = mlp_case(n, h, f, torch.bfloat16, seed)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, w1, b1.bfloat16(), w2, b2.bfloat16())]
+
+    def unfused():
+        lx, lw1, lb1, lw2, lb2 = leaves
+        return F.linear(F.gelu(F.linear(lx, lw1, lb1)), lw2, lb2)
+
+    lib_out = unfused()
+    t = {"fwd": cuda_ms(lambda: fused_mlp_fwd(x, w1, b1, w2, b2)),
+         "fwd_plain": cuda_ms(lambda: fused_mlp_fwd_plain(
+             x, w1, b1, w2, b2), iters=3, warmup=1),
+         "fwd_library": cuda_ms(unfused),
+         "bwd": cuda_ms(lambda: fused_mlp_bwd(x, w1, b1, w2, do), iters=10),
+         "bwd_plain": cuda_ms(lambda: fused_mlp_bwd_plain(
+             x, w1, b1, w2, do), iters=3, warmup=1),
+         "bwd_library": cuda_ms(lambda: torch.autograd.grad(
+             lib_out, leaves, do, retain_graph=True))}
+    del lib_out, leaves
+    bounds = mlp_bounds(n, h, f, 2)
+    return {"shape": name, "N": n, "H": h, "F": f, "dtype": "bf16",
+            "launches_per_step": layers, **t,
+            "fwd_bound_ms": bounds[0][2], "fwd_bound_by": bounds[0][3],
+            "bwd_bound_ms": bounds[1][2], "bwd_bound_by": bounds[1][3],
+            "fwd_tflops": bounds[0][0] / t["fwd"] / 1e9,
+            "bwd_tflops": bounds[1][0] / t["bwd"] / 1e9}
+
+
 def check_fused_mlp(spec: TAVSpec, card: str):
     """Phase 3, K5a and K5b. Returns the forward's and the backward's entry
     for the kernels line, summed over the 54 launches of one step."""
@@ -1226,40 +1292,15 @@ def check_fused_mlp(spec: TAVSpec, card: str):
               for _ in range(2)]
     rows = []
     for i, (name, n, h, f, layers) in enumerate(towers):
-        x, w1, b1, w2, b2, do = mlp_case(n, h, f, torch.bfloat16, 600 + i)
-        leaves = [t.detach().clone().requires_grad_()
-                  for t in (x, w1, b1.bfloat16(), w2, b2.bfloat16())]
-
-        def unfused():
-            lx, lw1, lb1, lw2, lb2 = leaves
-            return F.linear(F.gelu(F.linear(lx, lw1, lb1)), lw2, lb2)
-
-        lib_out = unfused()
-        t = {"fwd": cuda_ms(lambda: fused_mlp_fwd(x, w1, b1, w2, b2)),
-             "fwd_plain": cuda_ms(lambda: fused_mlp_fwd_plain(
-                 x, w1, b1, w2, b2), iters=3, warmup=1),
-             "fwd_library": cuda_ms(unfused),
-             "bwd": cuda_ms(lambda: fused_mlp_bwd(x, w1, b1, w2, do),
-                            iters=10),
-             "bwd_plain": cuda_ms(lambda: fused_mlp_bwd_plain(
-                 x, w1, b1, w2, do), iters=3, warmup=1),
-             "bwd_library": cuda_ms(lambda: torch.autograd.grad(
-                 lib_out, leaves, do, retain_graph=True))}
-        bounds = mlp_bounds(n, h, f, 2)
-        rows.append({"shape": name, "N": n, "H": h, "F": f, "dtype": "bf16",
-                     "launches_per_step": layers, **t,
-                     "fwd_bound_ms": bounds[0][2], "fwd_bound_by": bounds[0][3],
-                     "bwd_bound_ms": bounds[1][2], "bwd_bound_by": bounds[1][3],
-                     "fwd_tflops": bounds[0][0] / t["fwd"] / 1e9,
-                     "bwd_tflops": bounds[1][0] / t["bwd"] / 1e9})
-        for tot, key, (flops, nbytes, _, _) in zip(totals, ("fwd", "bwd"),
-                                                   bounds):
+        t = mlp_times(name, n, h, f, layers, 600 + i)
+        rows.append(t)
+        for tot, key, (flops, nbytes, _, _) in zip(
+                totals, ("fwd", "bwd"), mlp_bounds(n, h, f, 2)):
             tot["ms"] += t[key] * layers
             tot["plain_ms"] += t[key + "_plain"] * layers
             tot["library_ms"] += t[key + "_library"] * layers
             tot["flops"] += flops * layers
             tot["nbytes"] += nbytes * layers
-        del lib_out, leaves
     print(json.dumps({"fused_mlp_shapes": rows, "card": card}), flush=True)
     out = []
     for tot, err in zip(totals, (err_fwd, err_bwd)):
@@ -1714,16 +1755,18 @@ def train_path(card: str):
 
 # phase 6: the loop at full width. Train, validation and test utterances
 # with their seeds; the train split's dialogs hold 16 utterances, so epoch 1
-# (dialog accumulation) applies one update per two batches of 8
-LOOP_SIZES = ((32, 0), (8, 1), (8, 2))
+# (dialog accumulation) applies one update per two batches of 8. Two
+# batches an epoch: both epochs' paths at the least depth
+LOOP_SIZES = ((16, 0), (8, 1), (8, 2))
 LOOP_DIALOG = 16
 LOOP_CFG = dict(batch_size=8, epoch=2, log_val=2, patience=10,
                 learning_rate=5e-6, mask=True, output_dim=7,
                 dataset="synthetic", seed=SEED)
 LOOP_ENV = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1"}
-# 8 train steps, 6 applied updates (4 in epoch 0, 2 in epoch 1), 4
+# 4 train steps, 3 applied updates (2 in epoch 0, 1 in epoch 1), 2
 # validations of one batch and one test batch
-LOOP_STEPS, LOOP_UPDATES, LOOP_EVAL_BATCHES = 8, 6, 5
+LOOP_STEPS, LOOP_UPDATES, LOOP_EVAL_BATCHES = 4, 3, 3
+LOOP_VALIDATIONS = 2
 # eval-only against the trained run's test pass: the same weights, masks
 # and kernels (no atomics); the loss is a mean of fp32 values
 EVAL_ONLY_RTOL = 1e-6
@@ -1936,7 +1979,7 @@ def loop_run(params, spec: TAVSpec, device: str, directory: str,
         "restore_best_ms": ckpts.ms["restore_best"],
         "serving_exports": exports, "test_rows": len(test_ds)}
     ok = (all(np.isfinite(losses)) and sorted(set(out["epochs"])) == [0, 1]
-          and len([d for d in logs if "val/loss" in d]) == 4
+          and len([d for d in logs if "val/loss" in d]) == LOOP_VALIDATIONS
           and len(ckpts.stripped) >= 2 and all(ckpts.stripped)
           and not round_trip and stepped and not trap
           and out["eval_only_same_matrix"] and eval_rel <= EVAL_ONLY_RTOL)
@@ -3903,6 +3946,40 @@ def bucket_holds(spec: TAVSpec, fed, text_len: int, card: str) -> None:
         flush=True)
 
 
+def flash_times(B: int, s: int, h: int, masked: bool) -> dict:
+    """K1 and K2 at one bf16 self-attention shape (head_dim 64), each
+    timed beside its plain version and SDPA's forward or backward, with its
+    bound."""
+    q, k_, v_, bias = attention_inputs(B, s, s, h, 64, torch.bfloat16, 0,
+                                       s + h)
+    bias = bias if masked else None
+    mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_, v_))
+    do = torch.randn(B, s, h, 64, device="cuda").to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k_, v_, bias)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    (_, _, fbound, fby), (_, _, bbound, bby) = flash_bounds(
+        B, s, s, h, 64, 2, masked)
+    row = {
+        "B": B, "S": s, "H": h, "key_mask": masked,
+        "fwd_ms": cuda_ms(lambda: flash_attention_fwd(q, k_, v_, bias)),
+        "fwd_plain_ms": cuda_ms(lambda: flash_attention_fwd_plain(
+            q, k_, v_, bias), iters=5),
+        "fwd_library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)),
+        "fwd_bound_ms": fbound, "fwd_bound_by": fby,
+        "bwd_ms": cuda_ms(lambda: flash_attention_bwd(
+            q, k_, v_, bias, out, lse, do)),
+        "bwd_plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k_, v_, bias, out, lse, do), iters=3, warmup=1),
+        "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
+            o_lib, leaves, do.transpose(1, 2), retain_graph=True)),
+        "bwd_bound_ms": bbound, "bwd_bound_by": bby}
+    del o_lib, leaves
+    return row
+
+
 def bucket_kernel_shapes(spec: TAVSpec, bounds, card: str) -> dict:
     """Phase 11 (8): K1/K2 at each bucket's attention shapes and K4a/K4b at
     each LayerNorm shape of its train step that reaches the kernel (batch
@@ -3923,36 +4000,8 @@ def bucket_kernel_shapes(spec: TAVSpec, bounds, card: str) -> dict:
             if key in rows["flash"]:
                 continue
             name, s, h, masked = key
-            q, k_, v_, bias = attention_inputs(8, s, s, h, 64,
-                                               torch.bfloat16, 0, s + h)
-            bias = bias if masked else None
-            mask = None if bias is None else bias.to(q.dtype)[:, None,
-                                                              None, :]
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k_, v_))
-            do = torch.randn(8, s, h, 64, device="cuda").to(torch.bfloat16)
-            out, lse = flash_attention_fwd(q, k_, v_, bias)
-            leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-            (_, _, fbound, fby), (_, _, bbound, bby) = flash_bounds(
-                8, s, s, h, 64, 2, masked)
-            rows["flash"][key] = {
-                "tower": name, "B": 8, "S": s, "H": h, "key_mask": masked,
-                "fwd_ms": cuda_ms(lambda: flash_attention_fwd(q, k_, v_,
-                                                              bias)),
-                "fwd_plain_ms": cuda_ms(lambda: flash_attention_fwd_plain(
-                    q, k_, v_, bias), iters=5),
-                "fwd_library_ms": cuda_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask)),
-                "fwd_bound_ms": fbound, "fwd_bound_by": fby,
-                "bwd_ms": cuda_ms(lambda: flash_attention_bwd(
-                    q, k_, v_, bias, out, lse, do)),
-                "bwd_plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
-                    q, k_, v_, bias, out, lse, do), iters=3, warmup=1),
-                "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
-                    o_lib, leaves, do.transpose(1, 2), retain_graph=True)),
-                "bwd_bound_ms": bbound, "bwd_bound_by": bby}
-            del o_lib, leaves
+            rows["flash"][key] = {"tower": name,
+                                  **flash_times(8, s, h, masked)}
     for n, h in sorted(set().union(*ln.values())):
         x, w, b, gy = ln_case(n, h, torch.bfloat16, torch.bfloat16, n % 997)
         lx, lw, lb = (t.detach().to(torch.bfloat16).requires_grad_()
@@ -4742,7 +4791,8 @@ def _save_tree(tree: dict, path: str) -> None:
 
 
 def _p13_params(path: str) -> dict:
-    """The phase's weights (drawn once, by the parent, from P13_SEED), read
+    """The phase's weights (drawn once by the parent: phase 5's draw, or
+    from P13_SEED when phase 5 did not run), read
     back from ``path`` as a flax-layout tree of numpy leaves."""
     tree: dict = {}
     for key, t in torch.load(path, weights_only=True, mmap=True).items():
@@ -4970,22 +5020,12 @@ def _ring_shapes(record: list):
     return lambda: setattr(ra, "flash_attention_fwd", plain)
 
 
-# a rank's draw of the sp calls' weights from P13_SEED, made once: every
-# tower's ``tav_nn.build_model`` loads the same draw (``_drawn_once``)
-_P13_DRAWN: dict = {}
-
-
-def _drawn_once(spec: TAVSpec, seed: int, model: Optional[str] = None):
-    key = (seed, model)
-    if key not in _P13_DRAWN:
-        _P13_DRAWN[key] = init_params(spec, seed, model=model)
-    return _P13_DRAWN[key]
-
-
-def p13_sp(tower: str) -> dict:
+def p13_sp(tower: str, weights: str) -> dict:
     """A rank of sp=2 through the CLI path: ``tav_nn.tav_spec`` at full
-    width, ``parallel_spec`` with ``MME_SP=2 MME_SP_TOWER=tower``,
-    ``build_model``; the unsharded model on the same weights beside it.
+    width, ``parallel_spec`` with ``MME_SP=2 MME_SP_TOWER=tower`` and
+    ``MME_SHARE_FRONTEND=1`` (the phase's tree), ``build_model`` loading
+    the phase's weights from ``weights`` where it would draw them; the
+    unsharded model on the same weights beside it.
     fp32, dropout and SpecAugment off, the fixed keep-mask. The eval
     logits, then one training forward and backward: loss, every gradient
     leaf, and K1/K2 launches per rank against ring layers × hops plus the
@@ -4993,9 +5033,10 @@ def p13_sp(tower: str) -> dict:
     from mme_tpu_torch.parallel import distributed
     _rank_setup()
     t0 = time.perf_counter()
-    env = {"MME_SP": str(P13_WORLD), "MME_SP_TOWER": tower}
+    env = {"MME_SP": str(P13_WORLD), "MME_SP_TOWER": tower,
+           "MME_SHARE_FRONTEND": "1"}
     os.environ.update(env)
-    tav_nn.init_params = _drawn_once
+    tav_nn.init_params = lambda *a, **k: _p13_params(weights)
     try:
         cfg = ExperimentConfig(output_dim=7, dataset="chip_smoke_p13",
                                seed=P13_SEED, batch_size=P13_SP_BATCH,
@@ -5185,6 +5226,18 @@ def ring_hop_hold(B: int, L: int, H: int, D: int, dtype, seed: int) -> dict:
                                                 rows))
     k2_plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
         q, *blocks[0], out, lse, do, rows_p), iters=5)
+    # the library's attention over one hop's block: SDPA forward, and its
+    # backward through autograd
+    kb, vb, bb = blocks[0]
+    lib_in = [x.detach().transpose(1, 2).requires_grad_()
+              for x in (q, kb, vb)]
+    hop_mask = bb.to(dtype)[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=hop_mask)
+    k1_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *lib_in, attn_mask=hop_mask))
+    k2_lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, lib_in, do.transpose(1, 2), retain_graph=True))
+    del lib_out, lib_in
     res = {"B": B, "L": L, "S": S, "H": H, "D": D, "dtype": str(dtype)[6:],
            "k1_launches": k1_launches, "fwd_max_err": fwd_err,
            "lse_rel_err": lse_err, "vs_whole_sequence": whole_err,
@@ -5193,7 +5246,9 @@ def ring_hop_hold(B: int, L: int, H: int, D: int, dtype, seed: int) -> dict:
            "masked_row_max_dv_ring": dv_ring,
            "masked_row_max_dv_per_block_prepass": dv_block,
            "k1_hop_ms": k1_ms, "k1_hop_plain_ms": k1_plain_ms,
-           "k2_hop_ms": k2_ms, "k2_hop_plain_ms": k2_plain_ms}
+           "k1_hop_library_ms": k1_lib_ms,
+           "k2_hop_ms": k2_ms, "k2_hop_plain_ms": k2_plain_ms,
+           "k2_hop_library_ms": k2_lib_ms}
     print(json.dumps({"ring_hop_hold": res}), flush=True)
     excess = ((out.float() - out_p.float()).abs()
               - tol["rtol"] * out_p.float().abs()).max().item()
@@ -5204,17 +5259,21 @@ def ring_hop_hold(B: int, L: int, H: int, D: int, dtype, seed: int) -> dict:
     return res
 
 
-def parallel_axes(card: str) -> dict:
-    """Phase 13: the single-rank references on this process, then two
-    ranks on the card (a pool of two processes, gloo): the fp32 dp=2 step,
-    bf16 dp=2 steps with every knob, sp=2 on the fusion trunk and on the
-    video tower through the CLI path, mesh serving; then the ring's hops
-    held on this process at the local shapes the ranks fed K1."""
+def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
+    """Phases 13 and 14. Phase 13: the single-rank references on this
+    process, then two ranks on the card (a pool of two processes, gloo):
+    the fp32 dp=2 step, bf16 dp=2 steps with every knob, sp=2 on the
+    fusion trunk and on the video tower through the CLI path, mesh
+    serving; then the ring's hops held on this process at the local shapes
+    the ranks fed K1. Phase 14 on the same pool and references: tp and ep
+    (:func:`parallel_axes_two`). ``params``: phase 5's draw of the same
+    tree, used instead of drawing from ``P13_SEED``."""
     from mme_tpu_torch.parallel.launch import RankPool
     t0 = time.perf_counter()
     _rank_setup()
     spec = _p13_spec()
-    params = init_params(spec, P13_SEED)
+    if params is None:
+        params = init_params(spec, P13_SEED)
     directory = tempfile.mkdtemp(prefix="mme_p13_")
     weights = os.path.join(directory, "weights.pt")
     _save_tree(params, weights)
@@ -5251,12 +5310,16 @@ def parallel_axes(card: str) -> dict:
             spawn_s = time.perf_counter() - t
             dp = pool.run(f"{os.path.abspath(__file__)}:p13_dp_fp32", ref)
             bf16 = pool.run(f"{os.path.abspath(__file__)}:p13_dp_bf16",
-                            weights, 2, 1)
-            sp = {tw: pool.run(f"{os.path.abspath(__file__)}:p13_sp", tw)
-                  for tw in P13_TOWERS}
+                            weights, 1, 1)
+            sp = {tw: pool.run(f"{os.path.abspath(__file__)}:p13_sp", tw,
+                               weights) for tw in P13_TOWERS}
             served = pool.run(f"{os.path.abspath(__file__)}:p13_serve",
                               weights, reqs)
-        ranks_s = time.perf_counter() - t
+            ranks_s = time.perf_counter() - t
+            t = time.perf_counter()
+            two = parallel_axes_two(pool, ref, weights, reqs, want_probs,
+                                    directory)
+            two_s = time.perf_counter() - t
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     local = sorted({q for rs in sp.values()
@@ -5276,7 +5339,7 @@ def parallel_axes(card: str) -> dict:
            "served_prob_max_diff": served_diff,
            "served_launches": [r["launches"] for r in served],
            "ring_hops": holds, "card_gb": total_gb,
-           "phase_s": time.perf_counter() - t0, "card": card}
+           "phase_s": time.perf_counter() - t0 - two_s, "card": card}
     print(json.dumps({"parallel_axes": {
         **out, "served_probs": None}}), flush=True)
     n_ln = bf16[0]["expected_layer_norm"]
@@ -5319,11 +5382,471 @@ def parallel_axes(card: str) -> dict:
             for r in served)}
     if not all(checks.values()):
         raise SystemExit(f"phase 13 (the parallel axes) failed: {checks}")
+    # phase 14's clock: its calls on the pool, then its checks here
+    two_start = time.perf_counter() - two_s
     return {"dp": bf16[0]["launches"],
-            "sp": {tw: rs[0]["launches_step"] for tw, rs in sp.items()}}
+            "sp": {tw: rs[0]["launches_step"] for tw, rs in sp.items()},
+            "two": parallel_axes_two_checks(two, ref, reqs, spec, card,
+                                            two_start)}
 
 
-def main() -> int:
+# phase 14: the parallel axes, part two, on phase 13's two ranks. Tensor
+# parallelism: a ("dp", "mp") mesh of dp=1 and mp=2, every attention on
+# half its heads (6 of 12, 8 of 16) and every MLP on half its intermediate
+# (1536 of 3072, 2048 of 4096), between "copy to mp" and "reduce from mp"
+# (parallel/mesh.py), each reduction of a CUDA tensor staged through pinned
+# host memory as phase 13's are. Expert parallelism: TAVMoE's experts cut
+# over the dp axis of a dp=2 mesh (MoESpec.ep_axis="dp"), its dispatch
+# buffers exchanged by two all_to_all per MoE block.
+P14_MP = 2
+P14_EP_BATCH = 4            # the global batch of the ep step (2 rows a rank)
+P14_MOE_SEED = P13_SEED + 1
+# the tp ranks' kernels: the four towers' attention on their local heads
+# and MLPs on their local intermediate, at one step's launches
+P14_ATTENTION = tuple((name, s, h // P14_MP, n)
+                      for name, _, s, h, n in SERVED)
+
+
+class _Collectives:
+    """The enclosed calls of one ``AxisGroup`` method, timed: per call
+    its ms (synchronised before and after) and its tensor's bytes."""
+
+    def __init__(self, method: str):
+        from mme_tpu_torch.parallel.mesh import AxisGroup
+        self.cls, self.method = AxisGroup, method
+        self.plain = getattr(AxisGroup, method)
+        self.ms, self.bytes = [], []
+
+    def __enter__(self):
+        plain, ms, nbytes = self.plain, self.ms, self.bytes
+
+        def timed(axis, t, *args, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = plain(axis, t, *args, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - start) * 1e3)
+            nbytes.append(t.numel() * t.element_size())
+            return out
+
+        setattr(self.cls, self.method, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.plain)
+
+    def clear(self) -> None:
+        self.ms.clear()
+        self.bytes.clear()
+
+
+def _tp_shapes(model) -> dict:
+    """What a tp rank's kernels see: (local, whole) heads of every
+    attention and (hidden, local intermediate) of every MLP."""
+    from mme_tpu_torch.models.layers import Mlp, MultiHeadAttention
+    mods = list(model.modules())
+    return {"heads": sorted({(m.qkv.weight.shape[0] // (3 * m.head_dim),
+                              m.heads) for m in mods
+                             if isinstance(m, MultiHeadAttention)}),
+            "mlp": sorted({tuple(m.fc1.weight.shape[::-1]) for m in mods
+                           if isinstance(m, Mlp)})}
+
+
+def _whole_grads(model, grads: dict) -> dict:
+    """The handed gradients with every cut leaf's blocks gathered (a
+    collective: every rank calls, in parameter order)."""
+    from mme_tpu_torch.parallel.sharding_rules import full_tensor, shard_of
+    params = dict(model.named_parameters())
+    return {n: full_tensor(g, shard_of(params[n])) for n, g in grads.items()}
+
+
+def p14_tp_fp32(ref: dict, reqs: list) -> dict:
+    """A rank of fp32 tp=2: phase 13's weights cut by
+    ``build_tav(mesh=...)``; ``reqs`` served by ``Predictor(mesh=...)``
+    (every row on each rank, the heads and MLPs halved), then one step on
+    the whole global batch of 4: the loss, grad norm and every gathered
+    gradient leaf the optimizer is handed against the single-rank
+    step's."""
+    from mme_tpu_torch.parallel import distributed
+    from mme_tpu_torch.parallel.mesh import make_mesh
+    from mme_tpu_torch.parallel.sharding_rules import shard_of
+    _rank_setup()
+    t0 = time.perf_counter()
+    spec = _p13_spec()
+    mesh = make_mesh(1, P14_MP)
+    cfg = ExperimentConfig(batch_size=P13_FP32_BATCH,
+                           learning_rate=P13_LR, text_max_len=70,
+                           audio_max_samples=96000)
+    model, state, step, _ = build_tav(spec, cfg, 1000,
+                                      params=_p13_params(ref["weights"]),
+                                      remat=False, use_accum=False,
+                                      device="cuda", mesh=mesh)
+    kernels.reset_launches()
+    probs = [Predictor(model, batch_size=8, device="cuda",
+                       mesh=mesh)(r)[1] for r in reqs]
+    serve_launches = dict(kernels.LAUNCHES)
+    batch, labels, mask, cw = train_inputs(spec, P13_FP32_BATCH,
+                                           P13_SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    grads: dict = {}
+    with _handed_grads(model, grads):
+        _, loss, cm, norm = step(state, batch, labels, mask, cw, 1.0, True,
+                                 SEED)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    whole = _whole_grads(model, grads)
+    want = torch.load(ref["path"], map_location="cuda", weights_only=True)
+    worst, worst_name = _worst_grad_share(
+        (n, whole[n], w) for n, w in want.items())
+    mp = mesh.axis("mp")
+    out = {"rank": distributed.rank(), "mp_index": mp.index,
+           "transport": mp.transport(state.params[0]),
+           "cut_leaves": sum(shard_of(p) is not None for p in state.params),
+           "leaves": len(state.params), **_tp_shapes(model),
+           "probs": probs, "serve_launches": serve_launches,
+           "loss": loss.item(), "grad_norm": float(norm),
+           "cm_sum": int(cm.sum()), "same_leaves": set(whole) == set(want),
+           "worst_grad_share": worst, "worst_grad_leaf": worst_name,
+           "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    del model, state, step, want, grads, whole
+    _free()
+    return out
+
+
+def p14_tp_bf16(weights: str, steps: int, warmup: int) -> dict:
+    """A rank of the bf16 mp=2 steps at the global batch of 8 (every row
+    on each rank) with every knob on: ms per step, the mp reductions' count,
+    bytes, ms and share of the last step, one step's launches, this rank's
+    peak memory and the element counts of the leaves K3 updates."""
+    from mme_tpu_torch.parallel import distributed
+    from mme_tpu_torch.parallel.mesh import make_mesh
+    _rank_setup()
+    t0 = time.perf_counter()
+    spec = _p13_spec(torch.bfloat16, quiet=False)
+    mesh = make_mesh(1, P14_MP)
+    os.environ.update(P13_BF16_ENV)
+    try:
+        cfg = ExperimentConfig(batch_size=P13_BF16_BATCH,
+                               learning_rate=5e-6, text_max_len=70,
+                               audio_max_samples=96000)
+        model, state, step, _ = build_tav(
+            spec, cfg, 1000, params=_p13_params(weights), remat=False,
+            use_accum=False, device="cuda", mesh=mesh)
+        batch, labels, mask, cw = train_inputs(spec, P13_BF16_BATCH,
+                                               P13_SEED + 2)
+        batch = to_device(batch, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        with _Collectives("all_reduce") as reduce:
+            for i in range(warmup + steps):
+                reduce.clear()
+                kernels.reset_launches()
+                fused = adam_update.LEAVES_FUSED
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, loss, _, _ = step(state, batch, labels, mask, cw, 1.0,
+                                     True, SEED + i)
+                torch.cuda.synchronize()
+                if i >= warmup:
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    losses.append(loss.item())
+            reduce_ms, reduce_bytes = list(reduce.ms), list(reduce.bytes)
+        launches = dict(kernels.LAUNCHES)
+        leaves_fused = adam_update.LEAVES_FUSED - fused
+        n_ln = sum(fused_ln_shapes(spec, P13_BF16_BATCH).values())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        k3_sizes = [m.numel() for m in state.opt_state.mu if m is not None]
+    finally:
+        for k in P13_BF16_ENV:
+            del os.environ[k]
+    big = [(m, b) for m, b in zip(reduce_ms, reduce_bytes) if b > 1 << 20]
+    out = {"rank": distributed.rank(), "ms_per_step": ms, "losses": losses,
+           "reductions_last": len(reduce_ms),
+           "activation_reductions_last": len(big),
+           "reduce_ms_last": sum(reduce_ms),
+           "reduce_gb_last": sum(reduce_bytes) / 1e9,
+           "reduce_share_last": sum(reduce_ms) / ms[-1],
+           "launches": launches, "leaves_fused": leaves_fused,
+           "expected_layer_norm": n_ln, "peak_gb": peak,
+           "k3_sizes": k3_sizes, **_tp_shapes(model),
+           "seconds": time.perf_counter() - t0}
+    del model, state, step
+    _free()
+    return out
+
+
+def _moe_model(spec: TAVSpec, params: dict, mesh=None):
+    """Full-width TAVMoE on the card from ``params``; with a mesh its
+    experts are cut over the mesh's dp axis."""
+    from mme_tpu_torch.models.moe import MoESpec
+    from mme_tpu_torch.parallel.sharding_rules import shard_model
+    moe = (MoESpec() if mesh is None
+           else MoESpec(ep_axis="dp", ep_mesh=mesh))
+    model = TAVMoEFormer(spec, moe=moe, device="cuda")
+    model.load_state_dict(from_flax(params), strict=True)
+    if mesh is not None:
+        shard_model(model, mesh)
+    return model
+
+
+def _moe_step(model, mesh=None):
+    tx = make_optimizer(lambda s: P13_LR, 1e-4, 1.0)
+    state = TrainState.create(model.parameters(), tx, use_accum=False)
+    return state, make_train_step(model, tx, num_classes=7,
+                                  has_aux_loss=True, mesh=mesh)
+
+
+def p14_ep(weights: str, ref: dict, reqs: list) -> dict:
+    """A rank of TAVMoE at ep=2 over dp=2: the served requests (each rank
+    4 rows of a chunk), then the fp32 step on this rank's 2 rows of the
+    global batch of 4 (loss, grad norm, every gathered gradient leaf
+    against the single-rank step), then a second step with its
+    all_to_all timed."""
+    from mme_tpu_torch.parallel import distributed
+    from mme_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from mme_tpu_torch.parallel.sharding_rules import shard_of
+    _rank_setup()
+    t0 = time.perf_counter()
+    spec = _p13_spec()
+    mesh = make_mesh(P13_WORLD, 1)
+    model = _moe_model(spec, _p13_params(weights), mesh)
+    pred = Predictor(model, batch_size=8, device="cuda", mesh=mesh)
+    kernels.reset_launches()
+    probs = [pred(r)[1] for r in reqs]
+    serve_launches = dict(kernels.LAUNCHES)
+    state, step = _moe_step(model, mesh)
+    batch, labels, mask, cw = train_inputs(spec, P14_EP_BATCH,
+                                           P14_MOE_SEED + 1)
+    local = shard_batch({**batch, "_labels": labels, "_mask": mask}, mesh)
+    labels, mask = local.pop("_labels"), local.pop("_mask")
+    local = to_device(local, "cuda")
+    kernels.reset_launches()
+    grads: dict = {}
+    with _handed_grads(model, grads):
+        _, loss, cm, norm = step(state, local, labels, mask, cw, 1.0, True,
+                                 SEED)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    whole = _whole_grads(model, grads)
+    want = torch.load(ref["path"], map_location="cuda", weights_only=True)
+    worst, worst_name = _worst_grad_share(
+        (n, whole[n], w) for n, w in want.items())
+    del whole, want, grads
+    with _Collectives("all_to_all") as a2a:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, local, labels, mask, cw, 1.0, True, SEED + 1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+    out = {"rank": distributed.rank(),
+           "cut_leaves": sum(shard_of(p) is not None for p in state.params),
+           "probs": probs, "serve_launches": serve_launches,
+           "loss": loss.item(), "grad_norm": float(norm),
+           "cm_sum": int(cm.sum()), "worst_grad_share": worst,
+           "worst_grad_leaf": worst_name, "launches": launches,
+           "step_ms": step_ms, "all_to_all_calls": len(a2a.ms),
+           "all_to_all_ms": sum(a2a.ms),
+           "all_to_all_gb": sum(a2a.bytes) / 1e9,
+           "all_to_all_share": sum(a2a.ms) / step_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    del model, state, step, pred
+    _free()
+    return out
+
+
+def moe_reference(spec: TAVSpec, directory: str, reqs: list) -> dict:
+    """Phase 14's single-rank TAVMoE on this process: its weights (saved
+    for the ranks), the fp32 ``Predictor`` probabilities on phase 4's
+    requests and the fp32 step's loss, grad norm and handed gradients."""
+    params = init_params(spec, P14_MOE_SEED, model="TAVMoE")
+    weights = os.path.join(directory, "moe_weights.pt")
+    _save_tree(params, weights)
+    model = _moe_model(spec, params)
+    del params
+    probs = [Predictor(model, batch_size=8, device="cuda")(r)[1]
+             for r in reqs]
+    state, step = _moe_step(model)
+    batch, labels, mask, cw = train_inputs(spec, P14_EP_BATCH,
+                                           P14_MOE_SEED + 1)
+    grads: dict = {}
+    with _handed_grads(model, grads):
+        _, loss, _, norm = step(state, batch, labels, mask, cw, 1.0, True,
+                                SEED)
+    ref = {"path": os.path.join(directory, "moe_ref.pt"),
+           "weights": weights, "loss": loss.item(), "grad_norm": float(norm),
+           "probs": probs}
+    torch.save({n: g.cpu() for n, g in grads.items()}, ref["path"])
+    del model, state, step, grads
+    _free()
+    return ref
+
+
+def tp_kernel_shapes(spec: TAVSpec, k3_sizes: list, card: str) -> dict:
+    """Phase 14 (5), on this process: K1/K2 at every local-heads shape the
+    tp ranks fed (the fp32 step's batch of 4, the served and bf16 chunks
+    of 8) and K5a/K5b at every local MLP slice, in both types, against
+    their plain versions; at batch 8 in bf16 each timed beside its plain
+    version and the library call with its bound and its launches per
+    step; K3 over the shards' leaves against its plain version, timed."""
+    attention, mlp = [], []
+    for i, (name, s, h, n) in enumerate(P14_ATTENTION):
+        masked = name != "video"
+        for b, dt in ((P13_FP32_BATCH, torch.float32),
+                      (8, torch.float32), (8, torch.bfloat16)):
+            case = (f"tp_{name}", b, s, s, h, 64, dt, int(masked), masked)
+            flash_fwd_hold(*case, seed=5000 + i)
+            flash_bwd_hold(*case, False, seed=5000 + i)
+        attention.append({"tower": name, "launches_per_step": n,
+                          **flash_times(8, s, h, masked)})
+    for i, (name, n, h, f, layers) in enumerate(mlp_shapes(spec, 8)):
+        local = f // P14_MP
+        # K5 runs in the bf16 step only (the fp32 legs keep the knobs off)
+        mlp_hold(f"tp_{name}", n, h, local, torch.bfloat16, "gelu", 5100 + i)
+        mlp.append(mlp_times(name, n, h, local, layers, 5200 + i))
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    bc1, bc2 = 1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3
+    gs, mus, nus = time_adam.leaf_state(k3_sizes, 2)
+    seeds = [(14 << 20) + k for k in range(len(k3_sizes))]
+    before = kernels.LAUNCHES["adam_update"]
+    got = adam_update_leaves(gs, mus, nus, bc1, bc2, seeds, **kw)
+    torch.cuda.synchronize()
+    launched = kernels.LAUNCHES["adam_update"] - before
+    want = adam_update_leaves_plain(gs, mus, nus, bc1, bc2, seeds, **kw)
+    same, n_ulp = adam_same_bits(got, want)
+    k3_err = max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(got[0], want[0]))
+    del got, want
+    _, _, bound, by = adam_update.bounds(k3_sizes)
+    adam = {"leaves": len(k3_sizes), "elements": sum(k3_sizes),
+            "launches": launched, "moments_equal_plain": same,
+            "out_ulps": n_ulp, "max_abs_err": k3_err,
+            # in place, as the optimizer calls it
+            "ms": cuda_ms(lambda: adam_update_leaves(
+                gs, mus, nus, bc1, bc2, seeds, outs=gs, mu_outs=mus,
+                nu_outs=nus, **kw), iters=5),
+            "plain_ms": cuda_ms(lambda: adam_update_leaves_plain(
+                gs, mus, nus, bc1, bc2, seeds, **kw), iters=1, warmup=1),
+            "bound_ms": bound, "bound_by": by}
+    del gs, mus, nus
+    _free()
+    out = {"attention": attention, "mlp": mlp, "adam_update": adam}
+    print(json.dumps({"tp_kernel_shapes": out, "card": card}), flush=True)
+    if not (same and n_ulp <= ADAM_OUT_ULPS and launched == 1):
+        raise SystemExit("phase 14: K3 over the tp shards disagrees with "
+                         "its plain version")
+    return out
+
+
+def parallel_axes_two(pool, ref: dict, weights: str, reqs: list,
+                      want_probs: list, directory: str) -> dict:
+    """Phase 14's calls on phase 13's pool: tp fp32, tp bf16, tp serving,
+    then the TAVMoE reference on this process and ep on the ranks."""
+    here = os.path.abspath(__file__)
+    t = time.perf_counter()
+    tp = pool.run(f"{here}:p14_tp_fp32", ref, reqs[:1])
+    bf16 = pool.run(f"{here}:p14_tp_bf16", weights, 1, 0)
+    tp_s = time.perf_counter() - t
+    t = time.perf_counter()
+    moe_ref = moe_reference(_p13_spec(), directory, reqs[:1])
+    moe_ref_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ep = pool.run(f"{here}:p14_ep", moe_ref["weights"], moe_ref, reqs[:1])
+    return {"tp": tp, "bf16": bf16, "ep": ep,
+            "moe_ref": moe_ref, "want_probs": want_probs[:1],
+            "tp_ranks_s": tp_s,
+            "moe_reference_s": moe_ref_s,
+            "ep_ranks_s": time.perf_counter() - t}
+
+
+def parallel_axes_two_checks(res: dict, ref: dict, reqs: list,
+                             spec: TAVSpec, card: str, t0: float) -> dict:
+    """Phase 14 on this process after the ranks: the kernels at the tp
+    ranks' shapes, then every check. Returns one step's launches of the
+    bf16 tp leg and of the ep leg, for the kernels line."""
+    tp, bf16, ep = res["tp"], res["bf16"], res["ep"]
+    moe_ref = res["moe_ref"]
+    t = time.perf_counter()
+    shapes = tp_kernel_shapes(spec, bf16[0]["k3_sizes"], card)
+    shapes_s = time.perf_counter() - t
+    want_heads = sorted({(h // P14_MP, h) for _, _, _, h, _ in SERVED})
+    want_mlp = sorted({(h, f // P14_MP) for _, _, h, f, _ in
+                       mlp_shapes(spec, 8)})
+    tp_diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                  for r in tp for a, b in zip(r["probs"],
+                                              res["want_probs"]))
+    ep_diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                  for r in ep for a, b in zip(r["probs"], moe_ref["probs"]))
+    chunks = -(-len(reqs[0]["input_ids"]) // 8)
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for r in bf16:
+        r.pop("k3_sizes")
+    out = {"tp_fp32": [{k: v for k, v in r.items() if k != "probs"}
+                       for r in tp], "tp_bf16": bf16,
+           "tp_served_prob_max_diff": tp_diff,
+           "ep": [{k: v for k, v in r.items() if k != "probs"} for r in ep],
+           "ep_served_prob_max_diff": ep_diff,
+           "ep_reference": {k: moe_ref[k] for k in ("loss", "grad_norm")},
+           "reference": {k: ref[k] for k in ("loss", "grad_norm")},
+           "tp_ranks_s": res["tp_ranks_s"],
+           "moe_reference_s": res["moe_reference_s"],
+           "ep_ranks_s": res["ep_ranks_s"], "kernel_shapes_s": shapes_s,
+           "phase_s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"parallel_axes_two": out}), flush=True)
+    n_ln = bf16[0]["expected_layer_norm"]
+    checks = {
+        "tp_fp32": all(
+            abs(r["loss"] - ref["loss"]) <= TRAIN_LOSS_RTOL * abs(ref["loss"])
+            and abs(r["grad_norm"] - ref["grad_norm"])
+            <= TRAIN_NORM_RTOL * ref["grad_norm"]
+            and r["same_leaves"] and r["worst_grad_share"] <= P13_GRAD_RTOL
+            and r["cm_sum"] == P13_FP32_BATCH and r["cut_leaves"] > 0
+            and r["heads"] == want_heads and r["mlp"] == want_mlp
+            and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
+            == LAUNCHES_PER_CHUNK and r["transport"] == "gloo-host"
+            for r in tp),
+        "tp_bf16": all(
+            all(np.isfinite(r["losses"]))
+            and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
+            == r["launches"]["fused_mlp_fwd"]
+            == r["launches"]["fused_mlp_bwd"] == LAUNCHES_PER_CHUNK
+            and r["launches"]["layer_norm_fwd"]
+            == r["launches"]["layer_norm_bwd"] == n_ln
+            and r["launches"]["adam_update"] == 1
+            and r["heads"] == want_heads and r["mlp"] == want_mlp
+            for r in bf16)
+        and sum(r["peak_gb"] for r in bf16) < total_gb,
+        "tp_serve": tp_diff <= SERVE_TOL[torch.float32] and all(
+            r["serve_launches"]["flash_fwd"] == chunks * LAUNCHES_PER_CHUNK
+            for r in tp),
+        "ep": all(
+            abs(r["loss"] - moe_ref["loss"])
+            <= TRAIN_LOSS_RTOL * abs(moe_ref["loss"])
+            and abs(r["grad_norm"] - moe_ref["grad_norm"])
+            <= TRAIN_NORM_RTOL * moe_ref["grad_norm"]
+            and r["worst_grad_share"] <= P13_GRAD_RTOL
+            and r["cut_leaves"] > 0 and r["cm_sum"] == P14_EP_BATCH
+            and r["all_to_all_calls"] > 0
+            and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
+            == spec.fusion.layers
+            and r["serve_launches"]["flash_fwd"] == chunks
+            * spec.fusion.layers for r in ep)
+        and ep_diff <= SERVE_TOL[torch.float32]}
+    if not all(checks.values()):
+        raise SystemExit(f"phase 14 (the parallel axes, part two) failed: "
+                         f"{checks}")
+    return {"tp": bf16[0]["launches"], "ep": ep[0]["launches"],
+            "shapes": shapes, "phase_s": time.perf_counter() - t0}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--parallel"]):
+        print("usage: python3 chip_smoke.py [--parallel]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -5335,9 +5858,11 @@ def main() -> int:
           f"nvidia-smi: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
+    seconds = {}
     t0 = time.perf_counter()
     logs = kernels.build(["flash_fwd", "flash_bwd", "fused_mlp",
                           "layer_norm", "adam_update"])
+    seconds["2"] = time.perf_counter() - t0
     print(f"build: {time.perf_counter() - t0:.1f} s\n{logs['flash_fwd']}\n"
           f"{logs['flash_bwd']}", flush=True)
     print(json.dumps({"fused_mlp_ptxas": ptxas_summary(logs["fused_mlp"])}),
@@ -5350,7 +5875,24 @@ def main() -> int:
     print(json.dumps({"adam_update_ptxas": kernel_ptxas(logs["adam_update"])}),
           flush=True)
 
+    if argv == ["--parallel"]:
+        # phases 13 and 14 alone: a quick run while the parallel axes
+        # change; no result lines
+        t0 = time.perf_counter()
+        par = parallel_axes(card)
+        seconds["14"] = par["two"]["phase_s"]
+        seconds["13"] = time.perf_counter() - t0 - seconds["14"]
+        print(json.dumps({"phase_seconds": seconds}), flush=True)
+        return 0
+
+    def timed(phase, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = seconds.get(phase, 0.0) + time.perf_counter() - start
+        return out
+
     spec = TAVSpec(output_dim=7)
+    t0 = time.perf_counter()
     fwd_err, fwd_shapes = check_flash(card)
     bwd_err, bwd_shapes = check_flash_bwd(card)
     # the trained model shares its audio frontend: one conv stack's leaves
@@ -5359,30 +5901,37 @@ def main() -> int:
     ln_fwd, ln_bwd = check_layer_norm(train_spec, card)
     check_gemm_core(card)
     mlp_fwd, mlp_bwd = check_fused_mlp(train_spec, card)
-    served, served_knobs = main_path(card)
-    params, step, step_fused, step_knobs, step_ms = train_path(card)
+    seconds["3"] = time.perf_counter() - t0
+    served, served_knobs = timed("4", main_path, card)
+    params, step, step_fused, step_knobs, step_ms = timed("5", train_path,
+                                                          card)
     torch.cuda.empty_cache()
     front_dir = tempfile.mkdtemp(prefix="mme_front_")
     try:
-        loop, exports, loop_spec = train_loop(params, card, step_ms,
-                                              front_dir)
-        del params
+        loop, exports, loop_spec = timed("6", train_loop, params, card,
+                                         step_ms, front_dir)
         torch.cuda.empty_cache()
-        bundle = front_ends(card, loop_spec, front_dir, exports)
+        bundle = timed("7", front_ends, card, loop_spec, front_dir, exports)
     finally:
         shutil.rmtree(front_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    family = fusion_family(card)
+    family = timed("8", fusion_family, card)
     torch.cuda.empty_cache()
-    w2v = slice_models(card)
+    w2v = timed("9", slice_models, card)
     torch.cuda.empty_cache()
-    zoo_launches = zoo(card)
+    zoo_launches = timed("10", zoo, card)
     torch.cuda.empty_cache()
-    data = data_path(card)
+    data = timed("11", data_path, card)
     torch.cuda.empty_cache()
-    pre = pretrained(card)
+    pre = timed("12", pretrained, card)
     torch.cuda.empty_cache()
-    par = parallel_axes(card)
+    t0 = time.perf_counter()
+    par = parallel_axes(card, params=params)
+    del params
+    # phases 13 and 14 share a pool; phase 14 timed its own part
+    seconds["14"] = par["two"]["phase_s"]
+    seconds["13"] = time.perf_counter() - t0 - seconds["14"]
+    print(json.dumps({"phase_seconds": seconds}), flush=True)
 
     def family_launches(name):
         """launches_<model> of phases 8, 9 and 10: one served chunk with
@@ -5403,6 +5952,8 @@ def main() -> int:
         out["launches_parallel_dp"] = par["dp"].get(name, 0)
         out.update({f"launches_parallel_sp_{tw}": par["sp"][tw].get(name, 0)
                     for tw in P13_TOWERS})
+        out["launches_parallel_tp"] = par["two"]["tp"].get(name, 0)
+        out["launches_parallel_ep"] = par["two"]["ep"].get(name, 0)
         return out
 
     def entry(name, route, source, replaces, result):

@@ -16,14 +16,16 @@ then the loop and the test pass, and after it the serving exports:
 ``serve.py::export_bundle``).
 
 Meshes. In a multi-process run (``parallel/distributed.py``) the port
-builds JAX's auto dp mesh over the ranks when ``MME_MESH`` is on (the
-default) and the global batch divides by dp; ``MME_DP`` sets dp through
-``cfg.mesh``; a caller's mesh (``tav_nn``'s ``("dp", "sp")``) wins. On one
-rank the run is unmeshed, as JAX's on one device. Ranks cannot sit idle,
-so a world of more than one rank without such a mesh raises
-``ValueError`` (JAX trains on a device subset instead). ``MME_MP`` above 1
-raises ``NotImplementedError`` before any work: tensor parallelism is
-ROADMAP Queue 1 item 7 part two.
+builds JAX's auto ``("dp", "mp")`` mesh over the ranks when ``MME_MESH``
+is on (the default) and the global batch divides by dp; ``MME_MP`` sets mp
+and ``MME_DP`` dp through ``cfg.mesh``; a caller's mesh (``tav_nn``'s
+``("dp", "sp")``) wins. On one rank the run is unmeshed, as JAX's on one
+device. Ranks cannot sit idle, so a world of more than one rank without
+such a mesh raises ``ValueError`` (JAX trains on a device subset instead).
+Under a mesh the model's weights are replicated from rank 0 and then cut
+by ``parallel/sharding_rules.py::shard_model``: over ``mp`` (tensor
+parallelism; a mesh without ``mp`` replicates every leaf, as JAX does) and,
+for an ``MoEMlp`` built with an expert axis, its expert stacks.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from mme_tpu_torch.evals.metrics import Metrics
 from mme_tpu_torch.models.layers import whole_attention
 from mme_tpu_torch.parallel import distributed
 from mme_tpu_torch.parallel.mesh import Mesh, barrier, make_mesh, replicate
+from mme_tpu_torch.parallel.sharding_rules import shard_model, whole_model
 from mme_tpu_torch.serve import Predictor, export_bundle
 from mme_tpu_torch.train.checkpoint import CheckpointManager
 from mme_tpu_torch.train.losses import class_weights_from_counts, make_loss_fn
@@ -173,23 +176,25 @@ class BatchModel(nn.Module):
 
 
 def auto_mesh(cfg: ExperimentConfig) -> Optional[Mesh]:
-    """JAX's auto dp mesh over the world's ranks: None on one rank; with
-    ``MME_MESH`` on (the default) a ``("dp", "mp")`` mesh of dp =
-    ``cfg.mesh.data`` (-1: every rank) when the global batch divides by
-    it. More than one rank without such a mesh raises."""
+    """JAX's auto mesh over the world's ranks: None on one rank; with
+    ``MME_MESH`` on (the default) a ``("dp", "mp")`` mesh of mp =
+    ``cfg.mesh.model`` and dp = ``cfg.mesh.data`` (-1: the ranks mp
+    leaves) when dp × mp is the world and the global batch divides by dp.
+    More than one rank without such a mesh raises."""
     world = distributed.world_size()
     if world == 1:
         return None
-    dp = cfg.mesh.data if cfg.mesh.data != -1 else world
+    mp = max(cfg.mesh.model, 1)
+    dp = cfg.mesh.data if cfg.mesh.data != -1 else world // mp
     if os.environ.get("MME_MESH", "on") == "off":
         why = "MME_MESH=off"
-    elif dp != world:
-        why = f"dp={dp} leaves ranks of the world's {world} idle"
+    elif dp * mp != world:
+        why = f"dp={dp} x mp={mp} is not the world's {world} ranks"
     elif cfg.batch_size % dp:
         why = f"batch_size={cfg.batch_size} not divisible by dp={dp}"
     else:
-        mesh = make_mesh(dp, 1)
-        print(f"mesh: dp={dp} mp=1 over {world} ranks", flush=True)
+        mesh = make_mesh(dp, mp)
+        print(f"mesh: dp={dp} mp={mp} over {world} ranks", flush=True)
         return mesh
     raise ValueError(f"{world} ranks and no dp mesh: {why}")
 
@@ -231,6 +236,10 @@ def run_classifier(cfg: ExperimentConfig, model: nn.Module,
     model.to(dev)
     if mesh is not None:
         replicate(model, mesh)
+        if cfg.mesh.model > 1 and "mp" not in mesh.axis_names:
+            print(f"MME_MP={cfg.mesh.model}: the mesh {mesh.shape} has no "
+                  "mp axis; every leaf replicated", flush=True)
+        shard_model(model, mesh)
     num_classes = cfg.output_dim
     if id2label is None:
         id2label = label_names(cfg.dataset, cfg.label_task, num_classes)
@@ -318,9 +327,12 @@ def _serving_exports(cfg: ExperimentConfig, model: nn.Module,
     example goes through the same transform (generator seeded with 0), so
     its features are the transformed ones (normalised float video and
     ``video_keep`` for the TAV model). Under a mesh every rank serves its
-    rows of the predictions (``Predictor(mesh=...)``) and rank 0 writes;
-    rank 0 exports the bundle with the attention core whole
-    (``MultiHeadAttention.seq_parallel`` off while it traces)."""
+    rows of the predictions (``Predictor(mesh=...)``; the ranks of an
+    ``mp`` axis run the same rows with the tp collectives) and rank 0
+    writes. A bundle is a program for one rank: every rank gathers the
+    cut leaves whole (``sharding_rules.whole_model``) and rank 0 exports
+    with the attention core whole (``MultiHeadAttention.seq_parallel`` off
+    while it traces)."""
     writer = distributed.is_writer()
     predict_out = os.environ.get("MME_PREDICT_OUT")
     if predict_out:
@@ -336,9 +348,12 @@ def _serving_exports(cfg: ExperimentConfig, model: nn.Module,
         model.train(was_training)
         log({"predict_out": predict_out, "rows": rows})
     export_dir = os.environ.get("MME_EXPORT_BUNDLE")
-    if export_dir and not writer:
-        barrier()          # rank 0 exports
-    elif export_dir:
+    if not export_dir:
+        return
+    with whole_model(model):
+        if not writer:
+            barrier()          # rank 0 exports
+            return
         example = {k: np.asarray(v[:cfg.batch_size])
                    for k, v in test_ds.features.items()}
         if batch_transform is not None:

@@ -29,9 +29,11 @@ does; any other model or width, or no such directory, loads nothing.
 ``MME_SP=<n>`` runs one tower's attention as ring attention over ``n``
 ranks (``MME_SP_TOWER``: fusion, the default, video, audio or text) on a
 ``("dp", "sp")`` mesh of the world's ranks; the rest of the ranks form
-dp (:func:`parallel_spec`). ``MME_PP`` above 1 raises
-``NotImplementedError`` before any work: pipeline parallelism is ROADMAP
-Queue 1 item 7 part two. A missing pickle raises ``FileNotFoundError``.
+dp (:func:`parallel_spec`). ``MME_MP=<n>`` cuts the weights over an
+``mp`` axis of ``run_classifier``'s mesh (tensor parallelism). ``MME_PP``
+above 1 raises ``NotImplementedError`` before any work: pipeline
+parallelism is ROADMAP Queue 1 item 7 part two (pp). A missing pickle
+raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -45,8 +47,7 @@ import torch
 
 from mme_tpu_torch.cli.common import (make_bucket_iter, pickle_splits,
                                       resolve_pickle, run_classifier)
-from mme_tpu_torch.config import (arg_parse, config_from_args,
-                                  refuse_tensor_parallel)
+from mme_tpu_torch.config import arg_parse, config_from_args
 from mme_tpu_torch.convert import from_flax, init_params
 from mme_tpu_torch.data.records import (PickleDatasetConfig,
                                         build_tav_dataset, get_tokenizer)
@@ -67,7 +68,7 @@ def _refuse_unported() -> None:
     if int(os.environ.get("MME_PP", "0") or 0) > 1:
         raise NotImplementedError(
             "MME_PP > 1: pipeline parallelism comes with ROADMAP Queue 1 "
-            "item 7 part two (tp, pp, ep)")
+            "item 7 part two (pp)")
 
 
 def parallel_spec(cfg, spec: TAVSpec) -> Tuple[TAVSpec, Optional[Mesh]]:
@@ -174,7 +175,6 @@ def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = "cuda") -> Dict[str, Any]:
     args = arg_parse("tav_nn", argv)
     cfg = config_from_args(args, device=device)
-    refuse_tensor_parallel(cfg)
     _refuse_unported()
     dev = resolve_device(distributed.rank_device(device))
     np.random.seed(cfg.seed)

@@ -23,8 +23,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from mme_tpu_torch.cli.common import BatchModel, run_classifier
-from mme_tpu_torch.config import (arg_parse, config_from_args,
-                                  refuse_tensor_parallel)
+from mme_tpu_torch.config import arg_parse, config_from_args
 from mme_tpu_torch.convert import from_flax, init_variables
 from mme_tpu_torch.data.dataset import ArrayDataset
 from mme_tpu_torch.device import DeviceLike, resolve_device
@@ -59,7 +58,6 @@ def main(argv: Optional[Sequence[str]] = None,
     dev = resolve_device(device)
     args = arg_parse("text_audio_nn", argv)
     cfg = config_from_args(args, device=device)
-    refuse_tensor_parallel(cfg)
     np.random.seed(cfg.seed)
 
     spec = TextAudioSpec(output_dim=cfg.output_dim, dropout=cfg.dropout)

@@ -170,20 +170,12 @@ def arg_parse(description: str, argv: Optional[Sequence[str]] = None):
     return parser.parse_args(argv)
 
 
-def refuse_tensor_parallel(cfg: "ExperimentConfig") -> None:
-    """``MME_MP`` above 1 raises: tensor parallelism is ROADMAP Queue 1
-    item 7 part two."""
-    if cfg.mesh.model > 1:
-        raise NotImplementedError(
-            f"MME_MP={cfg.mesh.model}: tensor parallelism comes with ROADMAP "
-            "Queue 1 item 7 part two (tp, pp, ep)")
-
-
 def config_from_args(args: Any, device: DeviceLike = "cuda",
                      **overrides: Any) -> ExperimentConfig:
     """A typed config from an argparse namespace (or any attribute bag).
-    ``MME_MP=<n>`` / ``MME_DP=<n>`` fill ``cfg.mesh`` as in JAX (every CLI
-    then calls :func:`refuse_tensor_parallel`). A multi-process run
+    ``MME_MP=<n>`` / ``MME_DP=<n>`` fill ``cfg.mesh`` as in JAX
+    (``cli/common.py::auto_mesh`` builds the ``("dp", "mp")`` mesh from
+    it). A multi-process run
     (``MME_COORDINATOR`` / ``MME_NUM_PROCESSES`` / ``MME_PROCESS_ID``)
     joins its process group here (``parallel/distributed.py::
     maybe_initialize``), before any work, as JAX's does; its backend

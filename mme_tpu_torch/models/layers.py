@@ -12,6 +12,13 @@ ring attention over that axis of a mesh of ranks (sequence parallelism,
 comes with the rest of the parallel axes, and scan-over-layers has no
 eager counterpart.
 
+Tensor parallelism (Megatron): once ``parallel/sharding_rules.py::
+shard_model`` has cut the qkv / out and fc1 / fc2 weights over an ``mp``
+axis, ``MultiHeadAttention`` runs its local heads and ``Mlp`` its local
+slice of the intermediate, each between ``parallel/mesh.py::copy_to_axis``
+and ``reduce_from_axis``; the row-parallel layer's bias is added after the
+reduction, on every rank.
+
 Mixed precision follows flax's policy: parameters stay fp32 (or whatever
 dtype the caller stored them in) and are cast to the compute dtype where
 they are used; LayerNorm and softmax run in fp32.
@@ -44,7 +51,9 @@ from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.ops.attention import dot_product_attention_shd
 from mme_tpu_torch.ops.fused_mlp import fused_mlp, use_fused_mlp
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
-from mme_tpu_torch.parallel.mesh import batch_rand
+from mme_tpu_torch.parallel.mesh import (AxisGroup, batch_rand,
+                                         copy_to_axis, reduce_from_axis)
+from mme_tpu_torch.parallel.sharding_rules import shard_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,17 +97,27 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            rng: Optional[torch.Generator]) -> torch.Tensor:
+            rng: Optional[torch.Generator],
+            split: Optional[AxisGroup] = None) -> torch.Tensor:
     """Inverted dropout from an explicit generator (flax ``nn.Dropout``):
     keep with probability ``1 - rate``, scale the kept by ``1/(1 - rate)``.
-    Identity outside training mode or at rate 0."""
+    Identity outside training mode or at rate 0. ``split``: ``x`` holds
+    this rank's block of a last dimension cut over that axis (the local
+    heads); the whole mask is drawn and the block kept, so every rank's
+    generator stays in step and the mask is one rank's."""
     if not training or rate <= 0.0:
         return x
     if rng is None:
         raise ValueError("dropout in training mode needs the step's "
                          "torch.Generator (rng=...); call .eval() for the "
                          "deterministic forward")
-    keep = batch_rand(x.shape, rng, x.device) >= rate
+    if split is None or split.size == 1:
+        u = batch_rand(x.shape, rng, x.device)
+    else:
+        n = x.shape[-1]
+        u = batch_rand(x.shape[:-1] + (n * split.size,), rng,
+                       x.device).narrow(-1, split.index * n, n)
+    keep = u >= rate
     return torch.where(keep, x * (1.0 / (1.0 - rate)),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -218,7 +237,16 @@ class MultiHeadAttention(nn.Module):
     (``seq_gather``, whose backward keeps this rank's slice). Only
     per-key biases [B, 1, 1, S] are taken. Every rank of the axis ends
     the backward with the single-rank gradients. ``seq_parallel = False``
-    runs the core whole on this rank (a serving export from one rank)."""
+    runs the core whole on this rank (a serving export from one rank).
+
+    Cut over an ``mp`` axis (``parallel/sharding_rules.py``), the block
+    runs this rank's heads: "copy to mp" on x, the local qkv (three row
+    blocks of the local heads) and its bias, the core on the local heads
+    (the models' key-mask biases [B, 1, 1, S] broadcast over them), the
+    attention dropout's block of the whole mask, the local ``out`` without its bias, "reduce
+    from mp", then ``out.bias``. Where the rule leaves qkv whole (heads
+    that mp does not divide) and cuts ``out`` only, each rank feeds
+    ``out`` its columns of the whole core's output."""
 
     def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
         super().__init__()
@@ -277,11 +305,16 @@ class MultiHeadAttention(nn.Module):
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S, _ = x.shape
         dt = self.qkv.dtype
+        tp = shard_of(self.qkv.weight)
+        row = shard_of(self.out.weight)
+        if tp is not None:
+            x = copy_to_axis(x, tp.axis)
         b = None
         if self.qkv_bias is not None:
             b = (self.qkv_bias.to(dt) * self.qkv_bias_mask.to(dt)).reshape(-1)
         qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), b)
-        qkv = qkv.view(B, S, 3, self.heads, self.head_dim)
+        heads = qkv.shape[-1] // (3 * self.head_dim)
+        qkv = qkv.view(B, S, 3, heads, self.head_dim)
         if self.seq_parallel:
             out = self._ring_core(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                                   bias)
@@ -289,8 +322,19 @@ class MultiHeadAttention(nn.Module):
             out = dot_product_attention_shd(qkv[:, :, 0], qkv[:, :, 1],
                                             qkv[:, :, 2], bias)
         # on the attention output, not on the probabilities (as in JAX)
-        out = dropout(out, self.attention_dropout, self.training, rng)
-        return self.out(out.reshape(B, S, self.heads * self.head_dim))
+        out = dropout(out.reshape(B, S, heads * self.head_dim),
+                      self.attention_dropout, self.training, rng,
+                      split=None if tp is None else tp.axis)
+        if row is None:
+            return self.out(out)
+        if tp is None:
+            # whole heads, row-parallel out: this rank's columns
+            n = out.shape[-1] // row.axis.size
+            out = copy_to_axis(out, row.axis).narrow(-1, row.axis.index * n,
+                                                     n)
+        y = reduce_from_axis(F.linear(out.to(dt), self.out.weight.to(dt)),
+                             row.axis)
+        return y + self.out.bias.to(dt)
 
 
 @contextlib.contextmanager
@@ -314,7 +358,14 @@ class Mlp(nn.Module):
     ``ops/fused_mlp.py::use_fused_mlp`` says so (``MME_FUSED_MLP``, default
     off) the three run as one kernel on the rows ``[B·S, H]``, weights cast
     to the compute dtype and biases in fp32; the dropout stays outside it
-    and draws from the step's generator either way."""
+    and draws from the step's generator either way.
+
+    Cut over an ``mp`` axis: "copy to mp", the local fc1 slice (and its
+    bias), the activation, the local fc2 slice without its bias, "reduce
+    from mp", then ``fc2.bias``. The fused kernel adds b2 inside, so it is
+    given zeros there (its gradient is dropped) and b2 joins after the
+    sum on every rank: each rank's replica of b2 then gets the whole
+    gradient."""
 
     def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
         super().__init__()
@@ -331,13 +382,22 @@ class Mlp(nn.Module):
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.fc1.dtype
         hidden, inter = self.fc1.weight.shape[1], self.fc1.weight.shape[0]
+        tp = shard_of(self.fc1.weight)
+        if tp is not None:
+            x = copy_to_axis(x, tp.axis)
         if use_fused_mlp(x, hidden, inter, dt):
+            b2 = (self.fc2.bias.float() if tp is None else
+                  torch.zeros(hidden, dtype=torch.float32, device=x.device))
             out = fused_mlp(
                 x.reshape(-1, hidden).to(dt), self.fc1.weight.to(dt),
-                self.fc1.bias.float(), self.fc2.weight.to(dt),
-                self.fc2.bias.float(), self.act_name).reshape(x.shape)
-        else:
+                self.fc1.bias.float(), self.fc2.weight.to(dt), b2,
+                self.act_name).reshape(x.shape)
+        elif tp is None:
             out = self.fc2(self.act(self.fc1(x)))
+        else:
+            out = F.linear(self.act(self.fc1(x)), self.fc2.weight.to(dt))
+        if tp is not None:
+            out = reduce_from_axis(out, tp.axis) + self.fc2.bias.to(out.dtype)
         return dropout(out, self.dropout, self.training, rng)
 
 

@@ -24,15 +24,31 @@ Port of ``mme_tpu/models/moe.py``: ``MoESpec``, ``_capacity``,
 Under a dp step the aux loss is the global batch's: the router's token
 fractions and mean probabilities are summed over the ranks before their
 bilinear product (``parallel/mesh.py::batch_sum``); the expert capacity is
-per sequence, so routing does not change. Expert parallelism
-(``MoESpec.ep_axis``) comes with ROADMAP Queue 1 item 7 part two: any
-value but None raises. Blocks are not rematerialised, as in JAX's
-``MoETransformerEncoder``.
+per sequence, so routing does not change. Blocks are not
+rematerialised, as in JAX's ``MoETransformerEncoder``.
+
+Expert parallelism: ``MoESpec.ep_axis`` names an axis of the mesh handed
+in as ``MoESpec.ep_mesh`` (as ``EncoderSpec.seq_mesh`` is for sp; JAX
+reads the ambient mesh). Once ``parallel/sharding_rules.py::shard_model``
+has cut the expert stacks, each rank of the axis holds experts
+[E/ep, ...] of ``w1``, ``b1``, ``w2`` and ``b2``. The dispatch buffers
+[E, B, C, H] are per batch row (capacity counts positions within a row),
+so a rank routes its own rows; one ``all_to_all`` sends each expert's
+buffers to its rank, which runs them for every rank's rows at once
+([E/ep, ep·B, C, H]), and a second one brings them back before the
+combine. The ranks may hold different rows (ep laid over the batch) or the
+same rows; either way the output is the unsharded layer's. An expert's
+gradient is the sum over every rank's rows sent to it: where the ranks
+hold the same rows that is ep times the layer's, which the step's mean
+divides out (``sharding_rules.sync_grads``). The router and the aux loss
+stay replicated. Without a mesh ``ep_axis`` runs unsharded; with a mesh
+that lacks the axis it warns and runs unsharded, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -44,7 +60,8 @@ from mme_tpu_torch.models.layers import (Dense, EncoderBlock, EncoderSpec,
                                          MultiHeadAttention, activation,
                                          dropout, empty_param)
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
-from mme_tpu_torch.parallel.mesh import batch_count, batch_sum
+from mme_tpu_torch.parallel.mesh import all_to_all, batch_count, batch_sum
+from mme_tpu_torch.parallel.sharding_rules import shard_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +73,9 @@ class MoESpec:
     capacity_factor: float = 1.5
     moe_every: int = 2           # every n-th block uses the MoE MLP
     aux_loss_weight: float = 1e-2
-    ep_axis: Optional[str] = None  # expert parallelism: not ported yet
+    ep_axis: Optional[str] = None  # mesh axis to shard experts over
+    # the mesh of ranks ``ep_axis`` names (``parallel/mesh.py::Mesh``)
+    ep_mesh: Optional[object] = None
 
 
 def _capacity(seq: int, top_k: int, num_experts: int,
@@ -106,18 +125,29 @@ def dispatch_combine(gates: torch.Tensor, capacity: int
 
 class MoEMlp(nn.Module):
     """router → dispatch einsum → per-expert FFN → combine einsum.
-    ``forward(x, rng) -> (y, aux · aux_loss_weight)``."""
+    ``forward(x, rng) -> (y, aux · aux_loss_weight)``. ``ep``: the
+    expert axis (an ``AxisGroup`` of more than one rank) the stacks are
+    cut over by ``shard_model``, or None."""
 
     def __init__(self, spec: EncoderSpec, moe: MoESpec,
                  device: DeviceLike = "cuda"):
         super().__init__()
-        if moe.ep_axis is not None:
-            raise NotImplementedError(
-                f"MoESpec.ep_axis={moe.ep_axis!r}: expert parallelism comes "
-                "with ROADMAP Queue 1 item 7 part two (tp, pp, ep)")
         dev = resolve_device(device)
         s = spec
         E, H, inter = moe.num_experts, s.hidden, s.intermediate
+        self.ep = None
+        mesh = moe.ep_mesh
+        if moe.ep_axis is not None and mesh is not None:
+            if moe.ep_axis not in mesh.axis_names:
+                warnings.warn(
+                    f"MoEMlp: ep_axis={moe.ep_axis!r} not in the mesh's axes "
+                    f"{mesh.axis_names}: running without expert parallelism")
+            elif mesh.shape[moe.ep_axis] > 1:
+                if E % mesh.shape[moe.ep_axis]:
+                    raise ValueError(
+                        f"{E} experts do not split over "
+                        f"{moe.ep_axis}={mesh.shape[moe.ep_axis]}")
+                self.ep = mesh.axis(moe.ep_axis)
         self.moe = moe
         self.dtype = s.dtype
         self.act = activation(s.act)
@@ -137,13 +167,35 @@ class MoEMlp(nn.Module):
         gates, aux = router_gates(self.router(x.float()), m.top_k)
         dispatch, combine = dispatch_combine(gates.to(dt), C)
         xe = torch.einsum("bsec,bsh->ebch", dispatch, x.to(dt))
+        cut = shard_of(self.w1)
+        if cut is not None:
+            xe = _to_experts(xe, cut.axis)
         h = torch.einsum("ebch,ehi->ebci", xe, self.w1.to(dt))
         h = self.act(h + self.b1[:, None, None, :].to(dt))
         ye = torch.einsum("ebci,eih->ebch", h, self.w2.to(dt))
         ye = ye + self.b2[:, None, None, :].to(dt)
+        if cut is not None:
+            ye = _from_experts(ye, cut.axis)
         y = torch.einsum("ebch,bsec->bsh", ye, combine)
         return (dropout(y, self.dropout, self.training, rng),
                 aux * m.aux_loss_weight)
+
+
+def _to_experts(xe: torch.Tensor, axis) -> torch.Tensor:
+    """[E, B, C, H] buffers of this rank's rows → [E/ep, ep·B, C, H], this
+    rank's experts' buffers of every rank's rows (rank order)."""
+    E, B, C, H = xe.shape
+    got = all_to_all(xe, axis).view(axis.size, E // axis.size, B, C, H)
+    return got.transpose(0, 1).reshape(E // axis.size, axis.size * B, C, H)
+
+
+def _from_experts(ye: torch.Tensor, axis) -> torch.Tensor:
+    """The inverse of :func:`_to_experts`: [E/ep, ep·B, C, H] → [E, B, C,
+    H] of this rank's rows."""
+    El, n, C, H = ye.shape
+    B = n // axis.size
+    send = ye.view(El, axis.size, B, C, H).transpose(0, 1).contiguous()
+    return all_to_all(send, axis).view(El * axis.size, B, C, H)
 
 
 class MoEEncoderBlock(nn.Module):

@@ -10,14 +10,18 @@ one process group per line of ranks along it (:class:`AxisGroup`). The
 collectives are explicit:
 
 - :meth:`AxisGroup.all_reduce`, :meth:`AxisGroup.all_gather`,
-  :meth:`AxisGroup.broadcast_` and :meth:`AxisGroup.shift_start` (send to
-  the next coordinate, receive from the previous one: the ring's P2P step,
-  ``dist.batch_isend_irecv``).
+  :meth:`AxisGroup.broadcast_`, :meth:`AxisGroup.all_to_all` (block j of
+  dim 0 to coordinate j: the expert exchange) and
+  :meth:`AxisGroup.shift_start` (send to the next coordinate, receive from
+  the previous one: the ring's P2P step, ``dist.batch_isend_irecv``).
 - Under the ``gloo`` backend every collective moves host tensors: a CUDA
   tensor is staged through pinned host memory (the ``_gloo_host`` branch).
   ``nccl`` takes device tensors as they are. The branch follows the group's
   backend; nothing is chosen by catching an error.
 - Autograd: :func:`all_reduce_sum` (the backward all-reduces the gradient),
+  Megatron's pair for tensor parallelism, :func:`copy_to_axis` (identity
+  forward, all-reduced gradient) and :func:`reduce_from_axis` (all-reduced
+  forward, identity backward), :func:`all_to_all` (its own transpose),
   :func:`seq_shard` (this rank's block of a replicated sequence; the
   backward gathers the blocks' gradients in full) and :func:`seq_gather`
   (the whole sequence from the blocks; the backward keeps this rank's
@@ -140,6 +144,16 @@ class AxisGroup:
         parts = [torch.empty_like(w) for _ in range(self.size)]
         dist.all_gather(parts, w, group=self.group)
         return torch.cat(parts, dim=dim).to(t.device)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Block j of ``t``'s dim 0 (``size`` equal blocks) goes to
+        coordinate j; block i of the result came from coordinate i."""
+        if self.size == 1:
+            return t
+        w = self._wire(t)
+        out = torch.empty_like(w)
+        dist.all_to_all_single(out, w, group=self.group)
+        return out.to(t.device)
 
     def broadcast_(self, t: torch.Tensor, src_index: int = 0) -> None:
         """Overwrite ``t`` with coordinate ``src_index``'s tensor."""
@@ -325,6 +339,59 @@ def all_reduce_sum(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
     if axis.size == 1:
         return x
     return _AllReduceSum.apply(x, axis)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_axis(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """Megatron's "copy to mp": ``x`` (the same on every rank of ``axis``)
+    as it is, entering a column-parallel layer. The backward all-reduces
+    the gradient, since each rank's holds only its shard's part."""
+    return x if axis.size == 1 else _CopyToAxis.apply(x, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """Megatron's "reduce from mp": the sum over ``axis`` of a
+    row-parallel layer's partial outputs. The backward passes the
+    (replicated) gradient to every rank's part unchanged."""
+    return x if axis.size == 1 else _ReduceFromAxis.apply(x, axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.all_to_all(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_to_all(g.contiguous()), None
+
+
+def all_to_all(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """:meth:`AxisGroup.all_to_all`, differentiable: an exchange of equal
+    blocks is its own transpose, so the backward sends the gradients'
+    blocks back the same way."""
+    return x if axis.size == 1 else _AllToAll.apply(x, axis)
 
 
 class _SeqShard(torch.autograd.Function):

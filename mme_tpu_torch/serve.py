@@ -114,8 +114,10 @@ class Predictor:
     the CPU. ``param_dtype=torch.bfloat16`` stores the weights in bf16 —
     half the memory; logits and probabilities stay fp32. ``mesh``: serve
     across its ranks, each computing its rows of every chunk along
-    ``batch_axis`` (every rank holds the same weights and makes the same
-    calls); the results are gathered to every rank."""
+    ``batch_axis`` (every rank holds the same weights, or under tensor
+    parallelism its blocks of them, and makes the same calls: the ranks of
+    the ``mp`` axis compute the same rows together); the results are
+    gathered to every rank."""
 
     def __init__(self, model: nn.Module, batch_size: int = 8,
                  device: DeviceLike = "cuda",

@@ -24,6 +24,7 @@ from mme_tpu_torch.ops.video import (balanced_keep_mask,
                                      normalize_uint8_video,
                                      uniform_keep_mask)
 from mme_tpu_torch.parallel.mesh import Mesh
+from mme_tpu_torch.parallel.sharding_rules import shard_model
 from mme_tpu_torch.train.schedules import cosine_warm_restarts
 from mme_tpu_torch.train.steps import (TrainState, make_eval_step,
                                        make_optimizer, make_train_step)
@@ -126,19 +127,24 @@ def build_tav(spec: TAVSpec, cfg: ExperimentConfig, steps_per_epoch: int,
     activation hogs: 24 layers of about 300 frames, 12 layers of 1464
     tokens); False none. The conv feature extractor's remat follows the
     audio encoder's or ``spec.audio.remat_conv``. ``mesh``: the steps
-    split the batch over its ``dp`` axis (``train/steps.py``)."""
+    split the batch over its ``dp`` axis (``train/steps.py``), and the
+    weights are cut over its ``mp`` axis (``parallel/sharding_rules.py::
+    shard_model``) before the optimizer state is made."""
     dev = resolve_device(device)
     spec = _with_remat(spec, remat)
     model = TAVModel(spec, device=dev)
     if params is None:
         params = init_params(spec, cfg.seed)
     model.load_state_dict(from_flax(params), strict=True)
+    views = factored_views(model)
+    if mesh is not None:
+        shard_model(model, mesh)
 
     tx = make_optimizer(
         cosine_warm_restarts(cfg.learning_rate, cfg.T_max, steps_per_epoch),
         cfg.weight_decay, cfg.clip,
         modality_embedding_trainable_mask(model, spec.learn_pos_embeddings),
-        factored_views=factored_views(model))
+        factored_views=views)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     state = TrainState.create(model.parameters(), tx, use_accum=use_accum,
                               generator=gen)

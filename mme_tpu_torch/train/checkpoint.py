@@ -36,6 +36,14 @@ In a multi-process run (``parallel/distributed.py``) the ranks share the
 directory and hold the same state: only rank 0 writes (best saves, the
 latest slot, the meta files), and a restore first lets rank 0 publish its
 write, then waits at a barrier, then reads on every rank.
+
+Under tensor or expert parallelism a rank holds blocks of the cut leaves
+(``parallel/sharding_rules.py``). A checkpoint holds whole tensors, as
+JAX's orbax writes global arrays: every rank takes part in gathering the
+blocks of the parameters, their moments and the accumulation buffer, and
+rank 0 writes. A restore reads the whole tensors and copies each rank's
+block of a cut leaf into it, so a checkpoint written at mp=2 restores at
+mp=1 and the reverse.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from torch.utils.serialization import config as serialization_config
 
 from mme_tpu_torch.parallel import distributed
 from mme_tpu_torch.parallel.mesh import barrier
+from mme_tpu_torch.parallel.sharding_rules import full_tensor, shard_of
 from mme_tpu_torch.train.steps import TrainState
 
 STATE_FILE = "state.pt"
@@ -88,19 +97,28 @@ def _opt_list(x: Optional[List[Any]]) -> Optional[List[Any]]:
     return None if x is None else list(x)
 
 
+def _whole(xs: Optional[List[Any]], shards) -> Optional[List[Any]]:
+    if xs is None:
+        return None
+    return [None if x is None else full_tensor(x, s)
+            for x, s in zip(xs, shards)]
+
+
 def state_payload(state: TrainState) -> Dict[str, Any]:
-    """The state as plain dicts, lists, ints and its own tensors; the
+    """The state as plain dicts, lists, ints and its own tensors (a cut
+    leaf's gathered whole: a collective every rank of its axis calls); the
     ``buffers`` entry only for a state that has buffers."""
     o = state.opt_state
+    shards = [shard_of(p) for p in state.params]
     payload = {
         "step": int(state.step),
-        "params": dict(zip(_names(state),
-                           (p.detach() for p in state.params))),
+        "params": dict(zip(_names(state), _whole(
+            [p.detach() for p in state.params], shards))),
         "opt_state": {"count": int(o.count), "seed": int(o.seed),
-                      "mu": list(o.mu), "nu": list(o.nu),
+                      "mu": _whole(o.mu, shards), "nu": _whole(o.nu, shards),
                       "nu_row": _opt_list(o.nu_row),
                       "nu_col": _opt_list(o.nu_col)},
-        "accum_grads": _opt_list(state.accum_grads),
+        "accum_grads": _whole(state.accum_grads, shards),
         "accum_count": int(state.accum_count),
     }
     if state.buffers is not None:
@@ -125,7 +143,10 @@ def _cuda_device(obj: Any) -> Optional[torch.device]:
     return next((d for d in found if d.type == "cuda"), None)
 
 
-def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
+def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str,
+               shard=None) -> None:
+    if shard is not None:
+        src = shard.local(src)     # this rank's block of the whole tensor
     if dst.shape != src.shape or dst.dtype != src.dtype:
         raise ValueError(
             f"checkpoint {what}: {tuple(src.shape)} {src.dtype} does not fit "
@@ -134,8 +155,8 @@ def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
 
 
 def _copy_list(dst: Optional[List[Optional[torch.Tensor]]],
-               src: Optional[List[Optional[torch.Tensor]]], what: str
-               ) -> None:
+               src: Optional[List[Optional[torch.Tensor]]], what: str,
+               shards=None) -> None:
     if (dst is None) != (src is None) or (
             dst is not None and len(dst) != len(src)):
         raise ValueError(f"checkpoint {what} does not match the target's")
@@ -144,7 +165,8 @@ def _copy_list(dst: Optional[List[Optional[torch.Tensor]]],
             raise ValueError(f"checkpoint {what}[{i}] does not match the "
                              "target's")
         if d is not None:
-            _copy_into(d, s, f"{what}[{i}]")
+            _copy_into(d, s, f"{what}[{i}]",
+                       None if shards is None else shards[i])
 
 
 def load_payload(state: TrainState, payload: Dict[str, Any]) -> TrainState:
@@ -161,21 +183,25 @@ def load_payload(state: TrainState, payload: Dict[str, Any]) -> TrainState:
             buffers is not None and list(buffers) != list(state.buffers)):
         raise ValueError("checkpoint buffers differ from the target's")
     o, so = state.opt_state, payload["opt_state"]
+    shards = [shard_of(p) for p in state.params]
     with torch.no_grad():
-        for p, name in zip(state.params, names):
-            _copy_into(p, saved[name], f"parameter {name}")
+        for p, name, sh in zip(state.params, names, shards):
+            _copy_into(p, saved[name], f"parameter {name}", sh)
         for name, b in (state.buffers or {}).items():
             _copy_into(b, buffers[name], f"buffer {name}")
-        for key in ("mu", "nu", "nu_row", "nu_col"):
+        for key in ("mu", "nu"):
+            _copy_list(getattr(o, key), so[key], key, shards)
+        for key in ("nu_row", "nu_col"):
             _copy_list(getattr(o, key), so[key], key)
         accum = payload["accum_grads"]
         if accum is None:
             state.accum_grads = None
         elif state.accum_grads is None:
-            state.accum_grads = [a.to(p.device).clone()
-                                 for a, p in zip(accum, state.params)]
+            state.accum_grads = [
+                (a if sh is None else sh.local(a)).to(p.device).clone()
+                for a, p, sh in zip(accum, state.params, shards)]
         else:
-            _copy_list(state.accum_grads, accum, "accum_grads")
+            _copy_list(state.accum_grads, accum, "accum_grads", shards)
     o.count, o.seed = int(so["count"]), int(so["seed"])
     state.step = int(payload["step"])
     state.accum_count = int(payload["accum_count"])
@@ -194,6 +220,13 @@ def _snapshot(state: TrainState
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(dev))
     return payload, done
+
+
+def _gather_only(state: TrainState) -> None:
+    """A rank that does not write still takes part in gathering the cut
+    leaves rank 0 writes."""
+    if any(shard_of(p) is not None for p in state.params):
+        state_payload(state)
 
 
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -358,6 +391,7 @@ class CheckpointManager:
         the next steps, and the pointer flips at the next :meth:`wait`."""
         if not self._writes:
             self._noted_best = True
+            _gather_only(state)
             return
         self.wait()  # the previous write lands and its meta publishes
         name = None
@@ -392,6 +426,7 @@ class CheckpointManager:
     def save_latest(self, state: TrainState, meta: Dict[str, Any]) -> None:
         """Write the state into the latest slot, durable before return."""
         if not self._writes:
+            _gather_only(state)
             return
         self.wait()
         _write(*_snapshot(state), self.latest_path)

@@ -42,6 +42,7 @@ import torch
 
 from mme_tpu_torch.ops import adam_update
 from mme_tpu_torch.ops.adam_update import sr_bf16
+from mme_tpu_torch.parallel.sharding_rules import shard_of, shard_sum
 
 
 def _noise_words(shape, generator: Optional[torch.Generator],
@@ -69,19 +70,29 @@ def stochastic_round_bf16_pair(a: torch.Tensor, b: torch.Tensor,
     return sr_bf16(a, words & 0xFFFF), sr_bf16(b, words >> 16)
 
 
-def global_norm_f32(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm_f32(tensors: Sequence[torch.Tensor],
+                    shards=None) -> torch.Tensor:
     """Global L2 norm with fp32 accumulation whatever the leaves' dtype (a
-    bf16 sum over hundreds of millions of elements is useless)."""
+    bf16 sum over hundreds of millions of elements is useless).
+    ``shards``: one ``parallel/sharding_rules.py::Shard`` or None per
+    tensor; a cut tensor's squares are summed over its axis and a
+    replicated one counts once, so every rank gets the whole model's
+    norm."""
     norms = [torch.linalg.vector_norm(x, dtype=torch.float32)
              for x in tensors]
+    if shards is not None and any(s is not None for s in shards):
+        whole = [n for n, s in zip(norms, shards) if s is None]
+        cut = [n.square() for n, s in zip(norms, shards) if s is not None]
+        norms = whole + [shard_sum(cut, [s for s in shards if s is not None]
+                                   ).sqrt()]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm_f32(grads: Sequence[torch.Tensor], max_norm: float
-                            ) -> List[torch.Tensor]:
+def clip_by_global_norm_f32(grads: Sequence[torch.Tensor], max_norm: float,
+                            shards=None) -> List[torch.Tensor]:
     """Gradients scaled by ``min(1, max_norm / max(norm, 1e-16))``, each in
-    its own dtype (new tensors)."""
-    scale = torch.clamp(max_norm / torch.clamp(global_norm_f32(grads),
+    its own dtype (new tensors); ``shards`` as :func:`global_norm_f32`."""
+    scale = torch.clamp(max_norm / torch.clamp(global_norm_f32(grads, shards),
                                                min=1e-16), max=1.0)
     return [(g.float() * scale).to(g.dtype) for g in grads]
 
@@ -160,6 +171,10 @@ class Optimizer:
         return AdamWState(count=0, mu=zeros(), nu=zeros(), seed=seed)
 
     def _init_factored(self, params, live) -> AdamWState:
+        if any(shard_of(p) is not None for p in params):
+            # a cut leaf's row and column sums would need its axis' sums
+            raise NotImplementedError(
+                "MME_OPT_STATE=factored with tensor or expert parallelism")
         mu, nu, rows, cols = [], [], [], []
         for i, p in enumerate(params):
             view = self._view(i, p) if i in live else None
@@ -187,7 +202,9 @@ class Optimizer:
         advanced. ``generator`` feeds the stochastic rounding of unfused
         bf16 leaves."""
         live = self._live(len(params))
-        clipped = clip_by_global_norm_f32([grads[i] for i in live], self.clip)
+        clipped = clip_by_global_norm_f32(
+            [grads[i] for i in live], self.clip,
+            [shard_of(params[i]) for i in live])
         lr = self.lr_schedule(state.count)       # optax: the count before
         count = state.count + 1
         bc1 = 1.0 - self.b1 ** count

@@ -30,10 +30,16 @@ statistics and the MoE router's fractions are the global batch's and the
 random draws are the global batch's rows. Every rank back-propagates that
 replicated loss; the ranks' gradients sum to dp times the global gradient
 (``mesh.all_reduce_sum``), and the ranks of an sp axis hold equal ones, so
-the step averages them over every rank of the mesh before the norm, the
-clip and the update (K3 included), which then run unchanged on each rank's
-replica, on the same bits. The confusion matrix is all-reduced; the
-eval step's predictions are gathered in rank order.
+the step averages them over every rank of the mesh but those of ``mp``
+(``parallel/sharding_rules.py::sync_grads``) before the norm, the clip and
+the update (K3 included), which then run unchanged on each rank's
+replica, on the same bits. Under tensor parallelism a rank holds blocks of
+the cut leaves (``sharding_rules.shard_model``): their gradients are
+blocks too, and every norm sums a cut leaf's squares over its axis and
+counts a replicated leaf once (``sharding_rules.shard_sum``), so the norm,
+the clip and the logged norms and histograms are the unsharded model's.
+The confusion matrix is all-reduced; the eval step's predictions are
+gathered in rank order.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ from torch import nn
 
 from mme_tpu_torch.evals.metrics import confusion_matrix
 from mme_tpu_torch.parallel.mesh import Mesh, batch_reduction
+from mme_tpu_torch.parallel.sharding_rules import (shard_of, shard_sum,
+                                                   sync_grads)
 from mme_tpu_torch.train.losses import cross_entropy
 from mme_tpu_torch.train.optim import (AdamWState, Optimizer, View, adamw,
                                        adamw_factored, adamw_lowmem,
@@ -105,17 +113,21 @@ HIST_BUCKETS = 17  # bucket 0: exact zeros; 1..16: |x| exponent ranges
 
 
 def magnitude_histogram(tensors: Union[torch.Tensor,
-                                       Sequence[torch.Tensor]]
-                        ) -> torch.Tensor:
+                                       Sequence[torch.Tensor]],
+                        shards=None) -> torch.Tensor:
     """17-bucket magnitude histogram (int32) over every element of a tensor
     or a list of tensors.
 
     Bucket 0 counts exact zeros; bucket ``i`` (1..16) counts elements with
     ``floor(log2 |x|)`` in ``[-40 + 3(i-1), -40 + 3i)`` (clipped at the
     ends), about 1e-12 to 3e2. Non-finite elements (NaN, ±Inf) count in the
-    top bucket: an exploding tensor must not read as an underflowing one."""
+    top bucket: an exploding tensor must not read as an underflowing one.
+    ``shards``: one ``sharding_rules.Shard`` or None per tensor; a cut
+    tensor's counts are summed over its axis (the whole tensor's)."""
     if isinstance(tensors, torch.Tensor):
         tensors = [tensors]
+    if shards is not None and any(s is not None for s in shards):
+        return shard_sum([magnitude_histogram(t) for t in tensors], shards)
     x = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     finite = torch.isfinite(x)
     nz = x != 0
@@ -250,33 +262,34 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
         if mesh is not None and mesh.size > 1:
-            # over every rank: the dp ranks' partial gradients sum to dp
-            # times the global one, and the sp ranks' are equal; the mean
-            # keeps every replica on the same bits
-            world = mesh.world
-            grads = [g.div_(world.size)
-                     for g in world.all_reduce_many(grads)]
+            # the dp ranks' partial gradients sum to dp times the global
+            # one, and the sp ranks' are equal; the mean keeps every
+            # replica on the same bits
+            grads = sync_grads(grads, params, mesh)
         if grads_dtype is not None:
             grads = [g.to(grads_dtype) if g.dtype == torch.float32 else g
                      for g in grads]
-        grad_norm = global_norm_f32(grads)
+        shards = [shard_of(p) for p in params]
+        grad_norm = global_norm_f32(grads, shards)
         if log_module_norms or log_histograms:
             grad_norm = {"total": grad_norm}
             groups = _module_groups(model, params)
             with torch.no_grad():
                 for k, idx in groups.items():
                     grad_norm[f"grad/{k}"] = global_norm_f32(
-                        [grads[i] for i in idx])
+                        [grads[i] for i in idx], [shards[i] for i in idx])
                 for k, idx in groups.items():
                     grad_norm[f"param/{k}"] = global_norm_f32(
-                        [params[i] for i in idx])
+                        [params[i] for i in idx], [shards[i] for i in idx])
                 if log_histograms:
                     for k, idx in groups.items():
                         grad_norm[f"hist/grad/{k}"] = magnitude_histogram(
-                            [grads[i] for i in idx])
+                            [grads[i] for i in idx],
+                            [shards[i] for i in idx])
                     for k, idx in groups.items():
                         grad_norm[f"hist/param/{k}"] = magnitude_histogram(
-                            [params[i] for i in idx])
+                            [params[i] for i in idx],
+                            [shards[i] for i in idx])
 
         if state.accum_grads is None:
             tx.update(params, grads, state.opt_state, gen)

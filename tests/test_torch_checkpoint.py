@@ -331,5 +331,5 @@ def test_chip_smoke_loop_phase_runs_on_the_cpu(tmp_path, monkeypatch):
                                share_audio_frontend=True)
     out = chip_smoke.loop_run(init_params(spec, 0), spec, "cpu",
                               str(tmp_path), text_len=16, audio_len=2000)
-    assert out["epochs"] == [0, 0, 1, 1]
+    assert out["epochs"] == [0, 1]          # one log point an epoch
     assert out["saved_states_stripped"] and not out["round_trip_diff"]

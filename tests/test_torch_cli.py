@@ -160,17 +160,18 @@ def test_main_prints_reference_keyed_dicts(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("case", [
-    ("env", "MME_MESH", "unmeshed"), ("env", "MME_MP", "part two"),
+    ("env", "MME_MESH", "unmeshed"), ("env", "MME_MP", "unmeshed"),
     ("env", "MME_DP", "unmeshed"), ("env", "MME_SP", "not divisible"),
     ("env", "MME_PP", "part two"),
     ("env", "MME_COORDINATOR", "MME_PROCESS_ID"),
     ("env", "MME_NUM_PROCESSES", "MME_PROCESS_ID"),
     ("env", "MME_PRETRAINED", None)])
 def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch, capsys):
-    """Of ROADMAP Queue 1 item 7's knobs only part two's raise
-    ``NotImplementedError`` before any work (``MME_MP``, ``MME_PP``). On one
-    process ``MME_MESH=on`` and ``MME_DP`` run unmeshed, as JAX does on one
-    device; ``MME_SP=2`` cannot split one rank (``ValueError``), and half
+    """Of ROADMAP Queue 1 item 7's knobs only ``MME_PP`` (pp, the rest of
+    part two) raises ``NotImplementedError`` before any work. On one
+    process ``MME_MESH=on``, ``MME_DP`` and ``MME_MP=2`` run unmeshed, as
+    JAX does on one device; ``MME_SP=2`` cannot split one rank
+    (``ValueError``), and half
     of the multi-process env contract raises ``ValueError`` naming what is
     missing. ``MME_PRETRAINED`` naming no directory loads nothing and raises
     nothing, as in JAX (tests/test_torch_pretrained.py loads)."""

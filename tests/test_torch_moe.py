@@ -252,6 +252,18 @@ def test_no_aux_is_carried_across_forwards(encoder_ref):
 
 
 def test_expert_parallel_axis_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MoEMlp(EncoderSpec(hidden=8, intermediate=16),
-               MoESpec(ep_axis="ep"), device="cpu")
+    """``ep_axis`` without a mesh raises nothing and runs the unsharded
+    layer, as JAX's does outside a mesh (tests/test_torch_expert_parallel.py
+    holds it cut over two ranks)."""
+    spec = EncoderSpec(hidden=8, intermediate=16)
+    plain = MoEMlp(spec, MoESpec(), device="cpu")
+    layer = MoEMlp(spec, MoESpec(ep_axis="ep"), device="cpu")
+    assert layer.ep is None
+    with torch.no_grad():
+        for p in plain.parameters():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                .manual_seed(p.numel())))
+        layer.load_state_dict(plain.state_dict())
+        x = torch.randn(2, 5, 8, generator=torch.Generator().manual_seed(1))
+        got, want = layer.eval()(x), plain.eval()(x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

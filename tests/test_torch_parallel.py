@@ -30,6 +30,15 @@ rank-side functions import no JAX: the workers import this file by path.
   the video tower) and under the auto dp mesh, each against its
   single-rank run, as tests/test_sp_pp_training.py holds JAX's: the test
   loss within 2e-3 and the same confusion matrix.
+- The loop's other paths under dp=2 against one rank, on a net over
+  ragged waveforms with dialog ids: three epochs, the second with dialog
+  accumulation, with and without ``BucketedBatchIter`` (as
+  tests/test_bucketed_training.py:100 holds JAX's bucketed dp run): the
+  number of steps and the final parameters (fp32 sums in another order:
+  1e-5). And ``resume`` under dp: a run stopped by SIGTERM on rank 0 in
+  the accumulation epoch (``agree`` stops both ranks, rank 0 writes
+  ``latest``), then resumed from ``latest`` after the barrier, ends on
+  the parameters of the uninterrupted dp run bit for bit.
 """
 
 import os
@@ -221,6 +230,97 @@ def rank_cli(directory, env):
             else:
                 os.environ[k] = v
     return s["test/loss"], np.asarray(s["test/confusion_matrix"])
+
+
+# the loop's net and data: ragged waveforms of up to 64 samples, dialogs
+# of 4, length buckets at these bounds
+LOOP_BOUNDS = (24, 40, 64)
+
+
+def _seq_data(n, seed):
+    from mme_tpu_torch.data.dataset import ArrayDataset
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 3, n)
+    lengths = rng.randint(8, 65, n)
+    mask = (np.arange(64)[None] < lengths[:, None]).astype(np.int32)
+    wave = ((rng.randn(n, 64) + labels[:, None]) * mask).astype(np.float32)
+    return ArrayDataset({"waveform": wave, "audio_mask": mask},
+                        labels.astype(np.int64),
+                        dialog_ids=np.arange(n) // 4)
+
+
+class SeqNet(torch.nn.Module):
+    """Masked mean and mean square of a waveform and its length → Dense."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc = Dense(3, 3, device="cpu")
+        with torch.no_grad():
+            self.fc.weight.copy_(torch.from_numpy(
+                np.random.RandomState(2).randn(3, 3).astype(np.float32)))
+            self.fc.bias.zero_()
+
+    def forward(self, batch, rng=None):
+        w, m = batch["waveform"], batch["audio_mask"].float()
+        n = m.sum(1).clamp(min=1.0)
+        return self.fc(torch.stack([(w * m).sum(1) / n,
+                                    (w * w * m).sum(1) / n, n / 64], -1))
+
+
+def loop_run(directory, dp, bucketed, sigterm_at=0, resume=False):
+    """``train_network`` on ``SeqNet`` for three epochs (the second with
+    dialog accumulation), under a dp=2 mesh or on one process, with or
+    without length buckets; ``sigterm_at``: rank 0 sends itself SIGTERM
+    at that batch-transform call. Returns the final parameters, the
+    number of train steps and the last log."""
+    import signal
+
+    from mme_tpu_torch.config import ExperimentConfig
+    from mme_tpu_torch.data.dataset import BucketedBatchIter
+    from mme_tpu_torch.evals.metrics import Metrics
+    from mme_tpu_torch.parallel import distributed
+    from mme_tpu_torch.parallel.mesh import make_mesh
+    from mme_tpu_torch.train import loop
+    from mme_tpu_torch.train.losses import class_weights_from_counts
+    from mme_tpu_torch.train.policies import sample_weights_from_labels
+    from mme_tpu_torch.train.schedules import cosine_warm_restarts
+    from mme_tpu_torch.train.steps import make_eval_step
+    torch.set_num_threads(1)
+    mesh = make_mesh(2, 1) if dp else None
+    cfg = ExperimentConfig(batch_size=8, epoch=3, log_val=3, patience=10,
+                           learning_rate=0.05, checkpoint_dir=directory)
+    train_ds, val_ds = _seq_data(48, 0), _seq_data(16, 1)
+    model = SeqNet()
+    tx = make_optimizer(cosine_warm_restarts(cfg.learning_rate, cfg.T_max,
+                                             6), 0.0, 1.0,
+                        state_dtype="fp32")
+    state = TrainState.create(model.parameters(), tx, use_accum=False,
+                              names=[k for k, _ in model.named_parameters()])
+    step = make_train_step(model, tx, num_classes=3, mesh=mesh)
+    calls, transforms, logs = [], [], []
+
+    def counted(*a):
+        calls.append(1)
+        return step(*a)
+
+    def transform(rng, batch):
+        transforms.append(1)
+        if len(transforms) == sigterm_at and distributed.rank() == 0:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return batch
+
+    cw = class_weights_from_counts(np.bincount(train_ds.labels,
+                                               minlength=3))
+    loop.train_network(
+        counted, make_eval_step(model, num_classes=3, mesh=mesh), state,
+        train_ds, val_ds, cfg, Metrics(3, {0: "a", 1: "b", 2: "c"}), cw,
+        sample_weights_from_labels(train_ds.labels, cw), 0,
+        batch_transform=transform,
+        callbacks=loop.LoopCallbacks(log=logs.append), resume=resume,
+        batch_iter=BucketedBatchIter(LOOP_BOUNDS) if bucketed else None,
+        mesh=mesh)
+    return ([p.detach().numpy().copy() for p in model.parameters()],
+            sum(calls), logs[-1])
 
 
 # ------------------------------ parent side ------------------------------
@@ -429,3 +529,36 @@ def test_cli_under_sp_and_dp_matches_single_rank(pool, tmp_path):
             assert abs(loss - want[0]) < 2e-3, (tag, loss, want[0])
             np.testing.assert_array_equal(cm, want[1])
         assert (d / "checkpoints" / "best_meta.json").exists()
+
+
+@pytest.mark.parametrize("bucketed", [False, True],
+                         ids=["plain", "bucketed"])
+def test_dp_loop_with_dialog_accumulation_matches_single_rank(
+        pool, tmp_path, bucketed):
+    want, n_want, _ = loop_run(str(tmp_path / "one"), False, bucketed)
+    ranks = pool.run(f"{HERE}:loop_run", str(tmp_path / "dp"), True,
+                     bucketed)
+    for params, n, last in ranks:
+        assert n == n_want
+        for a, b in zip(params, want):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    # the replicas agree bit for bit
+    for a, b in zip(ranks[0][0], ranks[1][0]):
+        assert np.array_equal(a, b)
+
+
+def test_dp_resume_ends_where_an_uninterrupted_dp_run_does(pool, tmp_path):
+    """SIGTERM at rank 0's 12th batch-transform call: epoch 1's second
+    step (epoch 0 takes 6 for its steps and 4 for its two validations of
+    2 batches), not a log point."""
+    whole = pool.run(f"{HERE}:loop_run", str(tmp_path / "whole"), True,
+                     False)
+    cut = str(tmp_path / "cut")
+    first = pool.run(f"{HERE}:loop_run", cut, True, False, 12)
+    for _, _, last in first:
+        assert last["preempted"] is True and last["epoch"] == 1
+    rest = pool.run(f"{HERE}:loop_run", cut, True, False, 0, True)
+    for r in range(2):
+        assert first[r][1] + rest[r][1] == whole[r][1]
+        for a, b in zip(rest[r][0], whole[r][0]):
+            assert np.array_equal(a, b)
