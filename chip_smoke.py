@@ -89,7 +89,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        step beside leg (3)'s (profiler);
    (5) the same state with ``MME_FUSED_LN=1 MME_FUSED_MLP=1``: launches per
        step, ms per step, the split and peak memory beside leg (3)'s.
-6. The training loop at full width: phase 5's weights in a fresh bf16
+6. The training loop at full width and cut depth: phase 5's weights of
+   every tower's and the trunk's first ``LOOP_DEPTH`` (6) layers (text 6,
+   audio 6 of 24, video 6 of 12, fusion 6 of 12: 24 attention layers,
+   half the weights) in a fresh bf16
    ``TAVModel`` (dropout 0.1, shared audio frontend) through the CLI's
    ``cli/common.py::run_classifier`` with ``MME_OPT_STATE=bf16
    MME_FUSED_ADAM=1`` on synthetic records (70 tokens, 96 000 samples, a
@@ -98,15 +101,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    in a temporary directory deleted at the end. Epoch 0 runs the weighted
    sampler and plain loss; epoch 1 runs in order with class weights and
    dialog accumulation (dialogs of 16: two batches per update). Checks:
-   finite losses in both epochs; 54 K1 launches per train step and eval
-   batch, 54 K2 per train step, one K3 per applied update (3 for 4
+   finite losses in both epochs; 24 K1 launches per train step and eval
+   batch, 24 K2 per train step, one K3 per applied update (3 for 4
    steps); no saved state carries the accumulation buffer; the best
    checkpoint restored into fresh tensors equals the state the loop
    returned bit for bit; a save followed by a train step before its
    ``wait()`` still restores the state of the save (the step rewrites
    parameters and moments in place); ``MME_EVAL_ONLY=1`` on the same
    directory reproduces the test matrix and loss. Prints the loop's
-   utterances per second beside leg (4)'s bare step, peak memory,
+   utterances per second, peak memory,
    checkpoint size, the host ms of each save's blocking part, of each
    ``wait()`` and of each restore, free disk space and the phase's time;
    the training run goes under ``torch.profiler`` (device activity only)
@@ -114,7 +117,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    sets ``MME_PREDICT_OUT`` and ``MME_EXPORT_BUNDLE`` to a temporary
    directory: phase 7's first leg.
 7. The serving front ends at full width, on phase 6's trained model (bf16
-   compute over fp32 weights, batch 8):
+   compute over fp32 weights, batch 8, 24 attention layers):
    (1) the eval-only run's exports: one prediction row per test utterance,
        probabilities summing to 1; a bundle whose program calls K1 as the
        operator ``mme_tpu_torch::flash_fwd``; export, save and load
@@ -123,17 +126,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        4's requests (video normalised, fixed keep-masks) against a live
        ``Predictor`` on the bundle's weights: probabilities within
        ``SERVE_TOL[bf16]``, predictions equal where the top-2 margin
-       exceeds it, 54 K1 launches per chunk and no other kernel; ms per
-       batch of 8 of both;
-   (3) a second bundle exported with ``MME_FUSED_LN=1 MME_FUSED_MLP=1``,
-       served with the knobs unset: K1, K5a (54 each) and K4a (the spec's
-       count) per chunk through the operators, against the live model;
+       exceeds it, one K1 launch per attention layer and chunk and no
+       other kernel; ms per batch of 8 of both;
+   (3) a second bundle exported with ``MME_FUSED_LN=1 MME_FUSED_MLP=1``
+       from the served model cut to its first ``P7_KNOBS_DEPTH`` (2)
+       layers of every tower and the trunk (full width, a 0.8 GB bundle),
+       served with the knobs unset: K1, K5a (8 each)
+       and K4a (the cut spec's count) per chunk through the operators,
+       against the cut model served live with the knobs off;
    (4) ``python -m mme_tpu_torch.cli.serve`` on the first bundle in a
        process of its own: ``/healthz`` and one float-video utterance
        against leg (2); then a live ``Predictor`` behind ``make_server`` in
        this process with 3 uint8-video utterances against the Predictor
-       itself. Prints ms per request and request bytes, the phase's time
-       and peak memory; the temporary directory is deleted.
+       itself, one timed request each after a warm-up
+       (``P7_HTTP_REQUESTS``). Prints ms per request and request bytes,
+       the phase's time and peak memory; the temporary directory is
+       deleted.
 8. The rest of the fusion family at full width and depth: ``TAVFormer``,
    ``TAVForMAE2Tower``, ``TAVForW2V2`` and the sparse-MoE ``TAVMoE``, each
    ``TAVSpec(output_dim=7)`` with weights from ``init_params(spec, seed,
@@ -382,8 +390,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        at 4 and 8 rows, bf16 at 8), K5a/K5b at the local F slices (bf16)
        and K3 over the shards' leaves, each against its plain version,
        timed beside it, SDPA or the unfused MLP, with its bound.
-   ``python3 chip_smoke.py --parallel`` runs the build and phases 13 and
-   14 alone, and prints no result lines.
+
+15. Pipeline parallelism on phase 13's two ranks and references: a
+   ``("dp", "pp")`` mesh of dp=1 and pp=2 from ``tav_nn.parallel_spec``
+   (``MME_PP=2``, ``MME_PP_TOWER``, ``MME_PP_MICRO``), every rank holding
+   the whole model and its stage's layers running as a GPipe pipeline
+   (``parallel/pipeline.py``: activations and their gradients between
+   the stages, the last stage's output broadcast, each staged through
+   pinned host memory):
+   (1) fp32 on the fusion trunk (6 of 12 layers a stage), phase 4's first
+       request served across the mesh against (13)(1)'s probabilities
+       (``SERVE_TOL[fp32]``, 54 K1 a chunk at M=2), then one step on the
+       global batch of 4 at M=2 against (13)(1)'s single-rank step: loss
+       and grad norm as phase 5 holds them, every gradient leaf the
+       optimizer is handed (stage leaves summed over pp) within
+       ``P13_GRAD_RTOL`` of its largest element, 54 K1/K2;
+   (2) the same step on the video tower (``MME_PP_TOWER=video``, 1 464
+       tokens) at the global batch of 2 and M=2, against a single-rank
+       step at 2 made on this process with (13)(1);
+   (3) bf16 on the fusion trunk at the global batch of 8, M=4, every
+       knob on: 1 warm-up and 1 timed step, ms, the point-to-point
+       traffic's (the stages' sends and waits and the output's and input
+       gradient's broadcasts) ms, GB and share, the gradient sync's ms and
+       share, the bubble (P - 1) / (M + P - 1), each rank's peak, one
+       step's launches against the count predicted from the spec: K1 =
+       K2 = K5a = K5b = 42 (the towers every rank runs) + 6 M = 66, K4
+       the spec's sites outside the trunk (the trunk's microbatch rows,
+       2 x 473, fall under K4's 1 024-row gate), one K3;
+   (4) back here, K1/K2 at the microbatch shapes (fusion B=2, video B=1)
+       in fp32 and bf16 against their plain versions, timed beside them
+       and SDPA with their bounds.
+   ``python3 chip_smoke.py --parallel`` runs the build and phases 13, 14
+   and 15 alone, and prints no result lines.
 
 Then one JSON line of per-kernel results (seven kernels;
 ``launches_<model>`` gives phases 8, 9 and 10's counts: a served chunk
@@ -394,8 +432,9 @@ others, the MTL's fp32 step, 0 for a model without a train leg;
 ``launches_pretrained`` phase 12's train run, ``launches_parallel_dp``
 a bf16 dp=2 step of rank 0 and ``launches_parallel_sp_{fusion,video}`` a
 fp32 sp=2 training forward and backward of rank 0,
-``launches_parallel_tp`` a bf16 mp=2 step of rank 0 and
-``launches_parallel_ep`` an fp32 ep=2 step of rank 0), before it each
+``launches_parallel_tp`` a bf16 mp=2 step of rank 0,
+``launches_parallel_ep`` an fp32 ep=2 step of rank 0 and
+``launches_parallel_pp`` a bf16 pp=2 step of rank 0), before it each
 phase's seconds (``phase_seconds``), the card's name and power limit, and
 last the line ``{"ok": true, "device": {...}}``.
 
@@ -1733,13 +1772,12 @@ def train_bench(params, card: str):
             and c["layer_norm_fwd"] == c["layer_norm_bwd"] == n_ln
             and c["adam_update"] == 0 for c in counts_k)):
         raise SystemExit("the training leg with both knobs on failed")
-    return counts[-1], counts_f[-1], counts_k[-1], ms_f
+    return counts[-1], counts_f[-1], counts_k[-1]
 
 
 def train_path(card: str):
-    """Phase 5. Returns the flax tree, the launches of one step of the bf16
-    leg, of the fused-Adam leg and of the leg with both knobs on, and the
-    fused-Adam leg's ms per step."""
+    """Phase 5. Returns the flax tree and the launches of one step of the
+    bf16 leg, of the fused-Adam leg and of the leg with both knobs on."""
     t0 = time.perf_counter()
     params = init_params(dataclasses.replace(TAVSpec(output_dim=7),
                                              share_audio_frontend=True), SEED)
@@ -1758,6 +1796,9 @@ def train_path(card: str):
 # (dialog accumulation) applies one update per two batches of 8. Two
 # batches an epoch: both epochs' paths at the least depth
 LOOP_SIZES = ((16, 0), (8, 1), (8, 2))
+# every tower's and the trunk's first layers the loop trains (full width):
+# its checkpoints and phase 7's bundle hold half the weights
+LOOP_DEPTH = 6
 LOOP_DIALOG = 16
 LOOP_CFG = dict(batch_size=8, epoch=2, log_val=2, patience=10,
                 learning_rate=5e-6, mask=True, output_dim=7,
@@ -1989,15 +2030,29 @@ def loop_run(params, spec: TAVSpec, device: str, directory: str,
     return out
 
 
-def train_loop(params, card: str, step_ms: float, front_dir: str
+def tav_layers(spec: TAVSpec) -> int:
+    """Attention layers of a ``TAVModel``: K1 launches per served chunk."""
+    return (spec.text.encoder.layers + spec.audio.encoder.layers
+            + spec.video.encoder.layers + spec.fusion.layers)
+
+
+def cut_tree(tree: dict, shapes: dict) -> dict:
+    """``tree``'s leaves at the paths of ``shapes`` (a flax tree of a
+    model cut by :func:`depth_cut`)."""
+    return {k: cut_tree(tree[k], v) if isinstance(v, dict) else tree[k]
+            for k, v in shapes.items()}
+
+
+def train_loop(params, card: str, front_dir: str
                ) -> Tuple[dict, dict, TAVSpec]:
     """Phase 6 on the card; its eval-only run writes phase 7's prediction
     log and bundle into ``front_dir``. Returns the kernel launches of the
     loop's run, what the eval-only run's exports logged and the spec."""
     t0 = time.perf_counter()
-    spec = dataclasses.replace(
+    spec = depth_cut(dataclasses.replace(
         TAVSpec(output_dim=7, dropout=0.1).with_compute_dtype(torch.bfloat16),
-        share_audio_frontend=True)
+        share_audio_frontend=True), LOOP_DEPTH)
+    params = cut_tree(params, flax_shapes(TAVModel(spec, device="meta")))
     directory = tempfile.mkdtemp(prefix="mme_loop_")
     free_gb = shutil.disk_usage(directory).free / 1e9
     os.environ.update(LOOP_ENV)
@@ -2011,13 +2066,12 @@ def train_loop(params, card: str, step_ms: float, front_dir: str
             del os.environ[k]
         shutil.rmtree(directory, ignore_errors=True)
     n = out["launches"]
-    want = {"flash_fwd": LAUNCHES_PER_CHUNK * (LOOP_STEPS + LOOP_EVAL_BATCHES),
-            "flash_bwd": LAUNCHES_PER_CHUNK * LOOP_STEPS,
+    layers = tav_layers(spec)
+    want = {"flash_fwd": layers * (LOOP_STEPS + LOOP_EVAL_BATCHES),
+            "flash_bwd": layers * LOOP_STEPS,
             "adam_update": LOOP_UPDATES}
     print(json.dumps({"train_loop": {
-        **out, "expected_launches": want,
-        "bare_step_ms_fused_adam": step_ms,
-        "utt_per_s_bare_step": 8e3 / step_ms,
+        **out, "depth": LOOP_DEPTH, "expected_launches": want,
         "max_memory_allocated_gb": peak, "free_disk_gb_before": free_gb,
         "phase_s": time.perf_counter() - t0, "card": card}}), flush=True)
     if any(n.get(k, 0) != v for k, v in want.items()):
@@ -2032,6 +2086,11 @@ def train_loop(params, card: str, step_ms: float, front_dir: str
 # on the host and their own fixed keep-masks, the features a bundle of the
 # TAV model takes
 ROWS_FILE = "predictions.jsonl"
+# (3)'s knobs-on bundle: the served model cut to its first layers in every
+# tower and the trunk (full width), enough to show K1, K4a and K5a served
+# through the operators; (4)'s timed HTTP requests after one warm-up
+P7_KNOBS_DEPTH = 2
+P7_HTTP_REQUESTS = 1
 HTTP_TIMEOUT_S = 300
 
 
@@ -2113,6 +2172,18 @@ def stop_daemon(proc: subprocess.Popen) -> None:
             proc.wait()
 
 
+def depth_cut(spec: TAVSpec, layers: int) -> TAVSpec:
+    """``spec`` with every tower's encoder and the fusion trunk cut to
+    ``layers`` layers (their first ones; the widths stay)."""
+    def cut(e):
+        return dataclasses.replace(e, layers=min(layers, e.layers))
+    return dataclasses.replace(
+        spec, fusion=cut(spec.fusion),
+        **{t: dataclasses.replace(getattr(spec, t),
+                                  encoder=cut(getattr(spec, t).encoder))
+           for t in ("text", "audio", "video")})
+
+
 def front_ends(card: str, spec: TAVSpec, front_dir: str,
                exports: dict) -> dict:
     """Phase 7. ``front_dir`` holds phase 6's prediction log and bundle,
@@ -2169,23 +2240,33 @@ def front_ends(card: str, spec: TAVSpec, front_dir: str,
     per_chunk = {k: v // chunks for k, v in count.items() if v}
     out["bundle_launches_per_chunk"] = per_chunk
     print(f"front ends (2): {chunks} chunks through the bundle, launches "
-          f"{count} (expected {LAUNCHES_PER_CHUNK * chunks} flash_fwd); "
+          f"{count} (expected {tav_layers(spec) * chunks} flash_fwd); "
           f"max|probs - probs(live)| = {diff:.3e} (tol {tol}), predictions "
           f"agree {same}; ms per batch of 8: bundle "
           f"{out['bundle_ms_per_batch_of_8']:.1f}, live "
           f"{out['live_ms_per_batch_of_8']:.1f}", flush=True)
     if not (same and diff <= tol
-            and count["flash_fwd"] == LAUNCHES_PER_CHUNK * chunks
+            and count["flash_fwd"] == tav_layers(spec) * chunks
             and sum(count.values()) == count["flash_fwd"]):
         raise SystemExit("the bundle did not serve as the live model")
 
     # (3) a second bundle exported with both knobs on: K1, K4a and K5a
-    # through the operators
+    # through the operators, from the served model cut to its first
+    # P7_KNOBS_DEPTH layers of every tower and the trunk, against that
+    # cut model served live with the knobs off
+    cut_spec = depth_cut(spec, P7_KNOBS_DEPTH)
+    cut = TAVModel(cut_spec, device="cuda")
+    whole = model.state_dict()
+    cut.load_state_dict({k: whole[k] for k in cut.state_dict()}, strict=True)
+    del whole
+    want_cut = [Predictor(cut, batch_size=8, device="cuda")(r) for r in reqs]
     knobs_bundle = os.path.join(front_dir, "bundle_knobs_on")
     with knobs_on():
-        info = export_bundle(model, reqs[0], knobs_bundle, batch_size=8,
+        info = export_bundle(cut, reqs[0], knobs_bundle, batch_size=8,
                              device="cuda")
-    out["knobs_on"] = {"export_s": info["export_s"], "save_s": info["save_s"],
+    del cut
+    out["knobs_on"] = {"depth": P7_KNOBS_DEPTH,
+                       "export_s": info["export_s"], "save_s": info["save_s"],
                        "bundle_gb": info["bytes"] / 1e9}
     served_on = load_bundle(knobs_bundle, device="cuda")
     out["knobs_on"]["load_s"] = served_on.load_s
@@ -2195,17 +2276,18 @@ def front_ends(card: str, spec: TAVSpec, front_dir: str,
     got_on = [served_on(r) for r in reqs]
     torch.cuda.synchronize()
     count_on = dict(kernels.LAUNCHES)
-    diff_on, same_on = served_diff(got_on, want, tol)
-    ln_per_chunk = sum(fused_ln_shapes(spec, 8).values())
-    expect_on = {"flash_fwd": LAUNCHES_PER_CHUNK * chunks,
-                 "fused_mlp_fwd": LAUNCHES_PER_CHUNK * chunks,
+    diff_on, same_on = served_diff(got_on, want_cut, tol)
+    ln_per_chunk = sum(fused_ln_shapes(cut_spec, 8).values())
+    expect_on = {"flash_fwd": tav_layers(cut_spec) * chunks,
+                 "fused_mlp_fwd": tav_layers(cut_spec) * chunks,
                  "layer_norm_fwd": ln_per_chunk * chunks}
     knobs_per_chunk = {k: v // chunks for k, v in count_on.items() if v}
     out["knobs_on"].update(launches_per_chunk=knobs_per_chunk,
                            max_abs_vs_live=diff_on, ops=list(served_on.ops))
     (out["knobs_on"]["ms_per_batch_of_8"],
      out["knobs_on"]["times_ms"]) = median_ms(served_on, reqs[0])
-    print(f"front ends (3): knobs-on bundle launches {count_on} (expected "
+    print(f"front ends (3): knobs-on bundle of depth {P7_KNOBS_DEPTH}, "
+          f"launches {count_on} (expected "
           f"{expect_on}); max|probs - probs(live, knobs off)| = "
           f"{diff_on:.3e} (tol {tol}), predictions agree {same_on}",
           flush=True)
@@ -2226,7 +2308,7 @@ def front_ends(card: str, spec: TAVSpec, front_dir: str,
         health = http_json(f"{url}/healthz")
         http_json(f"{url}/predict", body)               # warm-up
         times, answer = [], None
-        for _ in range(3):
+        for _ in range(P7_HTTP_REQUESTS):
             t = time.perf_counter()
             answer = http_json(f"{url}/predict", body)["predictions"]
             times.append((time.perf_counter() - t) * 1e3)
@@ -2249,7 +2331,7 @@ def front_ends(card: str, spec: TAVSpec, front_dir: str,
         url3 = "http://%s:%d" % server.server_address[:2]
         http_json(f"{url3}/predict", body3)             # warm-up
         times3, answer3 = [], None
-        for _ in range(3):
+        for _ in range(P7_HTTP_REQUESTS):
             t = time.perf_counter()
             answer3 = http_json(f"{url3}/predict", body3)["predictions"]
             times3.append((time.perf_counter() - t) * 1e3)
@@ -5260,14 +5342,15 @@ def ring_hop_hold(B: int, L: int, H: int, D: int, dtype, seed: int) -> dict:
 
 
 def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
-    """Phases 13 and 14. Phase 13: the single-rank references on this
+    """Phases 13, 14 and 15. Phase 13: the single-rank references on this
     process, then two ranks on the card (a pool of two processes, gloo):
     the fp32 dp=2 step, bf16 dp=2 steps with every knob, sp=2 on the
     fusion trunk and on the video tower through the CLI path, mesh
     serving; then the ring's hops held on this process at the local shapes
     the ranks fed K1. Phase 14 on the same pool and references: tp and ep
-    (:func:`parallel_axes_two`). ``params``: phase 5's draw of the same
-    tree, used instead of drawing from ``P13_SEED``."""
+    (:func:`parallel_axes_two`); phase 15: pp (:func:`pipeline_axis`).
+    ``params``: phase 5's draw of the same tree, used instead of drawing
+    from ``P13_SEED``."""
     from mme_tpu_torch.parallel.launch import RankPool
     t0 = time.perf_counter()
     _rank_setup()
@@ -5287,16 +5370,28 @@ def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
                                           device="cuda")
         batch, labels, mask, cw = train_inputs(spec, P13_FP32_BATCH,
                                                P13_SEED + 1)
-        grads: dict = {}
-        with _handed_grads(model, grads):
-            _, loss, _, norm = step(state, batch, labels, mask, cw, 1.0,
-                                    True, SEED)
-        ref = {"path": os.path.join(directory, "ref.pt"),
-               "weights": weights, "loss": loss.item(),
-               "grad_norm": float(norm)}
-        torch.save({n: g.cpu() for n, g in grads.items()}, ref["path"])
-        del grads
-        model.load_state_dict(from_flax(params))
+        # the weights as loaded, put back after each step on the card
+        snapshot = [p.detach().clone() for p in state.params]
+
+        def reference(name, inputs, seed):
+            grads: dict = {}
+            state.step = 0
+            with _handed_grads(model, grads):
+                _, loss, _, norm = step(state, *inputs, 1.0, True, SEED)
+            out = {"path": os.path.join(directory, f"{name}.pt"),
+                   "weights": weights, "loss": loss.item(),
+                   "grad_norm": float(norm), "seed": seed}
+            torch.save({n: g.cpu() for n, g in grads.items()}, out["path"])
+            with torch.no_grad():
+                for p, w in zip(state.params, snapshot):
+                    p.copy_(w)
+            return out
+
+        ref = reference("ref", (batch, labels, mask, cw), P13_SEED + 1)
+        # phase 15's video reference: the step at the global batch of 2
+        ref_video = reference("ref_video", train_inputs(spec, 2, P15_SEED),
+                              P15_SEED)
+        del snapshot
         single = Predictor(model, batch_size=8, device="cuda")
         reqs = requests(spec)
         want_probs = [single(r)[1] for r in reqs]
@@ -5320,6 +5415,9 @@ def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
             two = parallel_axes_two(pool, ref, weights, reqs, want_probs,
                                     directory)
             two_s = time.perf_counter() - t
+            t = time.perf_counter()
+            pp = pipeline_axis(pool, ref, ref_video, weights, reqs)
+            pp_s = time.perf_counter() - t
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     local = sorted({q for rs in sp.values()
@@ -5339,7 +5437,8 @@ def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
            "served_prob_max_diff": served_diff,
            "served_launches": [r["launches"] for r in served],
            "ring_hops": holds, "card_gb": total_gb,
-           "phase_s": time.perf_counter() - t0 - two_s, "card": card}
+           "phase_s": time.perf_counter() - t0 - two_s - pp_s,
+           "card": card}
     print(json.dumps({"parallel_axes": {
         **out, "served_probs": None}}), flush=True)
     n_ln = bf16[0]["expected_layer_norm"]
@@ -5382,12 +5481,16 @@ def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
             for r in served)}
     if not all(checks.values()):
         raise SystemExit(f"phase 13 (the parallel axes) failed: {checks}")
-    # phase 14's clock: its calls on the pool, then its checks here
-    two_start = time.perf_counter() - two_s
+    # phases 14 and 15's clocks: their calls on the pool, then their
+    # checks here
+    two = parallel_axes_two_checks(two, ref, reqs, spec, card,
+                                   time.perf_counter() - two_s)
+    refs = {"fusion": ref, "video": ref_video}
     return {"dp": bf16[0]["launches"],
             "sp": {tw: rs[0]["launches_step"] for tw, rs in sp.items()},
-            "two": parallel_axes_two_checks(two, ref, reqs, spec, card,
-                                            two_start)}
+            "two": two,
+            "pp": pipeline_axis_checks(pp, refs, want_probs[:1], reqs, card,
+                                       time.perf_counter() - pp_s)}
 
 
 # phase 14: the parallel axes, part two, on phase 13's two ranks. Tensor
@@ -5409,7 +5512,8 @@ P14_ATTENTION = tuple((name, s, h // P14_MP, n)
 
 class _Collectives:
     """The enclosed calls of one ``AxisGroup`` method, timed: per call
-    its ms (synchronised before and after) and its tensor's bytes."""
+    its ms (synchronised before and after) and its tensor's (or tensor
+    list's) bytes."""
 
     def __init__(self, method: str):
         from mme_tpu_torch.parallel.mesh import AxisGroup
@@ -5426,7 +5530,8 @@ class _Collectives:
             out = plain(axis, t, *args, **kw)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - start) * 1e3)
-            nbytes.append(t.numel() * t.element_size())
+            nbytes.append(sum(x.numel() * x.element_size() for x in (
+                t if isinstance(t, (list, tuple)) else [t])))
             return out
 
         setattr(self.cls, self.method, timed)
@@ -5842,6 +5947,292 @@ def parallel_axes_two_checks(res: dict, ref: dict, reqs: list,
             "shapes": shapes, "phase_s": time.perf_counter() - t0}
 
 
+# phase 15: pipeline parallelism on phase 13's two ranks. A ("dp", "pp")
+# mesh of dp=1 and pp=2: every rank holds the whole model; the chosen
+# tower's layers run as a GPipe pipeline, stage s the layers s·6 … s·6 + 5,
+# microbatch by microbatch (parallel/pipeline.py); activations go to the
+# next stage and their gradients back, the last stage's output and stage
+# 0's input gradient are broadcast, each staged through pinned host memory
+# as phase 13's collectives are
+P15_PP = 2
+P15_SEED = P13_SEED + 150
+# (tower, global batch, microbatches) of the fp32 holds: the fusion trunk
+# against phase 13's single-rank step at 4, the video tower (the K1/K2
+# that cost the most) against a single-rank step at 2
+P15_FP32 = (("fusion", P13_FP32_BATCH, 2), ("video", 2, 2))
+P15_BF16_MICRO = 4
+# (name, microbatch rows, seq, heads, key mask) of the K1/K2 calls a stage
+# makes: the bf16 step's fusion microbatch (8 / 4) and the fp32 video
+# leg's (2 / 2)
+P15_ATTENTION = (("pp_fusion", P13_BF16_BATCH // P15_BF16_MICRO, 473, 12,
+                  True),
+                 ("pp_video", 1, 1464, 12, False))
+
+
+def _pp_spec(tower: str, micro: int, batch: int, dtype=torch.float32,
+             quiet: bool = True):
+    """(spec, mesh) of ``tav_nn.parallel_spec`` with ``MME_PP=2`` on
+    ``tower`` and ``micro`` microbatches, over phase 13's tree."""
+    env = {"MME_PP": str(P15_PP), "MME_PP_TOWER": tower,
+           "MME_PP_MICRO": str(micro)}
+    with environ(env):
+        return tav_nn.parallel_spec(ExperimentConfig(batch_size=batch),
+                                    _p13_spec(dtype, quiet))
+
+
+def pp_expected(spec: TAVSpec, batch: int, micro: int) -> dict:
+    """One pp=2 step's launches on a rank, from the spec: the towers every
+    rank runs whole, and the trunk's own stage once per microbatch (its
+    LayerNorms on a microbatch's rows, under K4's row gate at M=4)."""
+    f = spec.fusion
+    k = f.layers // P15_PP
+    attn = (spec.text.encoder.layers + spec.audio.encoder.layers
+            + spec.video.encoder.layers + k * micro)
+    rows = batch // micro * (70 + audio_frames(spec, 96000)
+                             + spec.video_keep_k)
+    outside = ln_sites(dataclasses.replace(
+        spec, fusion=dataclasses.replace(f, layers=0)), batch)
+    n_ln = sum(fused_ln_sites(outside + [(rows, f.hidden)] * (2 * k * micro))
+               .values())
+    return {"flash_fwd": attn, "flash_bwd": attn, "fused_mlp_fwd": attn,
+            "fused_mlp_bwd": attn, "layer_norm_fwd": n_ln,
+            "layer_norm_bwd": n_ln, "adam_update": 1}
+
+
+def p15_pp_fp32(tower: str, batch: int, micro: int, ref: dict,
+                reqs: list) -> dict:
+    """A rank of the fp32 pp=2 step on ``tower`` through the CLI's
+    ``parallel_spec`` and ``build_tav(mesh=...)``: ``reqs`` served across
+    the mesh first (the step then moves the weights), then one step on the
+    global batch (every rank the whole batch): loss, grad norm and every
+    gradient leaf the optimizer is handed against the single-rank step's
+    at ``ref["path"]``."""
+    from mme_tpu_torch.parallel import distributed
+    from mme_tpu_torch.parallel.sharding_rules import stage_of
+    _rank_setup()
+    t0 = time.perf_counter()
+    spec, mesh = _pp_spec(tower, micro, batch)
+    cfg = ExperimentConfig(batch_size=batch, learning_rate=P13_LR,
+                           text_max_len=70, audio_max_samples=96000)
+    model, state, step, _ = build_tav(spec, cfg, 1000,
+                                      params=_p13_params(ref["weights"]),
+                                      remat=False, use_accum=False,
+                                      device="cuda", mesh=mesh)
+    kernels.reset_launches()
+    probs = [Predictor(model, batch_size=8, device="cuda",
+                       mesh=mesh)(r)[1] for r in reqs]
+    serve_launches = dict(kernels.LAUNCHES)
+    inputs, labels, mask, cw = train_inputs(spec, batch, ref["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    grads: dict = {}
+    with _handed_grads(model, grads):
+        _, loss, cm, norm = step(state, inputs, labels, mask, cw, 1.0, True,
+                                 SEED)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = torch.load(ref["path"], map_location="cuda", weights_only=True)
+    worst, worst_name = _worst_grad_share(
+        (n, grads[n], w) for n, w in want.items())
+    pp = mesh.axis("pp")
+    out = {"rank": distributed.rank(), "tower": tower, "batch": batch,
+           "micro": micro, "stage": pp.index,
+           "transport": pp.transport(state.params[0]),
+           "stage_leaves": sum(stage_of(p) is not None
+                               for p in state.params),
+           "probs": probs, "serve_launches": serve_launches,
+           "loss": loss.item(), "grad_norm": float(norm),
+           "cm_sum": int(cm.sum()), "same_leaves": set(grads) == set(want),
+           "worst_grad_share": worst, "worst_grad_leaf": worst_name,
+           "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    del model, state, step, want, grads
+    _free()
+    return out
+
+
+class _Waits:
+    """``Transfer.wait`` of the enclosed calls, timed (synchronised before
+    and after): per call its ms and its message's bytes."""
+
+    def __init__(self):
+        from mme_tpu_torch.parallel.mesh import Transfer
+        self.cls, self.plain = Transfer, Transfer.wait
+        self.ms, self.bytes = [], []
+
+    def __enter__(self):
+        plain, ms, nbytes = self.plain, self.ms, self.bytes
+
+        def timed(transfer):
+            n = transfer.buf.numel() * transfer.buf.element_size()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = plain(transfer)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - start) * 1e3)
+            nbytes.append(n)
+            return out
+
+        self.cls.wait = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.wait = self.plain
+
+    def clear(self) -> None:
+        self.ms.clear()
+        self.bytes.clear()
+
+
+def p15_pp_bf16(weights: str, steps: int, warmup: int) -> dict:
+    """A rank of the bf16 pp=2 steps on the fusion trunk at the global
+    batch of 8, M=4, every knob on: ms per step, the point-to-point
+    traffic of the last step (the stage sends' staging, the waits for the
+    messages, the output's and input gradient's broadcasts: count, ms, GB,
+    share), the gradient sync's ms and share, one step's launches and this
+    rank's peak."""
+    from mme_tpu_torch.parallel import distributed
+    _rank_setup()
+    t0 = time.perf_counter()
+    spec, mesh = _pp_spec("fusion", P15_BF16_MICRO, P13_BF16_BATCH,
+                          torch.bfloat16, quiet=False)
+    os.environ.update(P13_BF16_ENV)
+    try:
+        cfg = ExperimentConfig(batch_size=P13_BF16_BATCH,
+                               learning_rate=5e-6, text_max_len=70,
+                               audio_max_samples=96000)
+        model, state, step, _ = build_tav(
+            spec, cfg, 1000, params=_p13_params(weights), remat=False,
+            use_accum=False, device="cuda", mesh=mesh)
+        inputs, labels, mask, cw = train_inputs(spec, P13_BF16_BATCH,
+                                                P13_SEED + 2)
+        inputs = to_device(inputs, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        with _Collectives("send_start") as sends, \
+                _Collectives("broadcast_") as casts, _Waits() as waits, \
+                _Collectives("all_reduce_many") as sync:
+            for i in range(warmup + steps):
+                for c in (sends, casts, waits, sync):
+                    c.clear()
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, loss, _, _ = step(state, inputs, labels, mask, cw, 1.0,
+                                     True, SEED + i)
+                torch.cuda.synchronize()
+                if i >= warmup:
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    losses.append(loss.item())
+            p2p = {name: {"calls": len(c.ms), "ms": sum(c.ms),
+                          "gb": sum(c.bytes) / 1e9}
+                   for name, c in (("send_staging", sends),
+                                   ("wait", waits), ("broadcast", casts))}
+            sync_ms = sum(sync.ms)
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for k in P13_BF16_ENV:
+            del os.environ[k]
+    p2p_ms = sum(v["ms"] for v in p2p.values())
+    out = {"rank": distributed.rank(), "stage": mesh.axis("pp").index,
+           "ms_per_step": ms, "losses": losses, "p2p_last": p2p,
+           "p2p_ms_last": p2p_ms, "p2p_share_last": p2p_ms / ms[-1],
+           "grad_sync_ms_last": sync_ms,
+           "grad_sync_share_last": sync_ms / ms[-1],
+           "launches": launches, "peak_gb": peak,
+           "seconds": time.perf_counter() - t0}
+    del model, state, step
+    _free()
+    return out
+
+
+def pp_kernel_shapes(card: str) -> list:
+    """Phase 15 (4), on this process: K1/K2 at the stages' microbatch
+    shapes in fp32 and bf16 against their plain versions, then each timed
+    in bf16 beside its plain version and SDPA, with its bound."""
+    rows = []
+    for i, (name, b, s, h, masked) in enumerate(P15_ATTENTION):
+        for dt in (torch.float32, torch.bfloat16):
+            case = (name, b, s, s, h, 64, dt, int(masked), masked)
+            flash_fwd_hold(*case, seed=6000 + i)
+            flash_bwd_hold(*case, False, seed=6000 + i)
+        rows.append({"shape": name, **flash_times(b, s, h, masked)})
+    print(json.dumps({"pp_kernel_shapes": rows, "card": card}), flush=True)
+    return rows
+
+
+def pipeline_axis(pool, ref: dict, ref_video: dict, weights: str,
+                  reqs: list) -> dict:
+    """Phase 15's calls on phase 13's pool."""
+    here = os.path.abspath(__file__)
+    t = time.perf_counter()
+    fp32 = {}
+    for (tower, batch, micro), r in zip(P15_FP32, (ref, ref_video)):
+        fp32[tower] = pool.run(f"{here}:p15_pp_fp32", tower, batch, micro,
+                               r, reqs[:1] if tower == "fusion" else [])
+    fp32_s = time.perf_counter() - t
+    t = time.perf_counter()
+    bf16 = pool.run(f"{here}:p15_pp_bf16", weights, 1, 1)
+    return {"fp32": fp32, "bf16": bf16, "fp32_ranks_s": fp32_s,
+            "bf16_ranks_s": time.perf_counter() - t}
+
+
+def pipeline_axis_checks(res: dict, refs: dict, want_probs: list,
+                         reqs: list, card: str, t0: float) -> dict:
+    """Phase 15 on this process after the ranks: K1/K2 at the microbatch
+    shapes, then every check. Returns one bf16 step's launches of rank 0,
+    for the kernels line."""
+    t = time.perf_counter()
+    shapes = pp_kernel_shapes(card)
+    shapes_s = time.perf_counter() - t
+    fp32, bf16 = res["fp32"], res["bf16"]
+    spec = _p13_spec(torch.bfloat16, quiet=False)
+    expected = pp_expected(spec, P13_BF16_BATCH, P15_BF16_MICRO)
+    chunks = -(-len(reqs[0]["input_ids"]) // 8)
+    served = fp32["fusion"]
+    served_diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                      for r in served for a, b in zip(r["probs"],
+                                                      want_probs))
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    bubble = (P15_PP - 1) / (P15_BF16_MICRO + P15_PP - 1)
+    out = {"fp32": {tw: [{k: v for k, v in r.items() if k != "probs"}
+                         for r in rs] for tw, rs in fp32.items()},
+           "references": {tw: {k: refs[tw][k] for k in ("loss", "grad_norm")}
+                          for tw in refs},
+           "served_prob_max_diff": served_diff, "bf16": bf16,
+           "bf16_expected_launches": expected, "bubble_fraction": bubble,
+           "fp32_ranks_s": res["fp32_ranks_s"],
+           "bf16_ranks_s": res["bf16_ranks_s"], "kernel_shapes_s": shapes_s,
+           "phase_s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"pipeline_axis": out}), flush=True)
+    f32_layers = 42 + 6 * 2
+    checks = {
+        tw: all(
+            abs(r["loss"] - refs[tw]["loss"])
+            <= TRAIN_LOSS_RTOL * abs(refs[tw]["loss"])
+            and abs(r["grad_norm"] - refs[tw]["grad_norm"])
+            <= TRAIN_NORM_RTOL * refs[tw]["grad_norm"]
+            and r["same_leaves"] and r["worst_grad_share"] <= P13_GRAD_RTOL
+            and r["cm_sum"] == r["batch"] and r["stage_leaves"] > 0
+            and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
+            == f32_layers and r["transport"] == "gloo-host"
+            for r in rs) and sorted(r["stage"] for r in rs) == [0, 1]
+        for tw, rs in fp32.items()}
+    checks["serve"] = served_diff <= SERVE_TOL[torch.float32] and all(
+        r["serve_launches"]["flash_fwd"] == chunks * f32_layers
+        for r in served)
+    checks["bf16"] = all(
+        all(np.isfinite(r["losses"]))
+        and all(r["launches"][k] == v for k, v in expected.items())
+        for r in bf16) and sum(r["peak_gb"] for r in bf16) < total_gb
+    if not all(checks.values()):
+        raise SystemExit(f"phase 15 (pipeline parallelism) failed: {checks}")
+    return {"pp": bf16[0]["launches"], "shapes": shapes,
+            "phase_s": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--parallel"]):
@@ -5876,12 +6267,14 @@ def main(argv=None) -> int:
           flush=True)
 
     if argv == ["--parallel"]:
-        # phases 13 and 14 alone: a quick run while the parallel axes
+        # phases 13, 14 and 15 alone: a quick run while the parallel axes
         # change; no result lines
         t0 = time.perf_counter()
         par = parallel_axes(card)
         seconds["14"] = par["two"]["phase_s"]
-        seconds["13"] = time.perf_counter() - t0 - seconds["14"]
+        seconds["15"] = par["pp"]["phase_s"]
+        seconds["13"] = (time.perf_counter() - t0 - seconds["14"]
+                         - seconds["15"])
         print(json.dumps({"phase_seconds": seconds}), flush=True)
         return 0
 
@@ -5903,13 +6296,12 @@ def main(argv=None) -> int:
     mlp_fwd, mlp_bwd = check_fused_mlp(train_spec, card)
     seconds["3"] = time.perf_counter() - t0
     served, served_knobs = timed("4", main_path, card)
-    params, step, step_fused, step_knobs, step_ms = timed("5", train_path,
-                                                          card)
+    params, step, step_fused, step_knobs = timed("5", train_path, card)
     torch.cuda.empty_cache()
     front_dir = tempfile.mkdtemp(prefix="mme_front_")
     try:
         loop, exports, loop_spec = timed("6", train_loop, params, card,
-                                         step_ms, front_dir)
+                                         front_dir)
         torch.cuda.empty_cache()
         bundle = timed("7", front_ends, card, loop_spec, front_dir, exports)
     finally:
@@ -5928,9 +6320,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     par = parallel_axes(card, params=params)
     del params
-    # phases 13 and 14 share a pool; phase 14 timed its own part
+    # phases 13, 14 and 15 share a pool; phases 14 and 15 timed their own
+    # parts
     seconds["14"] = par["two"]["phase_s"]
-    seconds["13"] = time.perf_counter() - t0 - seconds["14"]
+    seconds["15"] = par["pp"]["phase_s"]
+    seconds["13"] = (time.perf_counter() - t0 - seconds["14"]
+                     - seconds["15"])
     print(json.dumps({"phase_seconds": seconds}), flush=True)
 
     def family_launches(name):
@@ -5954,6 +6349,7 @@ def main(argv=None) -> int:
                     for tw in P13_TOWERS})
         out["launches_parallel_tp"] = par["two"]["tp"].get(name, 0)
         out["launches_parallel_ep"] = par["two"]["ep"].get(name, 0)
+        out["launches_parallel_pp"] = par["pp"]["pp"].get(name, 0)
         return out
 
     def entry(name, route, source, replaces, result):

@@ -19,7 +19,8 @@ Meshes. In a multi-process run (``parallel/distributed.py``) the port
 builds JAX's auto ``("dp", "mp")`` mesh over the ranks when ``MME_MESH``
 is on (the default) and the global batch divides by dp; ``MME_MP`` sets mp
 and ``MME_DP`` dp through ``cfg.mesh``; a caller's mesh (``tav_nn``'s
-``("dp", "sp")``) wins. On one rank the run is unmeshed, as JAX's on one
+``("dp", "sp")`` or ``("dp", "pp")``) wins, and its batch is split over
+``dp`` only. On one rank the run is unmeshed, as JAX's on one
 device. Ranks cannot sit idle, so a world of more than one rank without
 such a mesh raises ``ValueError`` (JAX trains on a device subset instead).
 Under a mesh the model's weights are replicated from rank 0 and then cut
@@ -45,7 +46,7 @@ from mme_tpu_torch.data.records import (PickleDatasetConfig, apply_filters,
                                         build_label_map, split_dataframe)
 from mme_tpu_torch.device import DeviceLike, resolve_device
 from mme_tpu_torch.evals.metrics import Metrics
-from mme_tpu_torch.models.layers import whole_attention
+from mme_tpu_torch.models.layers import single_rank
 from mme_tpu_torch.parallel import distributed
 from mme_tpu_torch.parallel.mesh import Mesh, barrier, make_mesh, replicate
 from mme_tpu_torch.parallel.sharding_rules import shard_model, whole_model
@@ -331,8 +332,10 @@ def _serving_exports(cfg: ExperimentConfig, model: nn.Module,
     ``mp`` axis run the same rows with the tp collectives) and rank 0
     writes. A bundle is a program for one rank: every rank gathers the
     cut leaves whole (``sharding_rules.whole_model``) and rank 0 exports
-    with the attention core whole (``MultiHeadAttention.seq_parallel`` off
-    while it traces)."""
+    the model as one rank runs it (``models/layers.py::single_rank``: the
+    attention core whole and every layer stack unpipelined while it traces,
+    since ``torch.export`` cannot trace the ring's or the pipeline's
+    messages)."""
     writer = distributed.is_writer()
     predict_out = os.environ.get("MME_PREDICT_OUT")
     if predict_out:
@@ -360,7 +363,7 @@ def _serving_exports(cfg: ExperimentConfig, model: nn.Module,
             example = {k: v.cpu().numpy() for k, v in batch_transform(
                 torch.Generator(device=dev).manual_seed(0),
                 to_device(example, dev)).items()}
-        with whole_attention(model):
+        with single_rank(model):
             info = export_bundle(model, example, export_dir,
                                  batch_size=cfg.batch_size,
                                  id2label=id2label, device=dev)

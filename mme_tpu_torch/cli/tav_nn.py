@@ -28,12 +28,14 @@ the full-width ``TAVModel`` (``models/pretrained.py::load_tav``), as JAX
 does; any other model or width, or no such directory, loads nothing.
 ``MME_SP=<n>`` runs one tower's attention as ring attention over ``n``
 ranks (``MME_SP_TOWER``: fusion, the default, video, audio or text) on a
-``("dp", "sp")`` mesh of the world's ranks; the rest of the ranks form
-dp (:func:`parallel_spec`). ``MME_MP=<n>`` cuts the weights over an
-``mp`` axis of ``run_classifier``'s mesh (tensor parallelism). ``MME_PP``
-above 1 raises ``NotImplementedError`` before any work: pipeline
-parallelism is ROADMAP Queue 1 item 7 part two (pp). A missing pickle
-raises ``FileNotFoundError``.
+``("dp", "sp")`` mesh of the world's ranks; ``MME_PP=<n>`` runs one
+tower's layer stack as an ``n``-stage GPipe pipeline of ``MME_PP_MICRO``
+microbatches (default 4; ``MME_PP_TOWER`` as ``MME_SP_TOWER``) on a
+``("dp", "pp")`` mesh; the rest of the ranks form dp, and the two are
+exclusive (:func:`parallel_spec`). ``MME_MP=<n>`` cuts the weights over an
+``mp`` axis of ``run_classifier``'s mesh (tensor parallelism); under sp or
+pp the caller's mesh wins and ``MME_MP`` changes nothing, as in JAX. A
+missing pickle raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -64,43 +66,60 @@ from mme_tpu_torch.train.build_tav import (make_video_keep_transform,
 TOWERS = ("fusion", "video", "audio", "text")
 
 
-def _refuse_unported() -> None:
-    if int(os.environ.get("MME_PP", "0") or 0) > 1:
-        raise NotImplementedError(
-            "MME_PP > 1: pipeline parallelism comes with ROADMAP Queue 1 "
-            "item 7 part two (pp)")
-
-
 def parallel_spec(cfg, spec: TAVSpec) -> Tuple[TAVSpec, Optional[Mesh]]:
-    """``MME_SP=<n>`` (above 1): a ``("dp", "sp")`` mesh of the world's
-    ranks with sp = n, and ``MME_SP_TOWER``'s encoder (fusion, the default,
-    video, audio or text) set to run its attention as ring attention over
-    ``sp``, with the batch split over dp. Execution changes, parameters do
-    not. Otherwise (spec, None)."""
+    """``MME_SP=<n>`` or ``MME_PP=<n>`` (above 1; not both): a ``("dp",
+    "sp")`` or ``("dp", "pp")`` mesh of the world's ranks with that axis of
+    n, and one tower's encoder (``MME_SP_TOWER`` / ``MME_PP_TOWER``:
+    fusion, the default, video, audio or text) set to run its attention as
+    ring attention over ``sp``, or its layers as a GPipe pipeline of
+    ``MME_PP_MICRO`` microbatches (default 4) over ``pp``; the batch is
+    split over dp. Execution changes, parameters do not. JAX's checks, in
+    its order and with its messages, raise ``ValueError`` before any work.
+    Otherwise (spec, None)."""
     sp = int(os.environ.get("MME_SP", "0") or 0)
-    if sp <= 1:
+    pp = int(os.environ.get("MME_PP", "0") or 0)
+    if sp <= 1 and pp <= 1:
         return spec, None
-    tower = os.environ.get("MME_SP_TOWER", "fusion")
+    if sp > 1 and pp > 1:
+        raise ValueError("MME_SP and MME_PP are exclusive")
+    par, axis = (sp, "sp") if sp > 1 else (pp, "pp")
+    knob = "MME_SP" if sp > 1 else "MME_PP"
+    tower = os.environ.get(f"{knob}_TOWER", "fusion")
     if tower not in TOWERS:
-        raise ValueError(f"MME_SP_TOWER={tower!r} is not one of {TOWERS}")
+        raise ValueError(f"{knob}_TOWER={tower!r} is not one of {TOWERS}")
     world = distributed.world_size()
-    if world % sp:
-        raise ValueError(f"{world} ranks not divisible by MME_SP={sp}")
-    dp = world // sp
+    if world % par:
+        raise ValueError(f"{world} ranks not divisible by {knob}={par}")
+    dp = world // par
     if cfg.batch_size % dp:
         raise ValueError(f"batch {cfg.batch_size} not divisible by dp={dp}")
-    mesh = make_mesh(dp, sp, axis_names=("dp", "sp"))
-
-    def seq(enc):
-        return dataclasses.replace(enc, seq_mesh=mesh, seq_axis="sp")
-
+    enc = spec.fusion if tower == "fusion" else getattr(spec, tower).encoder
+    if pp > 1:
+        micro = int(os.environ.get("MME_PP_MICRO", "4"))
+        if enc.layers % pp:
+            raise ValueError(f"{enc.layers} {tower} layers not divisible "
+                             f"into {pp} stages")
+        # the global batch splits into microbatches first, then each
+        # microbatch's rows over dp
+        if cfg.batch_size % micro or (cfg.batch_size // micro) % dp:
+            raise ValueError(f"batch {cfg.batch_size} must split into "
+                             f"{micro} microbatches of a dp={dp} multiple "
+                             "(MME_PP_MICRO)")
+    mesh = make_mesh(dp, par, axis_names=("dp", axis))
+    if sp > 1:
+        enc = dataclasses.replace(enc, seq_mesh=mesh, seq_axis="sp")
+    else:
+        enc = dataclasses.replace(enc, pp_mesh=mesh, pp_axis="pp",
+                                  pp_micro=micro)
     if tower == "fusion":
-        spec = dataclasses.replace(spec, fusion=seq(spec.fusion))
+        spec = dataclasses.replace(spec, fusion=enc)
     else:
         sub = getattr(spec, tower)
         spec = dataclasses.replace(spec, **{tower: dataclasses.replace(
-            sub, encoder=seq(sub.encoder))})
-    print(f"{tower} tower sp={sp} dp={dp} (ring attention)", flush=True)
+            sub, encoder=enc)})
+    print(f"{tower} tower {axis}={par} dp={dp} "
+          f"({'ring attention' if sp > 1 else 'GPipe pipeline'})",
+          flush=True)
     return spec, mesh
 
 
@@ -175,7 +194,6 @@ def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = "cuda") -> Dict[str, Any]:
     args = arg_parse("tav_nn", argv)
     cfg = config_from_args(args, device=device)
-    _refuse_unported()
     dev = resolve_device(distributed.rank_device(device))
     np.random.seed(cfg.seed)
     spec, audio_len, text_len = tav_spec(cfg)

@@ -8,9 +8,12 @@ post-LN ``EncoderBlock`` and ``TransformerEncoder``; plus ``Dense``,
 ``Mlp`` takes the fused kernel of ``ops/fused_mlp.py`` where ``MME_FUSED_MLP``
 opts in. ``EncoderSpec.seq_mesh`` / ``seq_axis`` run the attention core as
 ring attention over that axis of a mesh of ranks (sequence parallelism,
-``ops/ring_attention.py``); the pipeline-parallel branch (``pp_mesh``)
-comes with the rest of the parallel axes, and scan-over-layers has no
-eager counterpart.
+``ops/ring_attention.py``); ``pp_mesh`` / ``pp_axis`` / ``pp_micro`` run
+``TransformerEncoder``'s layers as a GPipe pipeline over that axis, one
+stage of L / P layers per rank (pipeline parallelism,
+``parallel/pipeline.py``; the parameters keep the unrolled layout, so
+checkpoints do not depend on it); scan-over-layers has no eager
+counterpart.
 
 Tensor parallelism (Megatron): once ``parallel/sharding_rules.py::
 shard_model`` has cut the qkv / out and fc1 / fc2 weights over an ``mp``
@@ -40,7 +43,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Iterator, Optional, Sequence, Tuple, Union
+from typing import (Callable, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +57,7 @@ from mme_tpu_torch.ops.fused_mlp import fused_mlp, use_fused_mlp
 from mme_tpu_torch.ops.layer_norm import FusedLayerNorm
 from mme_tpu_torch.parallel.mesh import (AxisGroup, batch_rand,
                                          copy_to_axis, reduce_from_axis)
+from mme_tpu_torch.parallel.pipeline import MicrobatchDraws
 from mme_tpu_torch.parallel.sharding_rules import shard_of
 
 
@@ -82,6 +87,12 @@ class EncoderSpec:
     # Mesh``); the activations outside it stay whole on every rank
     seq_mesh: Optional[object] = None
     seq_axis: Optional[str] = None
+    # pipeline parallelism: with both set (an axis of more than one rank),
+    # the layer stack runs as a GPipe pipeline of ``pp_micro``
+    # microbatches over ``pp_mesh``'s ``pp_axis``
+    pp_mesh: Optional[object] = None
+    pp_axis: Optional[str] = None
+    pp_micro: int = 4
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -104,14 +115,18 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     Identity outside training mode or at rate 0. ``split``: ``x`` holds
     this rank's block of a last dimension cut over that axis (the local
     heads); the whole mask is drawn and the block kept, so every rank's
-    generator stays in step and the mask is one rank's."""
+    generator stays in step and the mask is one rank's. ``rng`` may be a
+    pipeline stage's ``MicrobatchDraws`` (``parallel/pipeline.py``): the
+    numbers drawn for this call beforehand."""
     if not training or rate <= 0.0:
         return x
     if rng is None:
         raise ValueError("dropout in training mode needs the step's "
                          "torch.Generator (rng=...); call .eval() for the "
                          "deterministic forward")
-    if split is None or split.size == 1:
+    if isinstance(rng, MicrobatchDraws):
+        u = rng.take(x.shape)
+    elif split is None or split.size == 1:
         u = batch_rand(x.shape, rng, x.device)
     else:
         n = x.shape[-1]
@@ -338,19 +353,24 @@ class MultiHeadAttention(nn.Module):
 
 
 @contextlib.contextmanager
-def whole_attention(model: nn.Module) -> Iterator[None]:
+def single_rank(model: nn.Module) -> Iterator[None]:
     """Inside, every ``MultiHeadAttention`` of ``model`` runs its core
-    whole on this rank (a serving export traced on one rank of an sp
-    mesh); the weights and the function are the same."""
-    mods = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
-    saved = [m.seq_parallel for m in mods]
-    for m in mods:
-        m.seq_parallel = False
+    whole on this rank and every ``TransformerEncoder`` its layers one
+    after another (a serving export traced on one rank of an sp or pp
+    mesh: ``torch.export`` cannot trace the ring's or the pipeline's
+    messages); the weights and the function are the same."""
+    flags = [(m, "seq_parallel") for m in model.modules()
+             if isinstance(m, MultiHeadAttention)]
+    flags += [(m, "pipelined") for m in model.modules()
+              if isinstance(m, TransformerEncoder)]
+    saved = [getattr(m, a) for m, a in flags]
+    for m, a in flags:
+        setattr(m, a, False)
     try:
         yield
     finally:
-        for m, s in zip(mods, saved):
-            m.seq_parallel = s
+        for (m, a), v in zip(flags, saved):
+            setattr(m, a, v)
 
 
 class Mlp(nn.Module):
@@ -414,6 +434,16 @@ class EncoderBlock(nn.Module):
         self.ln1 = FusedLayerNorm(s.hidden, s.ln_eps, s.dtype, device=device)
         self.ln2 = FusedLayerNorm(s.hidden, s.ln_eps, s.dtype, device=device)
 
+    def dropout_shapes(self, shape: Tuple[int, ...]
+                       ) -> List[Tuple[int, ...]]:
+        """The shapes of the uniform draws :meth:`forward` makes in
+        training mode on an input of ``shape``, in its order: the
+        attention output's, the attention branch's, the MLP output's (each
+        where its rate is above 0)."""
+        rates = (self.attention.attention_dropout, self.dropout,
+                 self.mlp.dropout)
+        return [shape for r in rates if r > 0.0]
+
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -458,7 +488,17 @@ def remat_call(fn: Callable[..., torch.Tensor],
 class TransformerEncoder(nn.Module):
     """Stack of ``layer_<i>`` EncoderBlocks, then ``final_ln`` if the spec
     asks for it. ``spec.remat`` checkpoints every block while gradients are
-    being recorded."""
+    being recorded.
+
+    With the spec's ``pp_mesh`` and ``pp_axis`` (an axis of P > 1 ranks)
+    the stack runs as a pipeline over that axis
+    (``parallel/pipeline.py::pipeline_encoder_apply``): this rank applies
+    its stage's L / P blocks to ``pp_micro`` microbatches, and
+    ``final_ln`` runs after the pipeline on every rank, as in JAX. Every
+    rank holds every block; the blocks' parameters are tagged as stage
+    leaves (``sharding_rules.mark_stage``), so the step sums their
+    gradients over the axis. ``pipelined = False`` runs the stack on this
+    rank alone (a serving export, :func:`single_rank`)."""
 
     def __init__(self, spec: EncoderSpec, device: DeviceLike = "cuda"):
         super().__init__()
@@ -469,10 +509,25 @@ class TransformerEncoder(nn.Module):
         self.final_ln = (FusedLayerNorm(spec.hidden, spec.ln_eps, spec.dtype,
                                         device=device)
                          if spec.final_ln else None)
+        self.has_dropout = spec.dropout > 0.0 or spec.attention_dropout > 0.0
+        self.pp, self.pp_micro = None, spec.pp_micro
+        if (spec.pp_mesh is not None and spec.pp_axis is not None
+                and spec.pp_mesh.shape[spec.pp_axis] > 1):
+            from mme_tpu_torch.parallel.pipeline import check_stages
+            from mme_tpu_torch.parallel.sharding_rules import mark_stage
+            self.pp = spec.pp_mesh.axis(spec.pp_axis)
+            check_stages(spec.layers, self.pp.size)
+            mark_stage([p for i in range(spec.layers)
+                        for p in getattr(self, f"layer_{i}").parameters()],
+                       self.pp)
+        self.pipelined = self.pp is not None
 
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.pipelined:
+            from mme_tpu_torch.parallel.pipeline import pipeline_encoder_apply
+            return pipeline_encoder_apply(self, x, bias, rng)
         remat = self.remat and torch.is_grad_enabled()
         for i in range(self.n_layers):
             block = getattr(self, f"layer_{i}")

@@ -13,7 +13,9 @@ collectives are explicit:
   :meth:`AxisGroup.broadcast_`, :meth:`AxisGroup.all_to_all` (block j of
   dim 0 to coordinate j: the expert exchange) and
   :meth:`AxisGroup.shift_start` (send to the next coordinate, receive from
-  the previous one: the ring's P2P step, ``dist.batch_isend_irecv``).
+  the previous one: the ring's P2P step, ``dist.batch_isend_irecv``), and
+  :meth:`AxisGroup.send_start` / :meth:`AxisGroup.recv_start` (one message
+  between two coordinates: a pipeline stage's step, :class:`Transfer`).
 - Under the ``gloo`` backend every collective moves host tensors: a CUDA
   tensor is staged through pinned host memory (the ``_gloo_host`` branch).
   ``nccl`` takes device tensors as they are. The branch follows the group's
@@ -172,6 +174,18 @@ class AxisGroup:
         devices."""
         return Shift(self, tensors, backward)
 
+    def send_start(self, t: torch.Tensor, to_index: int) -> "Transfer":
+        """Start sending ``t`` to coordinate ``to_index`` alone (a
+        pipeline stage's activation or gradient; ``t`` may be reused at
+        once, its wire copy stays alive until :meth:`Transfer.wait`)."""
+        return Transfer(self, t, to_index, send=True)
+
+    def recv_start(self, like: torch.Tensor, from_index: int) -> "Transfer":
+        """Start receiving a tensor of ``like``'s shape and dtype from
+        coordinate ``from_index``; :meth:`Transfer.wait` returns it on
+        ``like``'s device."""
+        return Transfer(self, like, from_index, send=False)
+
 
 class Shift:
     """One P2P ring step in flight (``dist.batch_isend_irecv``)."""
@@ -199,6 +213,42 @@ class Shift:
             r.wait()
         return [t.to(d, non_blocking=False)
                 for t, d in zip(self.recv, self.devices)]
+
+
+class Transfer:
+    """One point-to-point message in flight between two coordinates of an
+    axis (``dist.isend`` / ``dist.irecv``): the pipeline's stage-to-stage
+    step. Under gloo a CUDA tensor travels through pinned host memory, as
+    every collective of :class:`AxisGroup` does."""
+
+    def __init__(self, axis: AxisGroup, t: torch.Tensor, peer_index: int,
+                 send: bool):
+        self.device = t.device
+        peer = axis.ranks[peer_index]
+        if send:
+            self.buf = axis._wire(t)       # alive until the send completes
+            self.req = dist.isend(self.buf, peer, group=axis.group)
+        else:
+            if axis.host_staged:
+                self.buf = torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=t.is_cuda)
+            else:
+                # nccl receives into device memory only
+                self.buf = torch.empty(
+                    t.shape, dtype=t.dtype,
+                    device=t.device if t.is_cuda
+                    else torch.cuda.current_device())
+            self.req = dist.irecv(self.buf, peer, group=axis.group)
+        self.send = send
+
+    def wait(self) -> Optional[torch.Tensor]:
+        """Wait for the message; a receive returns the tensor on the
+        device of the tensor it was shaped like."""
+        self.req.wait()
+        if self.send:
+            self.buf = None
+            return None
+        return self.buf.to(self.device)
 
 
 class Mesh:

@@ -28,7 +28,10 @@ the cut parameters, so they share the layout; checkpoints gather the
 blocks and restores cut them again (``train/checkpoint.py``),
 :func:`whole_model` puts the whole tensors back for an export, and
 :func:`sync_grads` / :func:`shard_sum` give the step and the optimizer
-the gradient mean and the norms of the unsharded model.
+the gradient mean and the norms of the unsharded model. Pipeline stages
+cut nothing: every rank holds every layer, and :func:`mark_stage` tags a
+pipelined stack's leaves so that :func:`sync_grads` sums their gradients,
+which only the owning stage's rank computes, over the ``pp`` axis.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from torch import nn
 from mme_tpu_torch.parallel.mesh import AxisGroup, Mesh
 
 _TAG = "mme_shard"
+_STAGE_TAG = "mme_stage"
 
 
 def tp_spec_for_path(name: str, ndim: int, mp_axis: str = "mp"
@@ -95,6 +99,21 @@ def shard_of(t: torch.Tensor) -> Optional[Shard]:
     """The :class:`Shard` of a parameter :func:`shard_model` cut, else
     None."""
     return getattr(t, _TAG, None)
+
+
+def mark_stage(params: Sequence[nn.Parameter], axis: AxisGroup) -> None:
+    """Tag ``params`` as pipeline-stage leaves of ``axis`` (the layers of a
+    ``TransformerEncoder`` run as a pipeline over it): every rank holds
+    them whole, and only the rank of the owning stage computes their
+    gradients."""
+    for p in params:
+        setattr(p, _STAGE_TAG, axis)
+
+
+def stage_of(t: torch.Tensor) -> Optional[AxisGroup]:
+    """The pipeline axis of a stage leaf :func:`mark_stage` tagged, else
+    None."""
+    return getattr(t, _STAGE_TAG, None)
 
 
 def _cut(p: nn.Parameter, shard: Shard) -> None:
@@ -233,7 +252,12 @@ def sync_grads(grads: Sequence[torch.Tensor],
     expert stack cut over such an axis holds the sum over that axis'
     rows already and is all-reduced over the others only; one cut over an
     axis whose ranks hold the same rows got each contribution that many
-    times and is divided by it too."""
+    times and is divided by it too. A pipeline-stage leaf
+    (:func:`stage_of`) has its gradient on the rank of its stage and
+    zeros on the other ranks of the ``pp`` axis: it is summed over that
+    axis, not averaged (divided by the other axes' ranks only); a leaf
+    outside the pipeline has equal gradients on the ``pp`` ranks and is
+    averaged like any replicated leaf."""
     rep = [n for n in mesh.axis_names if n != mp_axis]
     base = int(np.prod([mesh.shape[n] for n in rep]))
     out = list(grads)
@@ -246,6 +270,9 @@ def sync_grads(grads: Sequence[torch.Tensor],
                 names = [n for n in rep if n != s.axis.name]
             else:
                 div *= s.axis.size
+        stage = stage_of(p)
+        if stage is not None and stage.name in names:
+            div //= stage.size
         groups.setdefault((tuple(names), div), []).append(i)
     for (names, div), idx in groups.items():
         axis = _replica_group(mesh, names)

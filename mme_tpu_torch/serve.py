@@ -9,7 +9,9 @@ padding is masked back out of the response. uint8 video is normalised on
 the device. Mesh serving (``Predictor(mesh=..., batch_axis="dp")``): every
 rank of the mesh runs the same chunks, computes its rows of each along the
 batch axis, and the predictions and probabilities are gathered to every
-rank; ``batch_size`` must divide by that axis' size, as in JAX.
+rank; ``batch_size`` must divide by that axis' size, as in JAX. A model
+whose tower is pipelined over a ``pp`` axis serves the same way: the ranks
+of that axis take the same rows and run its stages together.
 
 A bundle is the deterministic forward ``(argmax, fp32 softmax)`` of the
 logits (a model's aux output is dropped) exported by ``torch.export`` on the
@@ -229,8 +231,12 @@ def export_bundle(model: nn.Module, example_batch: Dict[str, Any],
     (non-strict) in eval mode without gradients on ``device``, the device
     the bundle will serve on, with the weights as they are (bf16 weights
     stay bf16), and stripped of its per-cast metadata checks
-    (:func:`_drop_metadata_asserts`). Returns the seconds of the export and
-    of the save and the program file's bytes."""
+    (:func:`_drop_metadata_asserts`). A bundle is one rank's program:
+    ``torch.export`` cannot trace the messages of a pipeline or a ring, so
+    a model trained on a mesh is exported whole and unpipelined
+    (``cli/common.py`` wraps the call in ``sharding_rules.whole_model``
+    and ``models/layers.py::single_rank``). Returns the seconds of the
+    export and of the save and the program file's bytes."""
     dev = resolve_device(device)
     batch_size = int(batch_size)
     feats = {k: _pad_rows(np.asarray(v)[:batch_size], batch_size)

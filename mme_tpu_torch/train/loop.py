@@ -24,7 +24,11 @@ checkpoint, so a dialog cut in the middle restarts empty.
 
 Under a mesh (``mesh=``) every rank builds the same global batches from
 the same seeded order and keeps its rows along ``dp``
-(``parallel/data.py::shard_batches``); the host bookkeeping (dialog
+(``parallel/data.py::shard_batches``; the ranks of a ``pp`` axis hold the
+same rows, and a tail batch is padded to the static batch size, as in JAX,
+so the pipeline's microbatch count divides every batch); evaluation runs
+the same model, pipelined where it is, deterministically. The host
+bookkeeping (dialog
 accumulation, dumps) reads the global batch's mask and labels. Every branch
 on a metric (the best save, patience and the epoch break, the SIGTERM
 save) reads rank 0's value (``parallel/mesh.py::agree``), so all ranks

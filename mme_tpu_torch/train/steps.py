@@ -39,7 +39,14 @@ blocks too, and every norm sums a cut leaf's squares over its axis and
 counts a replicated leaf once (``sharding_rules.shard_sum``), so the norm,
 the clip and the logged norms and histograms are the unsharded model's.
 The confusion matrix is all-reduced; the eval step's predictions are
-gathered in rank order.
+gathered in rank order. Under pipeline parallelism (a ``pp`` axis, a
+``TransformerEncoder`` pipelined over it) every rank holds the whole
+model and the same rows; a rank's stage leaves have gradients on that
+rank only, and ``sync_grads`` sums them over ``pp``, so the norms, the
+clip and the update see whole gradients, the same on every rank. The
+pipeline draws its dropout numbers from the step's generator as the
+sequential stack does (``parallel/pipeline.py``), so the generator stays
+in step on every rank of the axis.
 """
 
 from __future__ import annotations

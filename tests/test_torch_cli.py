@@ -162,16 +162,15 @@ def test_main_prints_reference_keyed_dicts(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("case", [
     ("env", "MME_MESH", "unmeshed"), ("env", "MME_MP", "unmeshed"),
     ("env", "MME_DP", "unmeshed"), ("env", "MME_SP", "not divisible"),
-    ("env", "MME_PP", "part two"),
+    ("env", "MME_PP", "not divisible"),
     ("env", "MME_COORDINATOR", "MME_PROCESS_ID"),
     ("env", "MME_NUM_PROCESSES", "MME_PROCESS_ID"),
     ("env", "MME_PRETRAINED", None)])
 def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch, capsys):
-    """Of ROADMAP Queue 1 item 7's knobs only ``MME_PP`` (pp, the rest of
-    part two) raises ``NotImplementedError`` before any work. On one
-    process ``MME_MESH=on``, ``MME_DP`` and ``MME_MP=2`` run unmeshed, as
-    JAX does on one device; ``MME_SP=2`` cannot split one rank
-    (``ValueError``), and half
+    """ROADMAP Queue 1 item 7's knobs on one process: ``MME_MESH=on``,
+    ``MME_DP`` and ``MME_MP=2`` run unmeshed, as JAX does on one device;
+    ``MME_SP=2`` and ``MME_PP=2`` cannot split one rank (``ValueError``
+    before any work, as JAX's assertion), and half
     of the multi-process env contract raises ``ValueError`` naming what is
     missing. ``MME_PRETRAINED`` naming no directory loads nothing and raises
     nothing, as in JAX (tests/test_torch_pretrained.py loads)."""
@@ -198,8 +197,7 @@ def test_knobs_left_for_later_raise(case, tmp_path, monkeypatch, capsys):
         assert seen["mesh"] is None and seen["auto"] is None
         assert np.array(summary["test/confusion_matrix"]).sum() == 16
         return
-    error = NotImplementedError if expect == "part two" else ValueError
-    with pytest.raises(error, match=expect):
+    with pytest.raises(ValueError, match=expect):
         tav_nn.main(argv, device="cpu")
     assert not seen          # refused before any work
 

@@ -171,6 +171,7 @@ assert np.array(summary["test/confusion_matrix"]).sum() == 16
 # the parallel axes: the runtime, the mesh and the ring, on one rank
 assert {"mme_tpu_torch.parallel.distributed", "mme_tpu_torch.parallel.mesh",
         "mme_tpu_torch.parallel.data", "mme_tpu_torch.parallel.launch",
+        "mme_tpu_torch.parallel.pipeline",
         "mme_tpu_torch.ops.ring_attention"} <= set(mods)
 from mme_tpu_torch.ops.attention import dot_product_attention_shd
 from mme_tpu_torch.ops.ring_attention import ring_attention
