@@ -327,7 +327,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``parallel/launch.py::RankPool`` started through the env contract
    (``MME_COORDINATOR`` on a free local port, ``MME_NUM_PROCESSES=2``,
    ``MME_PROCESS_ID``), each on ``cuda:0``, each call under a time limit.
-   Full-width ``TAVSpec(output_dim=7)`` weights from one seed:
+   Full-width ``TAVSpec(output_dim=7)`` cut to its first ``P13_DEPTH``
+   (6) layers in every tower and the trunk (24 attention layers, 307.8 M
+   parameters; the whole 54-layer model before this cut), on phase 5's
+   draw cut to those layers, for phases 13, 14 and 15:
    (1) on this process, the single-rank fp32 step (global batch 4, no
        dropout) whose loss, grad norm and gradients (as the optimizer is
        handed them) the ranks are held to, and the single-rank fp32
@@ -336,11 +339,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        steps on its 2 rows: loss and grad norm as phase 5 holds them, every
        gradient leaf the optimizer is handed (after the all-reduce) within
        ``P13_GRAD_RTOL`` of its largest element in the single-rank step,
-       54 K1 and K2;
+       24 K1 and K2;
    (3) dp=2, bf16 at the global batch of 8 with every knob on: 1 warm-up
        and 1 timed step, ms per step, the all-reduce's share of a step
        (timed around it, synchronised), each rank's peak memory (the two
-       must fit the card), one step's launches (54 K1, K2, K5a, K5b, the
+       must fit the card), one step's launches (24 K1, K2, K5a, K5b, the
        spec's K4a/K4b at 4 rows, one K3); the warm-up's gradient
        all-reduce held leaf by leaf: one fixed projection of each leaf
        after it equals the sum of the ranks' projections before it;
@@ -352,8 +355,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        ``SERVE_TOL[fp32]``, the training loss and grad norm as phase 5
        holds them, every gradient leaf within ``P13_GRAD_RTOL`` of its
        largest element, K1 and K2 per call equal to ring layers × 2 hops
-       plus the other towers' layers (66), one global pre-pass per ring
-       layer (12); the ring's training forward and backward timed beside
+       plus the other towers' layers (30), one global pre-pass per ring
+       layer (6); the ring's training forward and backward timed beside
        the unsharded model's;
    (5) mesh serving: ``Predictor(mesh=dp2)`` on phase 4's requests, each
        rank computing 4 rows of a chunk, against (1)'s probabilities;
@@ -363,7 +366,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        sequence; a fully masked row's dV as a per-block pre-pass would give
        it (too large) beside the ring's, and SDPA's forward and backward
        at the same shapes. Prints the phase's seconds. Its weights are
-       phase 5's draw (one draw of 623.8 M parameters saved).
+       phase 5's draw cut to the phase's layers (no draw of their own).
 
 14. The parallel axes, part two, on phase 13's two ranks and references:
    (1) tp, fp32: a ``("dp", "mp")`` mesh of dp=1 and mp=2,
@@ -371,19 +374,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        heads and fc1 column-parallel, attention/out and fc2
        row-parallel: 6 of 12 and 8 of 16 heads, F 1536 of 3072 and 2048
        of 4096 a rank); phase 4's first request served across the mesh
-       against (13)(1)'s probabilities (``SERVE_TOL[fp32]``, 54 K1 a
+       against (13)(1)'s probabilities (``SERVE_TOL[fp32]``, 24 K1 a
        chunk), then one step on the global batch of 4: loss and grad norm
        as phase 5 holds them, every gathered gradient leaf within
-       ``P13_GRAD_RTOL`` of its largest single-rank element, 54 K1/K2;
+       ``P13_GRAD_RTOL`` of its largest single-rank element, 24 K1/K2;
    (2) tp, bf16 at the global batch of 8 with every knob: one timed step
        (no warm-up: gloo's host reductions take ~0.9 of it), the mp
        reductions' count, GB, ms and share, each rank's peak, one step's
-       launches (54 K1, K2, K5a, K5b on the local shapes, the spec's K4
-       at full rows, one K3 over the shards' 725 leaves);
-   (3) ep: ``TAVMoE`` at full width with its experts cut over dp=2
-       (``MoESpec(ep_axis="dp", ep_mesh=...)``), its single-rank
-       reference on this process first: a served chunk (each rank 4 rows,
-       12 K1) against the single-rank probabilities, one fp32 step on 2
+       launches (24 K1, K2, K5a, K5b on the local shapes, the spec's K4
+       at full rows, one K3 over the shards' leaves);
+   (3) ep: ``TAVMoE`` at full width and the phase's depth with its
+       experts cut over dp=2 (``MoESpec(ep_axis="dp", ep_mesh=...)``),
+       its single-rank reference on this process first: a served chunk
+       (each rank 4 rows, 6 K1) against the single-rank probabilities, one fp32 step on 2
        rows a rank (loss, grad norm, every gathered gradient leaf), then a
        second step with its ``all_to_all`` ms and share;
    (4) back here, K1/K2 at every local-heads shape the ranks fed (fp32
@@ -398,13 +401,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``parallel/pipeline.py``: activations and their gradients between
    the stages, the last stage's output broadcast, each staged through
    pinned host memory):
-   (1) fp32 on the fusion trunk (6 of 12 layers a stage), phase 4's first
-       request served across the mesh against (13)(1)'s probabilities
-       (``SERVE_TOL[fp32]``, 54 K1 a chunk at M=2), then one step on the
-       global batch of 4 at M=2 against (13)(1)'s single-rank step: loss
-       and grad norm as phase 5 holds them, every gradient leaf the
-       optimizer is handed (stage leaves summed over pp) within
-       ``P13_GRAD_RTOL`` of its largest element, 54 K1/K2;
+   (1) fp32 on the fusion trunk (3 of its 6 layers a stage), phase 4's
+       first request served across the mesh against (13)(1)'s
+       probabilities (``SERVE_TOL[fp32]``, 24 K1 a chunk at M=2: the 18
+       layers every rank runs and 3 x 2), then one step on the global
+       batch of 4 at M=2 against (13)(1)'s single-rank step: loss and grad
+       norm as phase 5 holds them, every gradient leaf the optimizer is
+       handed (stage leaves summed over pp) within ``P13_GRAD_RTOL`` of
+       its largest element, 24 K1/K2;
    (2) the same step on the video tower (``MME_PP_TOWER=video``, 1 464
        tokens) at the global batch of 2 and M=2, against a single-rank
        step at 2 made on this process with (13)(1);
@@ -414,7 +418,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        gradient's broadcasts) ms, GB and share, the gradient sync's ms and
        share, the bubble (P - 1) / (M + P - 1), each rank's peak, one
        step's launches against the count predicted from the spec: K1 =
-       K2 = K5a = K5b = 42 (the towers every rank runs) + 6 M = 66, K4
+       K2 = K5a = K5b = 18 (the towers every rank runs) + 3 M = 30, K4
        the spec's sites outside the trunk (the trunk's microbatch rows,
        2 x 473, fall under K4's 1 024-row gate), one K3;
    (4) back here, K1/K2 at the microbatch shapes (fusion B=2, video B=1)
@@ -422,6 +426,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        and SDPA with their bounds.
    ``python3 chip_smoke.py --parallel`` runs the build and phases 13, 14
    and 15 alone, and prints no result lines.
+16. The sweeps, the forced alignment and the two timing tools:
+   (1) ``cli/sweep.main`` on the card through ``text_nn`` at full width
+       (DistilRoBERTa, 768 wide, 6 layers, hash-tokenised): a mapping
+       pickle of MELD-like utterances (64 train / 16 validation / 16 test
+       rows; the card's machine has no pandas) and ``configs/bert.yaml``'s
+       space with one epoch of batch 8 and the metric ``val/loss``; six
+       trials in process with bf16 moments and K3 (the sixth a TPE
+       proposal); each trial's parameters against the sweep's numpy draws
+       replayed on the trials before it, its K1 / K2 / K3 launches against
+       the count the spec gives (6 layers x (8 steps + 4 eval batches), 6
+       x 8, 8), its losses finite, trial 6's peak memory within 5 % of
+       trial 1's, the best the minimum by the metric; beside them, started
+       first as a process of its own (``python -m mme_tpu_torch.cli.sweep
+       --workers 2``; the workers' cold start overlaps the trials), two
+       workers of one trial each sharing the card: the merged results
+       (the in-process run's first two trials) and each worker's own
+       checkpoint directory; K3 at the sweep model's leaves against its
+       plain version first;
+   (2) ``cli/align.main`` on the card: 8 rows of planted-span emissions
+       (``.npy``), a label file and a mapping pickle; the timings equal
+       the same call with ``device="cpu"``, every planted span recovered,
+       the row without emissions None;
+   (3) ``flash_crossover`` at its four shapes (K1 + K2 once per flash
+       call) and ``profile_towers`` at ``PROF_STEPS=3``,
+       ``PROF_WINDOWS=1`` with K3 (each tower's K1 / K2 per call from the
+       spec, one K3 per update).
+   ``python3 chip_smoke.py --tools`` runs the build and phase 16 alone,
+   and prints no result lines.
 
 Then one JSON line of per-kernel results (seven kernels;
 ``launches_<model>`` gives phases 8, 9 and 10's counts: a served chunk
@@ -433,8 +465,9 @@ others, the MTL's fp32 step, 0 for a model without a train leg;
 a bf16 dp=2 step of rank 0 and ``launches_parallel_sp_{fusion,video}`` a
 fp32 sp=2 training forward and backward of rank 0,
 ``launches_parallel_tp`` a bf16 mp=2 step of rank 0,
-``launches_parallel_ep`` an fp32 ep=2 step of rank 0 and
-``launches_parallel_pp`` a bf16 pp=2 step of rank 0), before it each
+``launches_parallel_ep`` an fp32 ep=2 step of rank 0,
+``launches_parallel_pp`` a bf16 pp=2 step of rank 0 and
+``launches_sweep`` phase 16's first sweep trial), before it each
 phase's seconds (``phase_seconds``), the card's name and power limit, and
 last the line ``{"ok": true, "device": {...}}``.
 
@@ -447,9 +480,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import glob
 import io
 import json
 import os
+import pickle
 import re
 import select
 import shutil
@@ -4836,6 +4871,10 @@ P13_LR = 1e-4
 P13_BF16_ENV = {"MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1",
                 "MME_FUSED_LN": "1", "MME_FUSED_MLP": "1"}
 P13_TOWERS = ("fusion", "video")
+# phases 13-15 run every tower and the trunk at their first 6 layers (full
+# width): their checks hold the same functions at half the parameters and
+# half gloo's host traffic, and the script's time pays for phase 16
+P13_DEPTH = 6
 # fp32 dp=2 step against the single-rank step from the same state: the
 # loss and grad norm as phase 5 holds kernels against MME_FLASH=0, and each
 # gradient leaf within P13_GRAD_RTOL of its largest element (the ranks'
@@ -4890,8 +4929,9 @@ def _p13_spec(dtype=torch.float32, quiet: bool = True) -> TAVSpec:
     spec = TAVSpec(output_dim=7)
     if quiet:
         spec = without_noise(spec)
-    return dataclasses.replace(spec.with_compute_dtype(dtype),
-                               share_audio_frontend=True)
+    return depth_cut(dataclasses.replace(spec.with_compute_dtype(dtype),
+                                         share_audio_frontend=True),
+                     P13_DEPTH)
 
 
 def _free() -> None:
@@ -5124,7 +5164,7 @@ def p13_sp(tower: str, weights: str) -> dict:
                                seed=P13_SEED, batch_size=P13_SP_BATCH,
                                dropout=0.0)
         base, _, _ = tav_nn.tav_spec(cfg)
-        base = without_noise(base)
+        base = depth_cut(without_noise(base), P13_DEPTH)
         spec, mesh = tav_nn.parallel_spec(cfg, base)
         model = tav_nn.build_model(cfg, spec, "cuda")
     finally:
@@ -5357,6 +5397,9 @@ def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
     spec = _p13_spec()
     if params is None:
         params = init_params(spec, P13_SEED)
+    else:
+        params = cut_tree(params, flax_shapes(TAVModel(spec, device="meta")))
+    layers = tav_layers(spec)
     directory = tempfile.mkdtemp(prefix="mme_p13_")
     weights = os.path.join(directory, "weights.pt")
     _save_tree(params, weights)
@@ -5451,13 +5494,13 @@ def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
             and r["same_leaves"] and r["worst_grad_share"] <= P13_GRAD_RTOL
             and r["cm_sum"] == P13_FP32_BATCH
             and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
-            == LAUNCHES_PER_CHUNK and r["transport"] == "gloo-host"
+            == layers and r["transport"] == "gloo-host"
             for r in dp),
         "dp_bf16": all(
             all(np.isfinite(r["losses"]))
             and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
             == r["launches"]["fused_mlp_fwd"]
-            == r["launches"]["fused_mlp_bwd"] == LAUNCHES_PER_CHUNK
+            == r["launches"]["fused_mlp_bwd"] == layers
             and r["launches"]["layer_norm_fwd"]
             == r["launches"]["layer_norm_bwd"] == n_ln
             and r["launches"]["adam_update"] == 1 for r in bf16)
@@ -5477,7 +5520,7 @@ def parallel_axes(card: str, params: Optional[dict] = None) -> dict:
             == r["expected_prepass"] and r["transport"] == "gloo-host"
             for rs in sp.values() for r in rs),
         "serve": served_diff <= SERVE_TOL[torch.float32] and all(
-            r["launches"]["flash_fwd"] == chunks * LAUNCHES_PER_CHUNK
+            r["launches"]["flash_fwd"] == chunks * layers
             for r in served)}
     if not all(checks.values()):
         raise SystemExit(f"phase 13 (the parallel axes) failed: {checks}")
@@ -5506,8 +5549,11 @@ P14_EP_BATCH = 4            # the global batch of the ep step (2 rows a rank)
 P14_MOE_SEED = P13_SEED + 1
 # the tp ranks' kernels: the four towers' attention on their local heads
 # and MLPs on their local intermediate, at one step's launches
-P14_ATTENTION = tuple((name, s, h // P14_MP, n)
-                      for name, _, s, h, n in SERVED)
+P14_ATTENTION = tuple(
+    (name, s, h // P14_MP, n) for (name, _, s, h, _), n in zip(
+        SERVED, (e.layers for e in (
+            _p13_spec().text.encoder, _p13_spec().audio.encoder,
+            _p13_spec().video.encoder, _p13_spec().fusion))))
 
 
 class _Collectives:
@@ -5902,6 +5948,7 @@ def parallel_axes_two_checks(res: dict, ref: dict, reqs: list,
            "phase_s": time.perf_counter() - t0, "card": card}
     print(json.dumps({"parallel_axes_two": out}), flush=True)
     n_ln = bf16[0]["expected_layer_norm"]
+    layers = tav_layers(spec)
     checks = {
         "tp_fp32": all(
             abs(r["loss"] - ref["loss"]) <= TRAIN_LOSS_RTOL * abs(ref["loss"])
@@ -5911,13 +5958,13 @@ def parallel_axes_two_checks(res: dict, ref: dict, reqs: list,
             and r["cm_sum"] == P13_FP32_BATCH and r["cut_leaves"] > 0
             and r["heads"] == want_heads and r["mlp"] == want_mlp
             and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
-            == LAUNCHES_PER_CHUNK and r["transport"] == "gloo-host"
+            == layers and r["transport"] == "gloo-host"
             for r in tp),
         "tp_bf16": all(
             all(np.isfinite(r["losses"]))
             and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
             == r["launches"]["fused_mlp_fwd"]
-            == r["launches"]["fused_mlp_bwd"] == LAUNCHES_PER_CHUNK
+            == r["launches"]["fused_mlp_bwd"] == layers
             and r["launches"]["layer_norm_fwd"]
             == r["launches"]["layer_norm_bwd"] == n_ln
             and r["launches"]["adam_update"] == 1
@@ -5925,7 +5972,7 @@ def parallel_axes_two_checks(res: dict, ref: dict, reqs: list,
             for r in bf16)
         and sum(r["peak_gb"] for r in bf16) < total_gb,
         "tp_serve": tp_diff <= SERVE_TOL[torch.float32] and all(
-            r["serve_launches"]["flash_fwd"] == chunks * LAUNCHES_PER_CHUNK
+            r["serve_launches"]["flash_fwd"] == chunks * layers
             for r in tp),
         "ep": all(
             abs(r["loss"] - moe_ref["loss"])
@@ -5949,7 +5996,8 @@ def parallel_axes_two_checks(res: dict, ref: dict, reqs: list,
 
 # phase 15: pipeline parallelism on phase 13's two ranks. A ("dp", "pp")
 # mesh of dp=1 and pp=2: every rank holds the whole model; the chosen
-# tower's layers run as a GPipe pipeline, stage s the layers s·6 … s·6 + 5,
+# tower's L layers run as a GPipe pipeline, stage s the layers s·L/2 …
+# (s + 1)·L/2 - 1,
 # microbatch by microbatch (parallel/pipeline.py); activations go to the
 # next stage and their gradients back, the last stage's output and stage
 # 0's input gradient are broadcast, each staged through pinned host memory
@@ -6207,7 +6255,18 @@ def pipeline_axis_checks(res: dict, refs: dict, want_probs: list,
            "bf16_ranks_s": res["bf16_ranks_s"], "kernel_shapes_s": shapes_s,
            "phase_s": time.perf_counter() - t0, "card": card}
     print(json.dumps({"pipeline_axis": out}), flush=True)
-    f32_layers = 42 + 6 * 2
+    fp32_spec = _p13_spec()
+
+    def f32_layers(tower, micro):
+        """K1 (K2) a rank launches in an fp32 step or chunk: the layers it
+        runs whole and its stage's share of ``tower``'s, once a
+        microbatch."""
+        piped = (fp32_spec.fusion.layers if tower == "fusion"
+                 else getattr(fp32_spec, tower).encoder.layers)
+        return (tav_layers(fp32_spec) - piped
+                + piped // P15_PP * micro)
+
+    micros = {tw: micro for tw, _, micro in P15_FP32}
     checks = {
         tw: all(
             abs(r["loss"] - refs[tw]["loss"])
@@ -6217,12 +6276,12 @@ def pipeline_axis_checks(res: dict, refs: dict, want_probs: list,
             and r["same_leaves"] and r["worst_grad_share"] <= P13_GRAD_RTOL
             and r["cm_sum"] == r["batch"] and r["stage_leaves"] > 0
             and r["launches"]["flash_fwd"] == r["launches"]["flash_bwd"]
-            == f32_layers and r["transport"] == "gloo-host"
+            == f32_layers(tw, micros[tw]) and r["transport"] == "gloo-host"
             for r in rs) and sorted(r["stage"] for r in rs) == [0, 1]
         for tw, rs in fp32.items()}
     checks["serve"] = served_diff <= SERVE_TOL[torch.float32] and all(
-        r["serve_launches"]["flash_fwd"] == chunks * f32_layers
-        for r in served)
+        r["serve_launches"]["flash_fwd"]
+        == chunks * f32_layers("fusion", micros["fusion"]) for r in served)
     checks["bf16"] = all(
         all(np.isfinite(r["losses"]))
         and all(r["launches"][k] == v for k, v in expected.items())
@@ -6233,10 +6292,388 @@ def pipeline_axis_checks(res: dict, refs: dict, want_probs: list,
             "phase_s": time.perf_counter() - t0}
 
 
+# phase 16: the sweeps, the forced alignment and the two timing tools on
+# the card. The sweep's data: MELD-like utterances (a few words and one of
+# MELD's emotions) as a mapping pickle of columns (the card's machine has
+# no pandas), 64 train / 16 validation / 16 test rows; its YAML:
+# configs/bert.yaml's space with one epoch of batch 8 and the metric
+# val/loss (the summary's test/loss, as in JAX); six trials in process, the
+# sixth a TPE proposal (sweep.TPE_STARTUP = 5), with bf16 moments and K3
+# (text_nn, as JAX's, reads no MME_DTYPE: the trials compute in fp32, K1/K2
+# in fp32 at [8, 70, 12 heads], which phase 3 holds), then two workers of
+# one trial each sharing the card
+P16_SPLITS = (("train", 64), ("val", 16), ("test", 16))
+P16_TRIALS = 6
+P16_SWEEP_SEED = 0
+P16_ENV = {"MME_DTYPE": "bf16", "MME_OPT_STATE": "bf16",
+           "MME_FUSED_ADAM": "1"}
+# trial 6's peak memory against trial 1's: a trial that did not free the
+# one before it would double it
+P16_PEAK_SHARE = 0.05
+# the workers' agent: its limit (two cold processes and a trial each)
+P16_AGENT_TIMEOUT_S = 300
+P16_WORDS = ("oh", "my", "god", "you", "know", "what", "i", "mean", "okay",
+             "no", "way", "that", "is", "great", "sorry", "really", "wait",
+             "hey", "ross", "rachel", "joey", "monica", "chandler", "phoebe",
+             "coffee", "apartment", "tonight", "believe", "this", "happened")
+# the alignment: 8 rows of 300 frames (6 s at 16 kHz, 320 samples a frame),
+# a transcript of 3 to 5 letters planted over spans of 4 to 8 frames; the
+# last row has no emission file (timings None)
+P16_ALIGN_ROWS, P16_FRAMES, P16_ALIGN_SEED = 8, 300, SEED + 160
+P16_LETTERS = "abcdefghijklmnopqrstuvwxyz"
+# profile_towers: windows and steps of its timings
+P16_PROF_ENV = {"PROF_STEPS": "3", "PROF_WINDOWS": "1",
+                "MME_OPT_STATE": "bf16", "MME_FUSED_ADAM": "1"}
+
+
+def sweep_data(directory: str) -> str:
+    """The sweep's records as a pickled mapping of columns."""
+    rng = np.random.RandomState(SEED + 161)
+    n = sum(k for _, k in P16_SPLITS)
+    emotions = [MELD[i % len(MELD)] for i in range(n)]
+    rng.shuffle(emotions)
+    table = {
+        "text": np.array([" ".join(rng.choice(P16_WORDS, rng.randint(3, 15)))
+                          for _ in range(n)]),
+        "emotion": np.array(emotions),
+        "split": np.array([s for s, k in P16_SPLITS for _ in range(k)]),
+    }
+    path = os.path.join(directory, "meld_like.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(table, f)
+    return path
+
+
+def sweep_yaml(directory: str) -> str:
+    """configs/bert.yaml with one epoch of batch 8 and the metric
+    val/loss."""
+    from mme_tpu_torch.sweep import SweepConfig
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "bert.yaml")) as f:
+        text = f.read()
+    for old, new in (("epoch:\n    values: [6]", "epoch:\n    values: [1]"),
+                     ("batch_size:\n    values: [1]",
+                      "batch_size:\n    values: [8]"),
+                     ("name: train/train_loss", "name: val/loss")):
+        assert old in text, old
+        text = text.replace(old, new)
+    path = os.path.join(directory, "bert_sweep.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    cfg = SweepConfig.from_yaml(path)
+    assert (cfg.parameters["epoch"]["values"], cfg.metric_name,
+            cfg.parameters["batch_size"]["values"]) == ([1], "val/loss", [8])
+    return path
+
+
+def replayed_trials(cfg, results: list) -> list:
+    """Each trial's parameters as the sweep's numpy draws give them, from
+    the trials before it: the random sequence for the first TPE_STARTUP,
+    then ``tpe_propose`` on the recorded history."""
+    from mme_tpu_torch.sweep import (TPE_STARTUP, TrialResult, iter_trials,
+                                     tpe_propose)
+    out, history = [], []
+    for i, rec in enumerate(results):
+        if i < TPE_STARTUP:
+            want = next(iter_trials(cfg, 1, P16_SWEEP_SEED, trial_offset=i))
+        else:
+            want = tpe_propose(cfg, history, np.random.RandomState(
+                (P16_SWEEP_SEED * 1000003 + i) & 0x7FFFFFFF))
+        out.append(json.loads(json.dumps(want)))
+        history.append(TrialResult(rec["params"], rec["metrics"]))
+    return out
+
+
+def sweep_adam_hold(card: str) -> dict:
+    """K3 over the sweep model's leaves (the full-width BertClassifier)
+    against its plain version on the same inputs and Philox words."""
+    net = BertClassifier(TextEncoderSpec.distilroberta(), 7, device="meta")
+    sizes = [p.numel() for p in net.parameters()]
+    gs, mus, nus = time_adam.leaf_state(sizes, 16)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    bc1, bc2 = 1.0 - 0.9 ** 2, 1.0 - 0.999 ** 2
+    seeds = [(16 << 20) + k for k in range(len(sizes))]
+    got = adam_update_leaves(gs, mus, nus, bc1, bc2, seeds, **kw)
+    want = adam_update_leaves_plain(gs, mus, nus, bc1, bc2, seeds, **kw)
+    same, n_ulp = adam_same_bits(got, want)
+    out = {"leaves": len(sizes), "elements": sum(sizes),
+           "moments_equal_plain": same, "out_ulps": n_ulp, "card": card}
+    print(json.dumps({"sweep_adam_hold": out}), flush=True)
+    if not (same and n_ulp <= ADAM_OUT_ULPS):
+        raise SystemExit("phase 16: adam_update disagrees with its plain "
+                         "version over the sweep model's leaves")
+    return out
+
+
+def start_workers(yml: str, pkl: str, directory: str) -> subprocess.Popen:
+    """``python -m mme_tpu_torch.cli.sweep ... --workers 2`` as a user
+    starts it, in ``directory`` (each worker's checkpoints under its
+    ``checkpoints/sweep_worker_<w>``, the results files under a temporary
+    directory there), in a session of its own so that a failure can stop
+    it with its workers; its output goes to ``agent.log``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **P16_ENV, TMPDIR=directory,
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                              ""))
+    with open(os.path.join(directory, "agent.log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "mme_tpu_torch.cli.sweep", yml,
+             "--trials", "2", "--workers", "2", "--seed",
+             str(P16_SWEEP_SEED), "--dataset", pkl, "--device", "cuda"],
+            cwd=directory, env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+
+def sweep_run(card: str, directory: str) -> dict:
+    """Phase 16 (1): six trials in process and, started before them as a
+    process of its own (the workers' cold start, ~30 s of imports, CUDA
+    and kernel libraries, overlaps the trials), two workers of one trial
+    each sharing the card."""
+    from mme_tpu_torch.cli import sweep as sweep_cli
+    from mme_tpu_torch.sweep import SweepConfig
+    pkl, yml = sweep_data(directory), sweep_yaml(directory)
+    cfg = SweepConfig.from_yaml(yml)
+    layers = TextEncoderSpec.distilroberta().encoder.layers
+    results_path = os.path.join(directory, "trials.jsonl")
+    trials: list = []
+    plain_main = text_nn.main
+
+    def traced(argv, device="cuda"):
+        run_dir = os.path.join(directory, f"run_{len(trials)}")
+        os.environ["MME_RUN_DIR"] = run_dir
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_gb = torch.cuda.memory_allocated() / 1e9
+        kernels.reset_launches()
+        t = time.perf_counter()
+        try:
+            summary = plain_main(argv, device=device)
+        finally:
+            del os.environ["MME_RUN_DIR"]
+        torch.cuda.synchronize()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f]
+        trials.append({
+            "s": time.perf_counter() - t, "start_gb": start_gb,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+            "losses": [d[k] for d in logs for k in ("train/loss", "val/loss",
+                                                    "test/loss") if k in d]})
+        return summary
+
+    t0 = time.perf_counter()
+    agent = start_workers(yml, pkl, directory)
+    cwd = os.getcwd()
+    os.chdir(directory)
+    text_nn.main = traced
+    try:
+        with environ(P16_ENV):
+            best = sweep_cli.main([yml, "--trials", str(P16_TRIALS), "--seed",
+                                   str(P16_SWEEP_SEED), "--dataset", pkl,
+                                   "--results", results_path],
+                                  device="cuda")
+        in_process_s = time.perf_counter() - t0
+        agent_rc = agent.wait(timeout=P16_AGENT_TIMEOUT_S)
+        workers_s = time.perf_counter() - t0
+    finally:
+        text_nn.main = plain_main
+        os.chdir(cwd)
+        if agent.poll() is None:
+            os.killpg(agent.pid, signal.SIGKILL)
+            agent.wait()
+    _free()
+    with open(os.path.join(directory, "agent.log")) as f:
+        merged_line = [json.loads(line) for line in f
+                       if line.startswith("{") and '"workers"' in line]
+    w_best = merged_line[-1] if merged_line else {}
+    with open(results_path) as f:
+        results = [json.loads(line) for line in f]
+    want = replayed_trials(cfg, results)
+    steps = -(-P16_SPLITS[0][1] // 8)
+    evals = sum(-(-k // 8) for _, k in P16_SPLITS[1:])
+    expected = {"flash_fwd": layers * (steps + evals),
+                "flash_bwd": layers * steps, "adam_update": steps}
+    worker_files = sorted(
+        glob.glob(os.path.join(directory, "mme_sweep_*", "worker_*.jsonl")))
+    merged = []
+    for path in worker_files:
+        with open(path) as f:
+            merged.append([json.loads(line)["params"] for line in f])
+    worker_dirs = [os.path.join(directory, "checkpoints",
+                                f"sweep_worker_{w}") for w in range(2)]
+    metric = [r["metrics"]["val/loss"] for r in results]
+    out = {
+        "trials": [{**tr, "params": r["params"],
+                    "val_loss": r["metrics"]["val/loss"]}
+                   for tr, r in zip(trials, results)],
+        "in_process_s": in_process_s, "workers_s": workers_s,
+        "agent_rc": agent_rc,
+        "expected_launches": expected,
+        "replayed_equal": [a == r["params"] for a, r in zip(want, results)],
+        "best_params": best.params, "best_val_loss": best.metrics["val/loss"],
+        "workers_best_params": w_best.get("best_params"),
+        "workers_merged": merged,
+        "worker_checkpoints": [os.path.isfile(os.path.join(d,
+                                                           "best_meta.json"))
+                               for d in worker_dirs],
+        "card": card}
+    print(json.dumps({"sweep": out}), flush=True)
+    peak0, peak5 = trials[0]["peak_gb"], trials[-1]["peak_gb"]
+    checks = {
+        "trials": len(results) == len(trials) == P16_TRIALS,
+        "replay": all(out["replayed_equal"]),
+        "launches": all({k: tr["launches"].get(k, 0) for k in expected}
+                        == expected for tr in trials),
+        "finite": all(tr["losses"] and np.isfinite(tr["losses"]).all()
+                      for tr in trials),
+        "peak": abs(peak5 - peak0) <= P16_PEAK_SHARE * peak0,
+        "best": best.metrics["val/loss"] == min(metric),
+        "workers": agent_rc == 0 and w_best.get("trials") == 2
+        and merged == [[r["params"]] for r in results[:2]]
+        and w_best.get("best_params") in merged[0] + merged[1]
+        and all(out["worker_checkpoints"])
+        and not os.path.exists(os.path.join(directory, "checkpoints",
+                                            "sweep_worker_2"))}
+    if not all(checks.values()):
+        raise SystemExit(f"phase 16: the sweep failed its checks: {checks}")
+    return {"trial_launches": trials[0]["launches"], **out}
+
+
+def _planted(rng) -> Tuple[str, list]:
+    """A transcript of 3 to 5 letters, no letter twice in a row (the
+    trellis puts no blank between two equal tokens, so a repeat may take
+    one frame of the first's span), and its spans over the frames."""
+    word, n = "", rng.randint(3, 6)
+    while len(word) < n:
+        c = P16_LETTERS[rng.randint(len(P16_LETTERS))]
+        if not word or c != word[-1]:
+            word += c
+    spans, t = [], int(rng.randint(5, 40))
+    for _ in word:
+        width = int(rng.randint(4, 9))
+        spans.append((t, t + width))
+        t += width + int(rng.randint(3, 40))
+    assert t < P16_FRAMES
+    return word, spans
+
+
+def _planted_emission(tokens: list, spans: list, classes: int, rng
+                      ) -> np.ndarray:
+    """Log-probabilities favouring each token over its span and the blank
+    elsewhere, with drawn noise."""
+    em = np.full((P16_FRAMES, classes), -10.0, np.float32)
+    em[:, 0] = -0.5
+    for tok, (s, e) in zip(tokens, spans):
+        em[s:e, tok] = 0.0
+    em += rng.rand(*em.shape).astype(np.float32) * 0.2
+    return em - np.log(np.exp(em).sum(-1, keepdims=True))
+
+
+def align_run(card: str, directory: str) -> dict:
+    """Phase 16 (2): the align CLI on the card against the CPU."""
+    from mme_tpu_torch.cli import align as align_cli
+    rng = np.random.RandomState(P16_ALIGN_SEED)
+    labels = ["-", "|", "'"] + list(P16_LETTERS)
+    char2id = {c: i for i, c in enumerate(labels) if i > 0}
+    with open(os.path.join(directory, "labels.txt"), "w") as f:
+        f.write("\n".join(labels) + "\n")
+    emdir = os.path.join(directory, "emissions")
+    os.makedirs(emdir)
+    words, planted = [], []
+    for i in range(P16_ALIGN_ROWS):
+        word, spans = _planted(rng)
+        words.append(word)
+        planted.append(spans)
+        if i < P16_ALIGN_ROWS - 1:
+            np.save(os.path.join(emdir, f"{i}.npy"), _planted_emission(
+                [char2id[c] for c in word], spans, len(labels), rng))
+    table = {"text": np.array(words),
+             "audio_shape": np.full(P16_ALIGN_ROWS, P16_FRAMES * 320)}
+    pkl = os.path.join(directory, "align.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(table, f)
+    flags = ["--emissions_dir", emdir, "--labels",
+             os.path.join(directory, "labels.txt")]
+    timings = {}
+    seconds = {}
+    for leg, dev in (("card", "cuda"), ("cpu", "cpu")):
+        t = time.perf_counter()
+        out = align_cli.main([pkl, *flags, "--out", os.path.join(
+            directory, f"aligned_{leg}.pkl")], device=dev)
+        seconds[leg] = time.perf_counter() - t
+        with open(out, "rb") as f:
+            timings[leg] = pickle.load(f)["timings"]
+    recovered = []
+    for got, spans in zip(timings["card"], planted):
+        if got is None:
+            recovered.append(None)
+            continue
+        first, last = round(got[0] * 50), round(got[1] * 50)
+        recovered.append(spans[0][0] <= first < spans[0][1]
+                         and spans[-1][0] < last <= spans[-1][1])
+    out = {"rows": P16_ALIGN_ROWS, "frames": P16_FRAMES,
+           "card_equals_cpu": timings["card"] == timings["cpu"],
+           "recovered": recovered, "timings": timings["card"],
+           "seconds": seconds, "card": card}
+    print(json.dumps({"align": out}), flush=True)
+    if not (out["card_equals_cpu"] and all(recovered[:-1])
+            and recovered[-1] is None):
+        raise SystemExit("phase 16: the forced alignment failed its checks")
+    return out
+
+
+def timing_tools(card: str) -> dict:
+    """Phase 16 (3): flash_crossover at its four shapes and
+    profile_towers at PROF_STEPS=3, PROF_WINDOWS=1 (K3 on)."""
+    from mme_tpu_torch import flash_crossover, profile_towers
+    rows = flash_crossover.run(card=card)
+    _free()
+    with environ(P16_PROF_ENV):
+        prof = profile_towers.run()
+    _free()
+    spec = profile_towers.bench_spec()
+    want = {"text_tower": spec.text.encoder.layers,
+            "audio_tower_with_conv": spec.audio.encoder.layers,
+            f"video_tower_{spec.video.num_patches - spec.video_keep_k}":
+                spec.video.encoder.layers,
+            "fusion_trunk_473": spec.fusion.layers,
+            "full_model_fwd_bwd": tav_layers(spec)}
+    checks = {
+        "crossover": all(isinstance(r[k], float) and r[k] > 0
+                         for r in rows for k in ("flash", "plain", "sdpa"))
+        and all(r["launches"] == {"flash_fwd": 1, "flash_bwd": 1}
+                for r in rows),
+        "towers": all(np.isfinite(v) and v > 0 for v in prof["ms"].values())
+        and all(prof["launches"][k].get("flash_fwd") == n
+                == prof["launches"][k].get("flash_bwd")
+                for k, n in want.items())
+        and prof["launches"]["adamw_update"] == {"adam_update": 1}}
+    if not all(checks.values()):
+        raise SystemExit(f"phase 16: the timing tools failed: {checks}")
+    return {"flash_crossover": rows, "profile_towers": prof}
+
+
+def tools_phase(card: str) -> dict:
+    """Phase 16: the sweep (and K3 at its model's leaves), the alignment,
+    then the timing tools."""
+    directory = tempfile.mkdtemp(prefix="mme_p16_")
+    try:
+        hold = sweep_adam_hold(card)
+        _free()
+        sweep = sweep_run(card, directory)
+        _free()
+        align = align_run(card, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    tools = timing_tools(card)
+    return {"sweep": sweep, "adam_hold": hold, "align": align, **tools}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--parallel"]):
-        print("usage: python3 chip_smoke.py [--parallel]", file=sys.stderr)
+    if argv not in ([], ["--parallel"], ["--tools"]):
+        print("usage: python3 chip_smoke.py [--parallel | --tools]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -6275,6 +6712,14 @@ def main(argv=None) -> int:
         seconds["15"] = par["pp"]["phase_s"]
         seconds["13"] = (time.perf_counter() - t0 - seconds["14"]
                          - seconds["15"])
+        print(json.dumps({"phase_seconds": seconds}), flush=True)
+        return 0
+    if argv == ["--tools"]:
+        # phase 16 alone: the sweeps, the alignment and the timing tools;
+        # no result lines
+        t0 = time.perf_counter()
+        tools_phase(card)
+        seconds["16"] = time.perf_counter() - t0
         print(json.dumps({"phase_seconds": seconds}), flush=True)
         return 0
 
@@ -6326,6 +6771,8 @@ def main(argv=None) -> int:
     seconds["15"] = par["pp"]["phase_s"]
     seconds["13"] = (time.perf_counter() - t0 - seconds["14"]
                      - seconds["15"])
+    _free()
+    tools = timed("16", tools_phase, card)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
 
     def family_launches(name):
@@ -6333,7 +6780,8 @@ def main(argv=None) -> int:
         both knobs on for a forward kernel, one bf16 train step with every
         knob on for the others (the MTL's fp32 step; 0 for a model without
         a train leg); phase 11's whole run and one of its train steps per
-        bucket bound; phase 12's train run."""
+        bucket bound; phase 12's train run; phase 16's first sweep
+        trial."""
         leg = "serve" if name.endswith("_fwd") else "step"
         out = {f"launches_{m}": family[m][leg].get(name, 0) for m in FAMILY}
         out["launches_wav2vec2_base"] = w2v[leg].get(name, 0)
@@ -6350,6 +6798,7 @@ def main(argv=None) -> int:
         out["launches_parallel_tp"] = par["two"]["tp"].get(name, 0)
         out["launches_parallel_ep"] = par["two"]["ep"].get(name, 0)
         out["launches_parallel_pp"] = par["pp"]["pp"].get(name, 0)
+        out["launches_sweep"] = tools["sweep"]["trial_launches"].get(name, 0)
         return out
 
     def entry(name, route, source, replaces, result):

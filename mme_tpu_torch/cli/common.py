@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -116,14 +117,14 @@ def resolve_pickle(dataset: str) -> Optional[str]:
 def pickle_splits(pkl: str, rcfg: PickleDatasetConfig,
                   build: Callable[[Any], ArrayDataset],
                   filtered: bool = False):
-    """The pickle branch the CLIs share: read the frame (``pandas``,
-    imported here), apply ``records.apply_filters`` first when
-    ``filtered``, build the label map over the whole frame into
-    ``rcfg.label_map``, split it and ``build`` each split. Returns (train,
-    val, test, id→name map or None for integer labels)."""
-    import pandas as pd
-
-    df = pd.read_pickle(pkl)
+    """The pickle branch the CLIs share: read the pickle with
+    ``pickle.load`` (a frame where pandas is installed, or a plain mapping
+    of column name → array anywhere), apply ``records.apply_filters``
+    first when ``filtered``, build the label map over the whole table
+    into ``rcfg.label_map``, split it and ``build`` each split. Returns
+    (train, val, test, id→name map or None for integer labels)."""
+    with open(pkl, "rb") as fh:
+        df = pickle.load(fh)
     if filtered:
         df = apply_filters(df, rcfg)
     # ids factorize over the FULL frame, so a class missing from one split

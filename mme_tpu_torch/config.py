@@ -179,10 +179,15 @@ def config_from_args(args: Any, device: DeviceLike = "cuda",
     (``MME_COORDINATOR`` / ``MME_NUM_PROCESSES`` / ``MME_PROCESS_ID``)
     joins its process group here (``parallel/distributed.py::
     maybe_initialize``), before any work, as JAX's does; its backend
-    follows ``MME_DIST_BACKEND``, else the caller's ``device``."""
+    follows ``MME_DIST_BACKEND``, else the caller's ``device``.
+    ``MME_CHECKPOINT_DIR`` sets ``checkpoint_dir`` (a port addition: the
+    sweep gives each parallel worker its own)."""
     maybe_initialize(device=device)
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
+    ckpt_dir = os.environ.get("MME_CHECKPOINT_DIR")
+    if ckpt_dir:
+        kw["checkpoint_dir"] = ckpt_dir
     kw.update(overrides)
     cfg = ExperimentConfig(**kw)
     mp = int(os.environ.get("MME_MP", "0") or 0)

@@ -19,10 +19,10 @@ JAX's seeds, row order and dtypes:
 
 Splits: the ``split`` column when present, else a seeded stratified
 75/12.5/12.5 split. Filters: ``audio_shape > min_audio_shape`` and dropped
-labels. ``build_label_map`` and the text, audio and TAV builders also take
-a plain mapping of column name → array in place of a frame (no pandas),
-save for the TAV builder's keyframe and raw-video branches, which walk the
-frame's rows.
+labels. The splits, the filters, ``build_label_map`` and the text, audio
+and TAV builders also take a plain mapping of column name → array (or
+list) in place of a frame (no pandas), save for the TAV builder's
+keyframe and raw-video branches, which walk the frame's rows.
 """
 
 from __future__ import annotations
@@ -197,11 +197,31 @@ class PickleDatasetConfig:
     label_map: Optional[Dict[str, int]] = None
 
 
+def _columns(df):
+    """A frame's column names, or a mapping's keys."""
+    return df.columns if hasattr(df, "columns") else list(df)
+
+
+def _num_rows(df) -> int:
+    if hasattr(df, "iloc"):
+        return len(df)
+    return len(next(iter(df.values()))) if len(df) else 0
+
+
+def _rows(df, idx: np.ndarray):
+    """The rows ``idx`` (ascending positions) of a frame, or of a mapping
+    of columns: arrays are indexed, lists keep their items."""
+    if hasattr(df, "iloc"):
+        return df.iloc[idx]
+    return {k: (v[idx] if isinstance(v, np.ndarray) else [v[i] for i in idx])
+            for k, v in df.items()}
+
+
 def _stratified_take(df, label_col, seed, frac):
     """Carve a stratified ``frac`` slice off ``df`` → (remainder, slice)."""
     rng = np.random.RandomState(seed)
-    idx = np.arange(len(df))
-    labels = df[label_col].values
+    idx = np.arange(_num_rows(df))
+    labels = np.asarray(df[label_col])
     take = []
     for c in np.unique(labels):
         ci = idx[labels == c]
@@ -212,14 +232,15 @@ def _stratified_take(df, label_col, seed, frac):
         k = min(max(1, int(round(len(ci) * frac))), len(ci) - 1)
         take.extend(ci[:k])
     take = np.sort(np.asarray(take, dtype=int))
-    mask = np.ones(len(df), bool)
+    mask = np.ones(len(idx), bool)
     mask[take] = False
-    return df.iloc[np.flatnonzero(mask)], df.iloc[take]
+    return _rows(df, np.flatnonzero(mask)), _rows(df, take)
 
 
 def split_dataframe(df, cfg: PickleDatasetConfig):
     """The split column when present, else a stratified 75/12.5/12.5
-    split.
+    split; ``df`` is a frame or a mapping of columns, and each split is of
+    the same kind.
 
     A split column with SOME empty partitions is handled without ever
     folding official held-out rows back into training: a missing val
@@ -228,41 +249,43 @@ def split_dataframe(df, cfg: PickleDatasetConfig):
     verbatim. Only when no held-out partition exists at all (a pickle
     built from one CSV: everything is "train") does the full stratified
     re-split run."""
-    if cfg.split_col in df.columns:
-        train = df[df[cfg.split_col] == "train"]
-        val = df[df[cfg.split_col] == "val"]
-        test = df[df[cfg.split_col] == "test"]
-        if len(train) > 0 and len(val) > 0 and len(test) > 0:
+    if cfg.split_col in _columns(df):
+        split = np.asarray(df[cfg.split_col])
+        train, val, test = (_rows(df, np.flatnonzero(split == name))
+                            for name in ("train", "val", "test"))
+        n_train, n_val, n_test = (int(np.sum(split == name))
+                                  for name in ("train", "val", "test"))
+        if n_train > 0 and n_val > 0 and n_test > 0:
             return train, val, test
-        if len(train) > 0 and (len(val) > 0 or len(test) > 0):
+        if n_train > 0 and (n_val > 0 or n_test > 0):
             # official held-out data exists — never re-split it
-            if len(val) == 0:
+            if n_val == 0:
                 train, val = _stratified_take(train, cfg.label_col,
                                               cfg.seed, 0.125)
                 print("split column has no val rows — carved a stratified "
                       "12.5% val set out of the official train split "
                       "(official test untouched)", flush=True)
-            if len(test) == 0:
+            if n_test == 0:
                 train, test = _stratified_take(train, cfg.label_col,
                                                cfg.seed + 1, 0.125)
                 print("split column has no test rows — carved a stratified "
                       "12.5% test set out of the official train split "
                       "(official val untouched)", flush=True)
             return train, val, test
-        if len(val) > 0 or len(test) > 0:
+        if n_val > 0 or n_test > 0:
             # official held-out rows exist but there is NOTHING to train
             # on — re-splitting here would silently fold val/test rows
             # into training (protocol violation). Refuse loudly instead.
             raise ValueError(
                 f"split column {cfg.split_col!r} has no train rows but "
-                f"{len(val)} val / {len(test)} test rows — refusing to "
+                f"{n_val} val / {n_test} test rows — refusing to "
                 "re-split official held-out data into training; fix the "
                 "pickle's split column or drop it for a stratified split")
         print("split column present but no usable train/eval partitions — "
               "using the stratified 75/12.5/12.5 split instead", flush=True)
     rng = np.random.RandomState(cfg.seed)
-    idx = np.arange(len(df))
-    labels = df[cfg.label_col].values
+    idx = np.arange(_num_rows(df))
+    labels = np.asarray(df[cfg.label_col])
     train_idx, rest_idx = [], []
     for c in np.unique(labels):
         ci = idx[labels == c]
@@ -270,23 +293,27 @@ def split_dataframe(df, cfg: PickleDatasetConfig):
         k = int(len(ci) * 0.75)
         train_idx.extend(ci[:k])
         rest_idx.extend(ci[k:])
-    rest_idx = np.asarray(rest_idx)
+    rest_idx = np.asarray(rest_idx, dtype=int)
     rng.shuffle(rest_idx)
     half = len(rest_idx) // 2
-    return (df.iloc[np.sort(train_idx)], df.iloc[np.sort(rest_idx[:half])],
-            df.iloc[np.sort(rest_idx[half:])])
+    return (_rows(df, np.sort(np.asarray(train_idx, dtype=int))),
+            _rows(df, np.sort(rest_idx[:half])),
+            _rows(df, np.sort(rest_idx[half:])))
 
 
 def apply_filters(df, cfg: PickleDatasetConfig,
                   label_names: Optional[Dict[int, str]] = None):
-    """The audio_shape and label-drop filters."""
-    if cfg.min_audio_shape is not None and "audio_shape" in df.columns:
-        df = df[df["audio_shape"] > cfg.min_audio_shape]
+    """The audio_shape and label-drop filters, on a frame or a mapping of
+    columns."""
+    if cfg.min_audio_shape is not None and "audio_shape" in _columns(df):
+        df = _rows(df, np.flatnonzero(
+            np.asarray(df["audio_shape"]) > cfg.min_audio_shape))
     if cfg.drop_labels:
         col = (f"{cfg.label_col}_label"
-               if f"{cfg.label_col}_label" in df.columns else None)
+               if f"{cfg.label_col}_label" in _columns(df) else None)
         if col is not None:
-            df = df[~df[col].isin(cfg.drop_labels)]
+            df = _rows(df, np.flatnonzero(~np.isin(
+                np.asarray(df[col]), list(cfg.drop_labels))))
     return df
 
 

@@ -120,7 +120,8 @@ import wave as wavemod
 # any import of these now raises: the JAX side, and the media libraries the
 # card's machine lacks
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mme_tpu", "pandas",
-             "cv2", "PIL", "transformers", "safetensors", "ml_dtypes"):
+             "cv2", "PIL", "transformers", "safetensors", "ml_dtypes",
+             "yaml"):
     sys.modules[name] = None
 import mme_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(mme_tpu_torch.__path__,
@@ -228,7 +229,18 @@ try:
     raise AssertionError("a BF16 tensor was read")
 except TypeError as e:
     assert str(e) == "data type 'bfloat16' not understood", e
-assert len(mods) >= 57, mods
+# the sweeps read the configs without PyYAML; the alignment's trellis and
+# the two timing tools are modules of the package
+assert {"mme_tpu_torch.sweep", "mme_tpu_torch.cli.sweep",
+        "mme_tpu_torch.data.alignment", "mme_tpu_torch.cli.align",
+        "mme_tpu_torch.flash_crossover",
+        "mme_tpu_torch.profile_towers"} <= set(mods)
+from mme_tpu_torch.sweep import SweepConfig, iter_trials
+cfg = SweepConfig.from_yaml(os.path.join(os.environ["PYTHONPATH"],
+                                         "configs", "bert.yaml"))
+assert cfg.program == "mme_tpu.cli.text_nn" and cfg.method == "bayes"
+assert next(iter_trials(cfg, 1))["clip"] in (0.25, 1, 5)
+assert len(mods) >= 63, mods
 print(len(mods), "modules")
 """
 
@@ -241,8 +253,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
     the port's own source work, and a ``.safetensors`` checkpoint loads
     through ``models/pretrained.py`` (a BF16 tensor refused as
     ``safetensors.numpy`` refuses it), with JAX, flax, optax, orbax,
-    mme_tpu, ml_dtypes, safetensors and the media libraries (pandas, cv2,
-    PIL, transformers) blocked (the CLIs write their checkpoints under
+    mme_tpu, ml_dtypes, safetensors, PyYAML and the media libraries (pandas,
+    cv2, PIL, transformers) blocked; the new modules of the sweeps, the
+    alignment and the timing tools import, and ``configs/bert.yaml`` parses (the CLIs write their checkpoints under
     tmp_path)."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
