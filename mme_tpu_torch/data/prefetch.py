@@ -16,6 +16,10 @@ the numpy arrays' memory.
 
 Labels, the sample mask and the indices stay host numpy: the train loop
 reads the mask on the host for dialog accumulation.
+
+Under a ``torch.profiler`` session the consumer records the span
+``mme.prefetch.wait`` around each batch's wait: the queue and the stream's
+wait on the copies (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from mme_tpu_torch.device import DeviceLike, resolve_device
+from mme_tpu_torch.utils.profiling import span
 
 _SENTINEL = object()
 
@@ -92,17 +97,18 @@ def prefetch_batches(it: Iterator[Batch], device: DeviceLike = "cuda",
     t.start()
     try:
         while True:
-            item = q.get()
-            if item is _SENTINEL:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            feats, ready, labels, mask, idx = item
-            if ready is not None:
-                stream = torch.cuda.current_stream(dev)
-                stream.wait_event(ready)
-                for v in feats.values():
-                    v.record_stream(stream)
+            with span("mme.prefetch.wait"):
+                item = q.get()
+                if item is _SENTINEL:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                feats, ready, labels, mask, idx = item
+                if ready is not None:
+                    stream = torch.cuda.current_stream(dev)
+                    stream.wait_event(ready)
+                    for v in feats.values():
+                        v.record_stream(stream)
             yield feats, labels, mask, idx
     finally:
         # consumer closed (exhausted, broken out of, or failed): release the

@@ -24,6 +24,14 @@ operators ``mme_tpu_torch::flash_fwd``, ``::layer_norm_fwd`` and
 ``MME_FUSED_MLP``, ``MME_FLASH``) are read while the forward is traced and
 are frozen into the program; the meta records them.
 
+Under a ``torch.profiler`` session a ``Predictor`` records each chunk as
+the span ``mme.serve.chunk`` with its phases ``mme.serve.h2d`` (the copy
+to the device), ``mme.serve.transform`` (``predict_dataset``'s batch
+transform), ``mme.serve.forward`` (from the normalisation to the enqueued
+answers) and ``mme.serve.readback`` (the answers read to the host, which
+waits for the device there); building the rows is the chunk's own time
+(``utils/profiling.py``).
+
 Use: ``p = Predictor(TAVModel(spec), batch_size=8); preds, probs = p(batch)``;
 ``export_bundle(model, example, "bundle")``;
 ``preds, probs = load_bundle("bundle")(batch)``.
@@ -46,6 +54,7 @@ from mme_tpu_torch.ops import (flash_attention, fused_mlp,  # noqa: F401
                                layer_norm)
 from mme_tpu_torch.ops.video import normalize_uint8_video
 from mme_tpu_torch.parallel.mesh import Mesh
+from mme_tpu_torch.utils.profiling import span
 
 BUNDLE_FORWARD = "forward.pt2"
 BUNDLE_META = "meta.json"
@@ -140,23 +149,28 @@ class Predictor:
 
     def _run(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[np.ndarray, np.ndarray]:
-        ax = self._axis
-        if ax is not None and ax.size > 1:
-            per = self.batch_size // ax.size
-            batch = {k: v[ax.index * per:(ax.index + 1) * per]
-                     for k, v in batch.items()}
-        v = batch.get("video")
-        if v is not None and v.dtype == torch.uint8:
-            batch = dict(batch, video=normalize_uint8_video(v))
-        with torch.inference_mode():
-            preds, probs = self._serving(batch)
+        with span("mme.serve.forward"):
+            ax = self._axis
             if ax is not None and ax.size > 1:
-                preds, probs = ax.all_gather(preds), ax.all_gather(probs)
-        return preds.cpu().numpy(), probs.cpu().numpy()
+                per = self.batch_size // ax.size
+                batch = {k: v[ax.index * per:(ax.index + 1) * per]
+                         for k, v in batch.items()}
+            v = batch.get("video")
+            if v is not None and v.dtype == torch.uint8:
+                batch = dict(batch, video=normalize_uint8_video(v))
+            with torch.inference_mode():
+                preds, probs = self._serving(batch)
+                if ax is not None and ax.size > 1:
+                    preds, probs = ax.all_gather(preds), ax.all_gather(probs)
+        with span("mme.serve.readback"):
+            return preds.cpu().numpy(), probs.cpu().numpy()
 
     def _forward(self, chunk: Dict[str, np.ndarray]
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        return self._run(_to_device(chunk, self.device))
+        with span("mme.serve.chunk"):
+            with span("mme.serve.h2d"):
+                batch = _to_device(chunk, self.device)
+            return self._run(batch)
 
     def __call__(self, batch: Dict[str, Any]
                  ) -> Tuple[np.ndarray, np.ndarray]:
@@ -182,19 +196,26 @@ class Predictor:
             rng = torch.Generator(device=self.device).manual_seed(0)
         for lo in range(0, n, self.batch_size):
             hi = min(lo + self.batch_size, n)
-            chunk = _to_device({k: np.asarray(v[lo:hi])
-                                for k, v in dataset.features.items()},
-                               self.device)
-            if batch_transform is not None:
-                chunk = batch_transform(rng, chunk)
-            preds, probs = self._run({k: _pad_rows_tensor(v, self.batch_size)
-                                      for k, v in chunk.items()})
-            for i in range(hi - lo):
-                row = {"index": lo + i, "pred": int(preds[i]),
-                       "probs": [round(float(x), 6) for x in probs[i]]}
-                if id2label:
-                    row["label"] = id2label.get(int(preds[i]), str(preds[i]))
-                yield row
+            with span("mme.serve.chunk"):
+                with span("mme.serve.h2d"):
+                    chunk = _to_device({k: np.asarray(v[lo:hi])
+                                        for k, v in dataset.features.items()},
+                                       self.device)
+                if batch_transform is not None:
+                    with span("mme.serve.transform"):
+                        chunk = batch_transform(rng, chunk)
+                preds, probs = self._run(
+                    {k: _pad_rows_tensor(v, self.batch_size)
+                     for k, v in chunk.items()})
+                rows = []
+                for i in range(hi - lo):
+                    row = {"index": lo + i, "pred": int(preds[i]),
+                           "probs": [round(float(x), 6) for x in probs[i]]}
+                    if id2label:
+                        row["label"] = id2label.get(int(preds[i]),
+                                                    str(preds[i]))
+                    rows.append(row)
+            yield from rows
 
 
 def _drop_metadata_asserts(program) -> None:

@@ -47,6 +47,13 @@ clip and the update see whole gradients, the same on every rank. The
 pipeline draws its dropout numbers from the step's generator as the
 sequential stack does (``parallel/pipeline.py``), so the generator stays
 in step on every rank of the axis.
+
+Under a ``torch.profiler`` session the step records the span
+``mme.train.step`` with its phases ``mme.train.inputs`` (the batch, labels,
+mask and weights onto the device), ``mme.train.forward`` (the model and the
+loss), ``mme.train.backward`` (the gradients) and ``mme.train.optimizer``
+(from the gradients to the updated parameters); the confusion matrix is
+the step's own time (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from mme_tpu_torch.train.losses import cross_entropy
 from mme_tpu_torch.train.optim import (AdamWState, Optimizer, View, adamw,
                                        adamw_factored, adamw_lowmem,
                                        global_norm_f32)
+from mme_tpu_torch.utils.profiling import span
 
 Rng = Union[int, torch.Generator]
 
@@ -244,30 +252,12 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
         grads_dtype = {"bf16": torch.bfloat16}.get(
             os.environ.get("MME_GRADS", ""))
 
-    def step(state: TrainState, batch: Dict[str, Any], labels, sample_mask,
-             class_weights, loss_scale: float, apply_update: bool, rng: Rng):
-        params = state.params
-        device = params[0].device
-        gen = _step_generator(rng, state.step, device)
-        batch = to_device(batch, device)
-        labels = torch.as_tensor(labels, device=device)
-        sample_mask = torch.as_tensor(sample_mask, device=device)
-        class_weights = torch.as_tensor(class_weights, device=device)
-
-        model.train()
-        with batch_reduction(dp):
-            out = model(batch, rng=gen)
-            logits, aux = out if has_aux_loss else (out, None)
-            loss = loss_fn(logits, labels, class_weights, sample_mask)
-            if aux is not None:
-                loss = loss + aux
-            scaled_loss = loss * loss_scale
-            grads = torch.autograd.grad(scaled_loss, params,
-                                        allow_unused=True)
-        # a parameter the forward did not reach (SpecAugment's embedding
-        # with its probability at 0) has a zero gradient, as in JAX
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
+    def _update(state: TrainState, params: List[torch.Tensor],
+                grads: List[torch.Tensor], apply_update: bool,
+                gen: torch.Generator):
+        """From the gradients to the updated parameters: the mesh's mean,
+        the cast, the norms, the update or the accumulation; returns the
+        step's ``grad_norm``."""
         if mesh is not None and mesh.size > 1:
             # the dp ranks' partial gradients sum to dp times the global
             # one, and the sp ranks' are equal; the mean keeps every
@@ -311,6 +301,45 @@ def make_train_step(model: nn.Module, tx: Optimizer, num_classes: int,
                 for a in state.accum_grads:
                     a.zero_()
                 state.accum_count = 0
+        return grad_norm
+
+    def step(state: TrainState, batch: Dict[str, Any], labels, sample_mask,
+             class_weights, loss_scale: float, apply_update: bool, rng: Rng):
+        with span("mme.train.step"):
+            return _step(state, batch, labels, sample_mask, class_weights,
+                         loss_scale, apply_update, rng)
+
+    def _step(state: TrainState, batch: Dict[str, Any], labels, sample_mask,
+              class_weights, loss_scale: float, apply_update: bool,
+              rng: Rng):
+        params = state.params
+        device = params[0].device
+        gen = _step_generator(rng, state.step, device)
+        with span("mme.train.inputs"):
+            batch = to_device(batch, device)
+            labels = torch.as_tensor(labels, device=device)
+            sample_mask = torch.as_tensor(sample_mask, device=device)
+            class_weights = torch.as_tensor(class_weights, device=device)
+
+        model.train()
+        with batch_reduction(dp):
+            with span("mme.train.forward"):
+                out = model(batch, rng=gen)
+                logits, aux = out if has_aux_loss else (out, None)
+                loss = loss_fn(logits, labels, class_weights, sample_mask)
+                if aux is not None:
+                    loss = loss + aux
+                scaled_loss = loss * loss_scale
+            with span("mme.train.backward"):
+                grads = torch.autograd.grad(scaled_loss, params,
+                                            allow_unused=True)
+                # a parameter the forward did not reach (SpecAugment's
+                # embedding with its probability at 0) has a zero
+                # gradient, as in JAX
+                grads = [torch.zeros_like(p) if g is None else g
+                         for g, p in zip(grads, params)]
+        with span("mme.train.optimizer"):
+            grad_norm = _update(state, params, grads, apply_update, gen)
 
         with torch.no_grad():
             cm = confusion_matrix(logits.argmax(dim=-1), labels, num_classes,

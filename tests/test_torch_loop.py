@@ -279,10 +279,17 @@ def test_run_logger_and_step_timer_match_jax(tmp_path, monkeypatch, capsys):
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    ds = _ds(dataset)
     with profiling.profile_trace(str(tmp_path / "prof")):
         torch.ones(8).sum()
+        fed = prefetch.prefetch_batches(
+            dataset.batches(ds, np.arange(len(ds)), 4), device="cpu")
+        next(fed)
+        fed.close()
     with open(tmp_path / "prof" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    # the program's own span, in the same timeline
+    assert any(e.get("name") == "mme.prefetch.wait" for e in events)
     with profiling.profile_trace(None):
         pass
 
